@@ -23,8 +23,29 @@ Phases, each of which raises on failure (nothing is caught):
   5. NMS under load: the same with eval.score_threshold = 0, so NMS sees
      candidates (random weights put every class near 1/81 < 0.05);
      detections must be > 0.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+  6. train kernels: at the train path's geometry (multipath_vgg16_train:
+     8 images x 64 ROIs, 640^2, C = 512), K1's forward on its two train
+     groups (512 1x views over c3+c4+c5; 1536 context views over c5 alone,
+     the single-level instance eval never launches) against its plain
+     version in float32 (atol 1e-4) and bfloat16 (rtol/atol 1e-2), each
+     timed against it; K3 (window_grad) and K4 (window_rmw_grad) against
+     their plain versions (K3 on c5 with all 2048 foveal views, K4 on c3
+     with the 512 1x views) on random float32 cotangents, float32 (atol
+     1e-4) and cast to bfloat16 (rtol/atol 1e-2), then both timed against
+     their plain versions; and WindowPoolMulti's backward on the card (K3
+     on c5, the placement GEMMs on c4, K4 on c3) against autograd through
+     the plain forward.
+  7. training: Trainer on `multipath_vgg16_train` at full width (VGG-16,
+     conv1-2 frozen, float32 parameters, bf16 compute, batch 8 at 640^2,
+     1000 proposals and 64 sampled ROIs per image), weights normal * 0.02
+     from a seeded generator on the card, a synthetic batch from seed 0:
+     the first step's time, 10 timed steps (ms/step, img/s), peak device
+     memory and a profiler breakdown of one step. Every loss finite, fg
+     sampled, K1/K3/K4 launched and K2 not, frozen blocks bit-identical,
+     conv3_1's gradient nonzero.
+The line before the last is a JSON object with each kernel's launches
+(phase 4's and phase 7's runs, each counted from 0, and their sum), error
+and times; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,12 +63,27 @@ from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
+from multipathnet_tpu_torch.train.loop import Batch, Trainer
 
-KERNEL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool.cu"
-REPLACES = {
-    "window_pool_multi": "multipathnet_tpu/ops/roi_pallas.py:472",
-    "resident_pool": "multipathnet_tpu/ops/roi_pallas.py:940",
+POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool.cu"
+GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "window_pool_multi": (POOL_SOURCE,
+                          "multipathnet_tpu/ops/roi_pallas.py:472"),
+    "resident_pool": (POOL_SOURCE, "multipathnet_tpu/ops/roi_pallas.py:940"),
+    "window_grad": (GRAD_SOURCE, "multipathnet_tpu/ops/roi_pallas.py:659"),
+    "window_rmw_grad": (GRAD_SOURCE,
+                        "multipathnet_tpu/ops/roi_pallas.py:745"),
 }
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        getattr(roi_pool, name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: getattr(roi_pool, name).launches for name in KERNELS}
 LEVELS = (("c3", 4), ("c4", 8), ("c5", 16))
 CONTEXT = (1.5, 2.0, 4.0)
 
@@ -122,6 +158,21 @@ def border_and_scale_rois(n_per_image, batch, canvas, rng):
     return torch.tensor(np.stack(out), dtype=torch.float32, device="cuda")
 
 
+def k1_args(pyr, names, views, img_idx, dtype=None):
+    """window_pool_multi's arguments for `views` (image-major, img_idx their
+    images) over the pyramids `names`, as batched_pyramid_pool_multi builds
+    them; the flats cast to `dtype` if given."""
+    args = [[], [], [], [], []]
+    for name in names:
+        flat, meta = pyr[name]
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+        row0 = (row0 + img_idx * meta.flat.shape[0]).contiguous()
+        flat = flat if dtype is None else flat.to(dtype)
+        for dst, v in zip(args, (flat, row0, x0, wy, wx)):
+            dst.append(v)
+    return args
+
+
 def pool_inputs(levels, rois, canvas):
     """-> (K1 args, K2 args, pyramid levels used per view at c3): K1 pools
     the 1x views over c3+c4+c5, K2 the context views over c5, exactly as
@@ -129,16 +180,10 @@ def pool_inputs(levels, rois, canvas):
     b, r = rois.shape[:2]
     pyr = {name: roi_pyramid.build_pyramid_batch(f, 1.0 / s)
            for name, (f, s) in levels.items()}
-    views = rois.reshape(-1, 4)
     img_idx = torch.arange(b, dtype=torch.int32,
                            device="cuda").repeat_interleave(r)
-    k1 = [[], [], [], [], []]
-    for name, _ in LEVELS:
-        flat, meta = pyr[name]
-        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
-        row0 = (row0 + img_idx * meta.flat.shape[0]).contiguous()
-        for dst, v in zip(k1, (flat, row0, x0, wy, wx)):
-            dst.append(v)
+    k1 = k1_args(pyr, [name for name, _ in LEVELS], rois.reshape(-1, 4),
+                 img_idx)
     flat, meta = pyr["c5"]
     ctx = torch.stack([expand(rois, f, canvas, canvas) for f in CONTEXT],
                       dim=1).reshape(-1, 4)
@@ -234,31 +279,37 @@ def seeded_normal_(model, seed: int, std: float = 0.02):
     return sum(p.numel() for p in model.parameters())
 
 
-def profile_batch(model, cfg, dev_inputs):
-    """One steady batch under torch.profiler: device time by kernel and
-    the device's busy share of the wall time."""
+def profile_once(tag: str, what: str, fn, top: int = 12):
+    """fn() once under torch.profiler: device time by kernel (the top ones
+    and every pool kernel) and by op, and the device's busy share of the
+    wall time. User annotations (Optimizer.step's range) are not
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detect_batch(model, cfg, *dev_inputs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     stats = prof.key_averages()
-    kernels = [e for e in stats if str(e.device_type).endswith("CUDA")
-               and e.device_time_total > 0]
+    kernels = sorted((e for e in stats
+                      if str(e.device_type).endswith("CUDA")
+                      and e.device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    log(f"[profile] one batch: wall {wall_ms:.2f} ms, device kernels "
+    log(f"[{tag}] {what}: wall {wall_ms:.2f} ms, device kernels "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy)")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
-        log(f"[profile]   kernel {e.device_time_total / 1e3:8.3f} ms "
-            f"x{e.count:<4d} {e.key[:80]}")
+    for i, e in enumerate(kernels):
+        if i < top or "window_" in e.key:
+            log(f"[{tag}]   kernel {e.device_time_total / 1e3:8.3f} ms "
+                f"x{e.count:<4d} {e.key[:80]}")
     ops = [e for e in stats if not str(e.device_type).endswith("CUDA")
            and e.self_device_time_total > 0]
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   op {e.self_device_time_total / 1e3:8.3f} ms "
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[{tag}]   op {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:80]}")
 
 
@@ -277,8 +328,7 @@ def main_path():
     det = Detector(model, cfg, "cuda")
     inputs = make_inputs(b, p, canvas)
 
-    roi_pool.window_pool_multi.launches = 0
-    roi_pool.resident_pool.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = det(*inputs)
@@ -295,15 +345,14 @@ def main_path():
         res = detect_batch(model, cfg, *dev_inputs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"window_pool_multi": roi_pool.window_pool_multi.launches,
-                "resident_pool": roi_pool.resident_pool.launches}
+    launches = read_launches()
     log(f"[main] steady: {iters} batches x {b} images in {dt:.3f} s = "
         f"{b * iters / dt:.2f} img/s ({1e3 * dt / iters:.2f} ms/batch); "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main] kernel launches in the main-path run: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the path never launched: {launches}")
+    require(launches["window_pool_multi"] > 0 and launches["resident_pool"]
+            > 0, f"a kernel of the path never launched: {launches}")
     for key, shape in (("boxes", (8, 100, 4)), ("scores", (8, 100)),
                        ("classes", (8, 100)), ("valid", (8, 100))):
         require(out[key].shape == shape and tuple(res[key].shape) == shape,
@@ -327,7 +376,249 @@ def main_path():
         f"{b * iters / dt0:.2f} img/s ({1e3 * dt0 / iters:.2f} ms/batch)")
     require(n_det > 0 and np.isfinite(out0["boxes"]).all(),
             "no detections with score_threshold=0")
-    profile_batch(model, cfg0, dev_inputs)
+    profile_once("profile", "one batch",
+                 lambda: detect_batch(model, cfg0, *dev_inputs))
+    return launches
+
+
+# ------------------------------------------------------------- phase 6 ---
+
+FOVEAL = (1.0, 1.5, 2.0, 4.0)
+# the train path's two K1 groups (MultiPathNet.pool_rois with train=True)
+TRAIN_GROUPS = (("1x views over c3+c4+c5", FOVEAL[:1], ("c3", "c4", "c5")),
+                ("context views over c5", FOVEAL[1:], ("c5",)))
+
+
+def group_views(rois, factors, canvas=640):
+    """A K1 group's views of rois (B, R, 4), image-major, and their
+    images."""
+    b, r = rois.shape[:2]
+    views = torch.stack([expand(rois, f, canvas, canvas) for f in factors],
+                        dim=1).reshape(-1, 4)
+    img_idx = torch.arange(b, dtype=torch.int32,
+                           device="cuda").repeat_interleave(len(factors) * r)
+    return views, img_idx
+
+
+def train_geometry(gen, batch=8, rois_per_image=64, canvas=640, c=512):
+    """The pool's inputs at multipath_vgg16_train: random float32 c3/c4/c5
+    maps, 64 ROIs per image from bench.py's generator, and
+      k3: all 4 foveal views of every ROI over c5 (8 x 256 = 2048 views,
+          image-major, rows image-relative) -> window_grad args;
+      k4: the 1x views over c3 (512 views, rows absolute) ->
+          window_rmw_grad args (without the dtype);
+    plus the pyramids and the ROIs (B, R, 4) for K1 and WindowPoolMulti."""
+    _, _, boxes, _ = make_inputs(batch, rois_per_image, canvas)
+    rois = torch.from_numpy(boxes).cuda()
+    levels = random_levels(batch, canvas, c, gen, torch.float32)
+    pyr = {name: roi_pyramid.build_pyramid_batch(f, 1.0 / s)
+           for name, (f, s) in levels.items()}
+    views, _ = group_views(rois, FOVEAL, canvas)
+    meta = pyr["c5"][1]
+    rows, wmax = meta.flat.shape[:2]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+    gout = torch.randn((views.shape[0], 7, 7, c), generator=gen,
+                       device="cuda")
+    k3 = (gout, row0, x0, wy, wx, batch, rows, wmax)
+    ones, img_idx = group_views(rois, FOVEAL[:1], canvas)
+    (flat,), (row0,), (x0,), (wy,), (wx,) = k1_args(pyr, ("c3",), ones,
+                                                    img_idx)
+    gout = torch.randn((ones.shape[0], 7, 7, c), generator=gen,
+                       device="cuda")
+    k4 = (gout, row0, x0, wy, wx, tuple(flat.shape))
+    return k3, k4, pyr, rois
+
+
+def check_train_forward(pyr, rois):
+    """K1 against its plain version on the train path's two groups (512 1x
+    views over c3+c4+c5, and 1536 context views over c5 alone, the
+    single-level instance that eval never launches), float32 (atol 1e-4)
+    and bfloat16 (rtol/atol 1e-2, the pyramids cast), each group timed
+    against its plain version in bf16. Returns {"float32": err,
+    "bfloat16": err}, the larger of the two groups' errors."""
+    out = {"float32": 0.0, "bfloat16": 0.0}
+    for group, factors, names in TRAIN_GROUPS:
+        views, img_idx = group_views(rois, factors)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k1_args(pyr, names, views, img_idx, dtype)
+            got = roi_pool.window_pool_multi(*args)
+            torch.cuda.synchronize()
+            err, tol = compare(f"window_pool_multi ({group})", dtype, got,
+                               roi_pool.window_pool_multi_ref(*args))
+            key = str(dtype)[6:]
+            out[key] = max(out[key], err)
+            log(f"[grad] train forward: window_pool_multi {key}, "
+                f"{views.shape[0]} {group}, max abs err {err:.3e} ({tol}) "
+                f"ok")
+        ms, plain_ms = alternate_ms(
+            lambda: roi_pool.window_pool_multi_ref(*args),
+            lambda: roi_pool.window_pool_multi(*args), 2, 10)
+        log(f"[grad] train forward: window_pool_multi bf16, {group}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        del got, args
+    return out
+
+
+def check_and_time_grad_kernels(gen):
+    """K1's forward at the train path's two groups (check_train_forward);
+    K3 and K4 against their plain versions on the train path's geometry
+    (float32 atol 1e-4; the bf16 cast rtol/atol 1e-2), timed against them
+    (K3's float32 result, K4's bf16 buffer as the path uses them); then
+    WindowPoolMulti's backward on the card against autograd through the
+    plain forward, float32, atol 1e-4. Returns ({name: {"float32": err,
+    "bfloat16": err, "ms": t, "plain_ms": t}} for K3 and K4, K1's train
+    errors)."""
+    k3, k4, pyr, rois = train_geometry(gen)
+    k1_train = check_train_forward(pyr, rois)
+    out = {}
+    for name, kern, ref, args in (
+            ("window_grad", roi_pool.window_grad, roi_pool.window_grad_ref,
+             k3),
+            ("window_rmw_grad", roi_pool.window_rmw_grad,
+             roi_pool.window_rmw_grad_ref, k4 + (torch.float32,))):
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = ref(*args)
+        out[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            err, tol = compare(name, dtype, got.to(dtype), want.to(dtype))
+            out[name][str(dtype)[6:]] = err
+            log(f"[grad] {name} {str(dtype)[6:]}, {args[0].shape[0]} views "
+                f"into {tuple(got.shape)}, max abs err {err:.3e} ({tol}) ok")
+        del got, want
+        if name == "window_rmw_grad":
+            args = k4 + (torch.bfloat16,)
+        ms, plain_ms = alternate_ms(lambda: ref(*args), lambda: kern(*args),
+                                    2, 10)
+        log(f"[grad] {name} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        out[name].update(ms=ms, plain_ms=plain_ms)
+        # the wrapper's own passes (zeroing, the cast) beside the kernel's
+        profile_once("grad", f"{name} wrapper, one call",
+                     lambda: kern(*args), top=4)
+
+    names = [n for n, _ in LEVELS]
+    flats = [pyr[n][0].detach().requires_grad_() for n in names]
+    metas = [pyr[n][1] for n in names]
+    ones, img_idx = group_views(rois, FOVEAL[:1])
+    gout = torch.randn((ones.shape[0], 7, 7, flats[0].shape[-1]),
+                       generator=gen, device="cuda")
+    got = torch.autograd.grad(
+        (roi_pool.batched_pyramid_pool_multi(flats, metas, ones, img_idx,
+                                             trainable=True) * gout).sum(),
+        flats)
+    _, *geometry = k1_args(pyr, names, ones, img_idx)
+    plain = roi_pool.window_pool_multi_ref(flats, *geometry)
+    want = torch.autograd.grad((plain * gout).sum(), flats)
+    for (lv, _), g_, w_ in zip(LEVELS, got, want):
+        err, tol = compare(f"WindowPoolMulti backward {lv}", torch.float32,
+                           g_, w_)
+        log(f"[grad] WindowPoolMulti backward {lv}: max abs err {err:.3e} "
+            f"({tol}) ok")
+    return out, k1_train
+
+
+# ------------------------------------------------------------- phase 7 ---
+
+def train_batch(cfg, seed: int = 0) -> Batch:
+    """A synthetic batch at the pipeline's shapes, numpy from `seed`: uint8
+    images on the (H, W) canvas, valid extents in [480, 640], 5-20 GT boxes
+    per image padded to max_gt_per_image, and max_proposals proposals per
+    image, half of them jittered around GT so fg exists."""
+    rng = np.random.default_rng(seed)
+    b, (h, w) = cfg.train.batch_size, cfg.data.image_size
+    p, g = cfg.data.max_proposals, cfg.data.max_gt_per_image
+    images = rng.integers(0, 255, (b, h, w, 3), dtype=np.uint8)
+    src_hws = rng.integers(480, 641, (b, 2)).astype(np.float32)
+    n_gt = rng.integers(5, 21, b)
+    gt = np.zeros((b, g, 4), np.float32)
+    classes = np.zeros((b, g), np.int32)
+    props = np.zeros((b, p, 4), np.float32)
+    for i in range(b):
+        ext = src_hws[i, ::-1]                              # (w, h)
+        wh = rng.uniform(32, 0.5 * ext.min(), (n_gt[i], 2))
+        xy = rng.uniform(0, 1, (n_gt[i], 2)) * (ext - wh)
+        gt[i, :n_gt[i]] = np.concatenate([xy, xy + wh], -1)
+        classes[i, :n_gt[i]] = rng.integers(1, cfg.model.num_classes,
+                                            n_gt[i])
+        near = gt[i, rng.integers(0, n_gt[i], p // 2)]
+        size = np.tile(near[:, 2:] - near[:, :2], 2)        # (w, h, w, h)
+        near = near + rng.normal(0, 0.1, near.shape) * size
+        pwh = rng.uniform(16, 0.6 * ext.min(), (p - p // 2, 2))
+        pxy = rng.uniform(0, 1, (p - p // 2, 2)) * (ext - pwh)
+        far = np.concatenate([pxy, pxy + pwh], -1)
+        props[i] = np.clip(np.concatenate([near, far]), 0,
+                           np.tile(ext, 2))
+    return Batch(images, src_hws, props, np.ones((b, p), bool), gt, classes,
+                 np.arange(g)[None, :] < n_gt[:, None])
+
+
+def train_path():
+    """Phase 7: Trainer.step on multipath_vgg16_train at full width."""
+    cfg = preset("multipath_vgg16_train")
+    m, d, t = cfg.model, cfg.data, cfg.train
+    shape = (m.backbone, t.batch_size, d.image_size, d.max_proposals,
+             d.rois_per_image, m.fc_dim, m.num_classes,
+             len(m.integral_thresholds), m.dtype, t.freeze_backbone_stages)
+    require(shape == ("vgg16", 8, (640, 640), 1000, 64, 4096, 81, 6,
+                      "bfloat16", 2), f"unexpected train shape {shape}")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(0)
+    n_params = seeded_normal_(trainer.model, 0)
+    require(all(p.dtype == torch.float32
+                for p in trainer.model.parameters()),
+            "training parameters must be float32")
+    frozen = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()
+              if n in trainer.frozen}
+    require(frozen and all(n.startswith(("backbone.conv1_", "backbone.conv2_"))
+                           for n in frozen), f"frozen set {sorted(frozen)}")
+    batch = trainer.put_batch(train_batch(cfg))
+    torch.cuda.synchronize()
+    log(f"[train] multipath_vgg16_train: {n_params / 1e6:.1f}M float32 "
+        f"params ({len(frozen)} frozen tensors), {m.dtype} compute, on the "
+        f"card in {time.perf_counter() - t0:.1f}s")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    history = [metrics]
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.step(state, batch)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    b = t.batch_size
+    log(f"[train] first step {first_s:.2f} s; steady: {iters} steps x {b} "
+        f"images in {dt:.3f} s = {1e3 * dt / iters:.2f} ms/step, "
+        f"{b * iters / dt:.2f} img/s ({b * d.rois_per_image} ROIs/step); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[train] kernel launches in {iters + 1} steps: {launches}")
+    log("[train] last step: " + ", ".join(
+        f"{k} {float(v):.4g}" for k, v in metrics.items()))
+    losses = [float(h["loss"]) for h in history]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(all(float(h["num_fg"]) > 0 for h in history),
+            "a step sampled no foreground ROI")
+    for name in ("window_pool_multi", "window_grad", "window_rmw_grad"):
+        require(launches[name] > 0, f"{name} never launched in training")
+    require(launches["resident_pool"] == 0,
+            f"resident_pool launched in training: {launches}")
+    params = dict(trainer.model.named_parameters())
+    for name, before in frozen.items():
+        require(torch.equal(params[name], before), f"frozen {name} moved")
+    g31 = params["backbone.conv3_1.weight"].grad
+    require(g31 is not None and bool(g31.abs().sum() > 0),
+            "no gradient reached conv3_1")
+    profile_once("train", "one step",
+                 lambda: trainer.step(state, batch), top=24)
     return launches
 
 
@@ -355,16 +646,29 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stats = check_and_time_kernels(gen)
     torch.cuda.empty_cache()
-    launches = main_path()
+    eval_launches = main_path()
+    torch.cuda.empty_cache()
+    grad_stats, k1_train = check_and_time_grad_kernels(gen)
+    stats.update(grad_stats)
+    torch.cuda.empty_cache()
+    train_launches = train_path()
 
+    # launches: the eval and train paths' runs, each counted from 0;
+    # K1's train_max_abs_err*: its forward at the train path's groups
     kernels = [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES[name], "launches": launches[name],
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": eval_launches[name] + train_launches[name],
+        "eval_launches": eval_launches[name],
+        "train_launches": train_launches[name],
         "max_abs_err": stats[name]["float32"],
         "max_abs_err_bf16": stats[name]["bfloat16"],
+        **({"train_max_abs_err": k1_train["float32"],
+            "train_max_abs_err_bf16": k1_train["bfloat16"]}
+           if name == "window_pool_multi" else {}),
         "ms": round(stats[name]["ms"], 4),
         "plain_ms": round(stats[name]["plain_ms"], 4),
-    } for name in ("window_pool_multi", "resident_pool")]
+    } for name, (source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

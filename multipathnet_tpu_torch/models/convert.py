@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's flax parameter tree -> this port's
-state dict.
+"""Weight bridge between the JAX package's flax parameter tree and this
+port's state dict, both ways.
 
 It inverts multipathnet_tpu/models/import_weights.conv_to_flax and
 linear_to_flax: a conv kernel (kH, kW, I, O) becomes (O, I, kH, kW), a dense
@@ -9,8 +9,8 @@ head/cls_bbox — because the port names its modules after the flax tree.
 fc6's input rows stay in the reference's (G, G, C) channel-last flatten
 order, which is the order MultiPathHead flattens in.
 
-Takes numpy arrays (np.asarray of each jax leaf), so this module needs no
-jax.
+Takes and gives numpy arrays (np.asarray of each jax leaf), so this module
+needs no jax.
 """
 
 from __future__ import annotations
@@ -53,7 +53,26 @@ def state_dict_from_flax(params) -> dict:
 
 
 def load_flax_params(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy a flax tree into `model` (every name must match), casting to
-    each parameter's dtype and device."""
+    """Copy a flax tree into `model` (every name must match); each
+    parameter keeps its own dtype (float32 in a training model, the compute
+    dtype in an eval model) and device."""
     model.load_state_dict(state_dict_from_flax(params), strict=True)
     return model
+
+
+def flax_from_state_dict(state_dict) -> dict:
+    """The inverse of state_dict_from_flax: {name: tensor} -> {"params":
+    nested dict of float32 numpy arrays}, kernels back in HWIO / (in,
+    out) layout."""
+    tree = {}
+    for name, t in state_dict.items():
+        a = t.detach().float().cpu().numpy()
+        *mods, leaf = name.split(".")
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T  # -> HWIO
+            leaf = "kernel"
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels under multipathnet_tpu_torch/csrc/.
 
-nvcc compiles the sources into one shared library with a plain C interface
-at first use, into build/kernels/<hash>/ at the repository root (listed in
+nvcc compiles each source into an object, all sources at once in parallel,
+and links them into one shared library with a plain C interface at first
+use, into build/kernels/<hash>/ at the repository root (listed in
 .gitignore), keyed by a hash of the sources and the flags, so a changed
 source rebuilds and an unchanged one loads what is there. The library is
 bound with ctypes: every pointer and the stream pass as c_void_p, every
@@ -24,17 +25,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-SOURCES = ("roi_window_pool.cu",)
+SOURCES = ("roi_window_pool.cu", "roi_window_grad.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# entry point -> argtypes (csrc/roi_window_pool.cu)
+# entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu)
 _SIGNATURES = {
     "mpn_window_pool_multi": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P],
+    "mpn_window_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mpn_window_rmw_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -68,17 +71,32 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     if lib_path.exists():
         return lib_path, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".libmpn_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), str(os.getpid())
+    objs = [out_dir / f".{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
+    compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS,
+                             *(["-Xptxas", "-v"] if verbose else []),
+                             "-c", "-o", str(obj), str(CSRC / src)]
+                            for src, obj in zip(SOURCES, objs))]
+    outs = [proc.communicate()[0] for _, proc in compiles]
+    for (cmd, proc), out in zip(compiles, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    log = "".join(outs)
+    tmp = out_dir / f".libmpn_kernels.{tag}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
-    return lib_path, seconds, proc.stdout + proc.stderr
+    return lib_path, seconds, log + proc.stdout + proc.stderr
 
 
 def kernels() -> ctypes.CDLL:

@@ -100,6 +100,14 @@ def clip(boxes: torch.Tensor, height, width) -> torch.Tensor:
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
+def hflip(boxes: torch.Tensor, width) -> torch.Tensor:
+    """Horizontal flip within an image of the given width (broadcast
+    against boxes[..., 0])."""
+    x1 = width - boxes[..., 2]
+    x2 = width - boxes[..., 0]
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)
+
+
 def expand(boxes: torch.Tensor, factor, height=None, width=None
            ) -> torch.Tensor:
     """Foveal context expansion (MultiPath §3.1): scale each box by

@@ -1,5 +1,5 @@
 """ROI window pooling — the port of multipathnet_tpu/ops/roi_pallas.py's
-eval path.
+forward kernels and the backward of the level-summed one.
 
 Per (image, ROI, foveal) view, `view_geometry` picks the pyramid scale where
 the view's G bins span (0.5, 1] cell, the origin (row0, x0) of the
@@ -14,10 +14,16 @@ Two kernels compute it (csrc/roi_window_pool.cu):
       over c3 + c4 + c5.
   resident_pool (K2) — one level, image-relative rows into a batch of
       per-image pyramids; the context views over c5.
-Each wrapper runs its plain PyTorch version (`*_ref`: gather the windows,
-two einsums in float32) for tensors on the CPU, launches its kernel for
-tensors on a CUDA device, and raises for anything else. `launches` on each
-wrapper counts its kernel launches.
+Training differentiates K1 (`WindowPoolMulti`). Its backward is the
+transpose of the pool per view, gwin = wy^T g wx (10 x 16 x C), summed into
+the pyramid gradient at the window, by one of two kernels
+(csrc/roi_window_grad.cu) or the per-image placement GEMMs:
+  window_grad (K3) — image-relative rows, a float32 gradient.
+  window_rmw_grad (K4) — absolute rows, a gradient in the buffer's dtype.
+Each wrapper runs its plain PyTorch version (`*_ref`: gather or scatter
+the windows, two einsums in float32) for tensors on the CPU, launches its
+kernel for tensors on a CUDA device, and raises for anything else.
+`launches` on each wrapper counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -247,14 +253,253 @@ def resident_pool(flat, row0, x0, wy, wx) -> torch.Tensor:
 resident_pool.launches = 0
 
 
+# ------------------------------------------------------------- backward ---
+
+# The backward's routing, carried over from roi_pallas._mwpt_bwd with the
+# reference's values: they encode the TPU's VMEM size and its matrix unit's
+# placement cost, not a tuning for this card. K3 takes a level whose f32
+# per-image gradient fits _GRAD_VMEM_BUDGET bytes; K4 a level with more than
+# _PLACE_PER_IMAGE_MAX_CELLS cells per image; the per-image placement GEMMs
+# the rest. At multipath_vgg16_train that is c5 -> K3, c4 -> placement,
+# c3 -> K4.
+_GRAD_VMEM_BUDGET = 7 * 1024 * 1024
+_PLACE_PER_IMAGE_MAX_CELLS = 24 * 1024
+
+
+def window_cotangent(gout, wy, wx) -> torch.Tensor:
+    """gout (N, G, G, C), wy (N, G, 10), wx (N, G, 16) -> the window
+    gradients gwin = wy^T gout wx, (N, 10, 16, C) float32."""
+    m = torch.einsum("niy,nijc->nyjc", wy.float(), gout.float())
+    return torch.einsum("nyjc,njx->nyxc", m, wx.float())
+
+
+def _scatter_windows(gwin, row0, x0, shape) -> torch.Tensor:
+    """index_put_(accumulate=True) of N (10, 16, C) windows at absolute
+    (row0, x0) into float32 zeros of `shape`."""
+    n = gwin.shape[0]
+    ys = row0.long()[:, None] + torch.arange(WINDOW, device=gwin.device)
+    xs = x0.long()[:, None] + torch.arange(WINDOW_X, device=gwin.device)
+    out = gwin.new_zeros(shape)
+    out.index_put_((ys[:, :, None].expand(n, WINDOW, WINDOW_X),
+                    xs[:, None, :].expand(n, WINDOW, WINDOW_X)), gwin,
+                   accumulate=True)
+    return out
+
+
+def _image_rows(n, batch, rows, device) -> torch.Tensor:
+    """(N,) first row of each view's image in the stacked buffer, views
+    image-major."""
+    if n % batch:
+        raise ValueError(f"{n} views do not split over {batch} images")
+    return (torch.arange(batch, dtype=torch.int32, device=device)
+            * rows).repeat_interleave(n // batch)
+
+
+def _check_windows(row0, x0, rows, wmax) -> None:
+    """Every window must lie inside its buffer: view_geometry clamps, and
+    the backward has no counterpart of the forward's NaN rule."""
+    if row0.numel() == 0:
+        return
+    r_lo, r_hi, x_lo, x_hi = torch.stack(
+        [row0.min(), row0.max(), x0.min(), x0.max()]).tolist()
+    if r_lo < 0 or r_hi + WINDOW > rows or x_lo < 0 or x_hi + WINDOW_X > wmax:
+        raise ValueError(
+            f"a window falls outside its ({rows}, {wmax}) buffer: rows "
+            f"{r_lo}..{r_hi}+{WINDOW}, columns {x_lo}..{x_hi}+{WINDOW_X}")
+
+
+def window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows, wmax
+                    ) -> torch.Tensor:
+    """Plain version of K3: window gradients in float32, scattered with
+    index_put_(accumulate=True) into float32 zeros of (batch * rows, wmax,
+    C)."""
+    n, c = gout.shape[0], gout.shape[-1]
+    row0 = row0_rel.long() + _image_rows(n, batch, rows, gout.device)
+    return _scatter_windows(window_cotangent(gout, wy, wx), row0, x0,
+                            (batch * rows, wmax, c))
+
+
+def window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype
+                        ) -> torch.Tensor:
+    """Plain version of K4: the same scatter at absolute rows into float32
+    zeros of `shape`, one cast to `dtype`."""
+    return _scatter_windows(window_cotangent(gout, wy, wx), row0, x0,
+                            tuple(shape)).to(dtype)
+
+
+def _check_grad_args(gout, row0, x0, wy, wx, dev):
+    n, g = wy.shape[:2]
+    if g != 7:
+        raise ValueError(f"the kernel is written for G=7 bins, got {g}")
+    c = gout.shape[-1]
+    if c % 2:
+        raise ValueError(f"the kernel needs an even channel count, got {c}")
+    _check("gout", gout, (n, g, g, c), torch.float32, dev)
+    _check("row0", row0, (n,), torch.int32, dev)
+    _check("x0", x0, (n,), torch.int32, dev)
+    _check("wy", wy, (n, g, WINDOW), torch.float32, dev)
+    _check("wx", wx, (n, g, WINDOW_X), torch.float32, dev)
+    return n, c
+
+
+def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
+                wmax: int) -> torch.Tensor:
+    """K3: the pyramid gradient of one level, image-relative rows.
+
+    gout (N, G, G, C) float32 cotangent, views image-major (N = batch * V);
+    row0_rel/x0 (N,) int32 image-relative window origins; wy/wx the
+    forward's weight rows. Returns the (batch * rows, wmax, C) float32
+    gradient. Replaces roi_pallas.pallas_window_grad.
+    """
+    if gout.device.type == "cpu":
+        _check_windows(row0_rel, x0, rows, wmax)
+        return window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows, wmax)
+    if gout.device.type != "cuda":
+        raise ValueError(f"gout must be a CPU or CUDA tensor, got "
+                         f"{gout.device}")
+    dev = gout.device
+    n, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dev)
+    _check_windows(row0_rel, x0, rows, wmax)
+    if n % batch:
+        raise ValueError(f"{n} views do not split over {batch} images")
+    out = torch.zeros((batch * rows, wmax, c), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    from multipathnet_tpu_torch.ops import _build
+
+    rc = _build.kernels().mpn_window_grad(
+        n, n // batch, rows, wmax, c, gout.data_ptr(), row0_rel.data_ptr(),
+        x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
+        _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"window_grad launch failed: cudaError {rc}")
+    window_grad.launches += 1
+    return out
+
+
+window_grad.launches = 0
+
+
+def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
+    """K4: the pyramid gradient of one level, absolute rows.
+
+    gout (N, G, G, C) float32; row0/x0 (N,) int32 absolute window origins
+    into the stacked (shape[0], shape[1], C) buffer. Returns that buffer in
+    `dtype`. The TPU kernel accumulates in the buffer's dtype one view at a
+    time; this one accumulates in float32 and rounds once at the end.
+    Replaces roi_pallas.pallas_window_rmw_grad.
+    """
+    rows, wmax, c = shape
+    if gout.device.type == "cpu":
+        _check_windows(row0, x0, rows, wmax)
+        return window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype)
+    if gout.device.type != "cuda":
+        raise ValueError(f"gout must be a CPU or CUDA tensor, got "
+                         f"{gout.device}")
+    dev = gout.device
+    n, gc = _check_grad_args(gout, row0, x0, wy, wx, dev)
+    if gc != c:
+        raise ValueError(f"gout has {gc} channels, the buffer {c}")
+    _check_windows(row0, x0, rows, wmax)
+    acc = torch.zeros((rows, wmax, c), dtype=torch.float32, device=dev)
+    if n:
+        from multipathnet_tpu_torch.ops import _build
+
+        rc = _build.kernels().mpn_window_rmw_grad(
+            n, rows, wmax, c, gout.data_ptr(), row0.data_ptr(),
+            x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), acc.data_ptr(),
+            _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"window_rmw_grad launch failed: cudaError "
+                               f"{rc}")
+        window_rmw_grad.launches += 1
+    return acc.to(dtype)
+
+
+window_rmw_grad.launches = 0
+
+
+def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
+                            ) -> torch.Tensor:
+    """Port of roi_pallas._place_windows_per_image: each image's window
+    gradients summed into its own (rows, width, C) block by two one-hot
+    GEMMs. gwin (N, 10, 16, C), N = batch * V image-major; row0_rel/x0 (N,)
+    image-relative. The column spread is rounded to `dtype` (the compute
+    dtype), the rows contraction accumulates in float32, one cast to
+    `dtype`. Returns (batch * rows, width, C)."""
+    n, ht, wd, c = gwin.shape
+    v = n // batch
+    dev = gwin.device
+    row0_rel = torch.clamp(row0_rel.long(), 0, rows - ht)
+    x0 = torch.clamp(x0.long(), 0, width - wd)
+    xs = x0[:, None] + torch.arange(wd, device=dev)
+    cols = (xs[:, :, None] == torch.arange(width, device=dev)).float()
+    gx = torch.einsum("njx,nrjc->nrxc", cols,
+                      gwin.to(dtype).float()).to(dtype)
+    ridx = (row0_rel[:, None] + torch.arange(ht, device=dev)).reshape(
+        batch, v * ht)
+    oh = (ridx[:, :, None] == torch.arange(rows, device=dev)).float()
+    out = torch.einsum("bkr,bkwc->brwc", oh,
+                       gx.reshape(batch, v * ht, width, c).float())
+    return out.to(dtype).reshape(batch * rows, width, c)
+
+
+def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
+    """One level's pyramid gradient, routed as roi_pallas._mwpt_bwd."""
+    wmax, c = shape[1], shape[2]
+    n = g.shape[0]
+    if rows * wmax * c * 4 <= _GRAD_VMEM_BUDGET:
+        row0_rel = (row0 - _image_rows(n, batch, rows, g.device)).contiguous()
+        return window_grad(g, row0_rel, x0, wy, wx, batch, rows,
+                           wmax).to(dtype)
+    if rows * wmax > _PLACE_PER_IMAGE_MAX_CELLS:
+        return window_rmw_grad(g, row0, x0, wy, wx, shape, dtype)
+    row0_rel = row0 - _image_rows(n, batch, rows, g.device)
+    return place_windows_per_image(row0_rel, x0, window_cotangent(g, wy, wx),
+                                   batch, rows, wmax, dtype)
+
+
+class WindowPoolMulti(torch.autograd.Function):
+    """Differentiable K1 — the counterpart of
+    roi_pallas.multi_window_pool_trainable with rows_list and batch.
+
+    apply((row0s, x0s, wys, wxs), rows_list, batch, *flats): the geometry
+    lists as window_pool_multi takes them (row0 absolute), each level's rows
+    per image, the image count, then the L stacked pyramids. Gradients go to
+    the pyramids only: the geometry derives from ROI coordinates, which are
+    data. Like the reference's zero stubs, the backward keeps no pyramid,
+    only its shape and dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, geometry, rows_list, batch, *flats):
+        ctx.geometry = geometry
+        ctx.rows_list = tuple(rows_list)
+        ctx.batch = batch
+        ctx.flat_meta = [(tuple(f.shape), f.dtype) for f in flats]
+        return window_pool_multi(list(flats), *geometry)
+
+    @staticmethod
+    def backward(ctx, gout):
+        g = gout.float().contiguous()
+        grads = [
+            _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, ctx.batch)
+            for row0, x0, wy, wx, (shape, dtype), rows in zip(
+                *ctx.geometry, ctx.flat_meta, ctx.rows_list)]
+        return (None, None, None, *grads)
+
+
 def batched_pyramid_pool_multi(flat_batches, pyr_metas, rois_views,
                                img_idx, *, output_size: int = 7,
-                               samples_per_bin: int = 2) -> torch.Tensor:
+                               samples_per_bin: int = 2,
+                               trainable: bool = False) -> torch.Tensor:
     """Level-summed pooling over batched pyramids through K1.
 
     flat_batches: L (B * rows_l, Wmax_l, C) stacked pyramids; pyr_metas: L
     single-image metas; rois_views (N, 4) shared by all levels; img_idx (N,)
-    each view's image. Returns (N, G, G, C).
+    each view's image. Returns (N, G, G, C). `trainable` runs it through
+    WindowPoolMulti, so gradients reach the pyramids (views image-major).
     """
     row0s, x0s, wys, wxs = [], [], [], []
     for meta in pyr_metas:
@@ -266,6 +511,11 @@ def batched_pyramid_pool_multi(flat_batches, pyr_metas, rois_views,
         x0s.append(x0)
         wys.append(wy)
         wxs.append(wx)
+    if trainable:
+        rows_list = tuple(meta.flat.shape[0] for meta in pyr_metas)
+        batch = flat_batches[0].shape[0] // rows_list[0]
+        return WindowPoolMulti.apply((row0s, x0s, wys, wxs), rows_list,
+                                     batch, *flat_batches)
     return window_pool_multi(list(flat_batches), row0s, x0s, wys, wxs)
 
 

@@ -50,7 +50,9 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
     Average mode: 2x area pooling that divides by the count of valid cells
     (an odd dimension's last cell pools alone), zero padding. meta
     describes ONE image's pyramid; its flat is image 0's rows (a view).
-    Sums run in the feature dtype, as in the reference.
+    Sums run in the feature dtype, as in the reference. The slice
+    assignments into zero buffers are differentiable: the pyramid's
+    gradient flows back to feats.
     """
     b, h, w, c = feats.shape
     if num_scales is None:

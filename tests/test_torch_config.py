@@ -41,17 +41,29 @@ import importlib.util
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "multipathnet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "multipathnet_tpu"))
 print("LEAKED", bad)
+print("IMPORTED", sorted(m for m in sys.modules
+                         if m.startswith("multipathnet_tpu_torch.")))
 sys.exit(1 if bad else 0)
 """
 
+# modules the subprocess must have imported, the training path's included
+_MUST_IMPORT = ("ops.roi_pool", "ops._build", "models.layers",
+                "models.multipath", "data.sampler", "train.losses",
+                "train.schedule", "train.loop", "eval.detect")
+
 
 def test_port_never_imports_jax():
-    """Every module of the port, and chip_smoke.py, import without jax."""
+    """Every module of the port, and chip_smoke.py, import without jax
+    (nor flax or optax)."""
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    imported = proc.stdout.split("IMPORTED", 1)[1]
+    for name in _MUST_IMPORT:
+        assert f"'multipathnet_tpu_torch.{name}'" in imported, name
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
