@@ -43,9 +43,31 @@ Phases, each of which raises on failure (nothing is caught):
      memory and a profiler breakdown of one step. Every loss finite, fg
      sampled, K1/K3/K4 launched and K2 not, frozen blocks bit-identical,
      conv3_1's gradient nonzero.
-The line before the last is a JSON object with each kernel's launches
-(phase 4's and phase 7's runs, each counted from 0, and their sum), error
-and times; the last line is {"ok": true, "device": {...}}.
+  8. int8 epilogue: K1 and K2 with the skip bias (the quant instances) at
+     the main path's shapes (K1 8000 views x 3 levels, K2 8 x 3000 views,
+     C = 512), float32 and bfloat16: bit for bit against the plain epilogue
+     (roi_pool.quant_view_ref) applied to the same kernel's own pooled
+     output, and against the fully plain version codes within 1 and scales
+     within 1e-5 (float32) / 1e-2 (bfloat16) relative; in bf16 each timed
+     against its plain version and against the kernel without the epilogue
+     followed by the plain epilogue.
+  9. int8 serving: Detector on `multipath_vgg16_int8` at 8 x 1000
+     proposals, 640^2: float32 weights normal * 0.02 drawn on the card
+     from a seeded generator, quantized by Detector's load-time transform
+     (bench.py's flow); first-call time, steady img/s over 10 batches, peak
+     device memory, a profiler breakdown of one batch. The quant K1/K2 must
+     have launched and K1/K2 without the epilogue not; outputs finite with
+     shapes (8, 100, 4) / (8, 100).
+ 10. int8 + truncated-SVD serving: the same on `multipath_vgg16_int8_svd`,
+     the factored layout (fc6 rank 1024, fc7 rank 256) drawn directly in
+     float32, as bench.py does (the load-time SVD is tested on the CPU).
+     Then phase 4's bf16 img/s is printed beside both.
+The line before the last is a JSON object with each kernel's launches (the
+runs of phases 4, 7, 9 and 10, each counted from 0, and their sum), error,
+times and bound: the larger of the bytes it must move (each pyramid cell
+under a window, the geometry and the output once) over 3.35 TB/s and its
+float32 operations over 67 TF/s; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -60,6 +82,7 @@ import torch
 
 from multipathnet_tpu_torch.core.config import preset
 from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
+from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
@@ -67,23 +90,35 @@ from multipathnet_tpu_torch.train.loop import Batch, Trainer
 
 POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "window_pool_multi": (POOL_SOURCE,
-                          "multipathnet_tpu/ops/roi_pallas.py:472"),
-    "resident_pool": (POOL_SOURCE, "multipathnet_tpu/ops/roi_pallas.py:940"),
-    "window_grad": (GRAD_SOURCE, "multipathnet_tpu/ops/roi_pallas.py:659"),
-    "window_rmw_grad": (GRAD_SOURCE,
-                        "multipathnet_tpu/ops/roi_pallas.py:745"),
+PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
+# name -> (source, the TPU kernel it replaces, wrapper, its launch counter)
+KERNELS = {
+    "window_pool_multi": (POOL_SOURCE, f"{PALLAS}:472",
+                          roi_pool.window_pool_multi, "launches"),
+    "resident_pool": (POOL_SOURCE, f"{PALLAS}:940", roi_pool.resident_pool,
+                      "launches"),
+    "window_pool_multi_quant": (POOL_SOURCE, f"{PALLAS}:536",
+                                roi_pool.window_pool_multi,
+                                "quant_launches"),
+    "resident_pool_quant": (POOL_SOURCE, f"{PALLAS}:977",
+                            roi_pool.resident_pool, "quant_launches"),
+    "window_grad": (GRAD_SOURCE, f"{PALLAS}:659", roi_pool.window_grad,
+                    "launches"),
+    "window_rmw_grad": (GRAD_SOURCE, f"{PALLAS}:745",
+                        roi_pool.window_rmw_grad, "launches"),
 }
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        getattr(roi_pool, name).launches = 0
+    for _, _, fn, counter in KERNELS.values():
+        setattr(fn, counter, 0)
 
 
 def read_launches() -> dict:
-    return {name: getattr(roi_pool, name).launches for name in KERNELS}
+    return {name: getattr(fn, counter)
+            for name, (_, _, fn, counter) in KERNELS.items()}
+
+
 LEVELS = (("c3", 4), ("c4", 8), ("c5", 16))
 CONTEXT = (1.5, 2.0, 4.0)
 
@@ -134,6 +169,69 @@ def alternate_ms(plain, kernel, iters_plain: int, iters_kernel: int):
     k2 = cuda_ms(kernel, iters_kernel)
     p2 = cuda_ms(plain, iters_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# ---------------------------------------------------------------- bounds ---
+
+HBM_BYTES_PER_MS = 3.35e9     # H100 SXM, 3.35 TB/s
+F32_OPS_PER_MS = 67e9         # H100 SXM float32 on the CUDA cores, 67 TF/s
+# per view and level: row0, x0 (int32), wy (7 x 10), wx (7 x 16) float32
+GEOMETRY_BYTES = 4 + 4 + 4 * 7 * 10 + 4 * 7 * 16
+POOL_OPS = 2 * 1610           # per view, level and channel: the separable
+#                               contraction's FMAs (csrc/roi_window_pool.cu)
+EPILOGUE_OPS = 5              # per output element: bias add, ReLU, max,
+#                               divide, round
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take, in ms, and what sets it: the
+    larger of the bytes over the HBM rate and the float32 operations over
+    the CUDA cores' peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_cells(row0, x0, n_rows, wmax) -> int:
+    """The distinct cells of an (n_rows, wmax) buffer under the 10 x 16
+    windows at (row0, x0): what these views need read."""
+    dev = row0.device
+    mask = torch.zeros((n_rows, wmax), dtype=torch.bool, device=dev)
+    ys = row0.long()[:, None] + torch.arange(10, device=dev)
+    xs = x0.long()[:, None] + torch.arange(16, device=dev)
+    mask[ys[:, :, None], xs[:, None, :]] = True
+    return int(mask.sum())
+
+
+def pool_bound(flats, row0s, x0s, quant: bool):
+    """bound() of one K1 or K2 call on these inputs: each pyramid cell
+    under a window read once, the geometry read once, the (N, 7, 7, C)
+    output written once (int8 codes, one float32 scale per view and the
+    bias read with the epilogue); POOL_OPS per view, level and channel,
+    plus EPILOGUE_OPS per output element with the epilogue. K2's per-image
+    pyramids (B, rows, Wmax, C) take image-relative rows."""
+    c, size = flats[0].shape[-1], flats[0].element_size()
+    n = row0s[0].numel()
+    cells = 0
+    for flat, row0, x0 in zip(flats, row0s, x0s):
+        if flat.dim() == 4:
+            b, rows = flat.shape[:2]
+            row0 = row0 + torch.arange(b, device=row0.device)[:, None] * rows
+        wmax = flat.shape[-2]
+        cells += window_cells(row0.reshape(-1), x0.reshape(-1),
+                              flat.numel() // (wmax * c), wmax)
+    out = n * 49 * c + n * 4 + c * size if quant else n * 49 * c * size
+    return bound(cells * c * size + n * len(flats) * GEOMETRY_BYTES + out,
+                 n * len(flats) * c * POOL_OPS
+                 + (n * 49 * c * EPILOGUE_OPS if quant else 0))
+
+
+def grad_bound(gout, out_numel: int, out_size: int):
+    """bound() of one K3 or K4 call: the float32 cotangent and the geometry
+    read once, the whole gradient buffer written once; POOL_OPS per view
+    and channel (the transposed contraction)."""
+    n, c = gout.shape[0], gout.shape[-1]
+    return bound(gout.numel() * 4 + n * GEOMETRY_BYTES + out_numel * out_size,
+                 n * c * POOL_OPS)
 
 
 # ------------------------------------------------------------- phase 3 ---
@@ -224,8 +322,9 @@ def check_and_time_kernels(gen):
       coverage: 2 images, 2048 ROIs at every c3 pyramid scale, a third of
           them over the image border.
     Then each kernel is timed against its plain version on the main path's
-    bf16 inputs. Returns {name: {"f32": err, "bf16": err, "ms": t,
-    "plain_ms": t}} of the main-path case."""
+    bf16 inputs. Returns {name: {"float32": err, "bfloat16": err, "ms": t,
+    "plain_ms": t, "bound_ms": t, "bound_by": ...}} of the main-path
+    case."""
     _, _, boxes, _ = make_inputs(8, 1000, 640)
     cases = (("main path", torch.from_numpy(boxes).cuda()),
              ("coverage", border_and_scale_rois(
@@ -258,9 +357,15 @@ def check_and_time_kernels(gen):
                 if dtype == torch.bfloat16:
                     ms, plain_ms = alternate_ms(lambda: ref(*args),
                                                 lambda: kern(*args), 2, 10)
+                    flats, row0s, x0s = ((args[0], args[1], args[2])
+                                         if name == "window_pool_multi" else
+                                         ([args[0]], [args[1]], [args[2]]))
+                    b_ms, b_by = pool_bound(flats, row0s, x0s, quant=False)
                     log(f"[kernels] main path: {name} bf16 kernel {ms:.3f} "
-                        f"ms, plain {plain_ms:.3f} ms")
-                    out[name].update(ms=ms, plain_ms=plain_ms)
+                        f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+                        f"({b_by})")
+                    out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by)
             del k1, k2
         del levels
     return out
@@ -346,13 +451,15 @@ def main_path():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    ips = b * iters / dt
     log(f"[main] steady: {iters} batches x {b} images in {dt:.3f} s = "
         f"{b * iters / dt:.2f} img/s ({1e3 * dt / iters:.2f} ms/batch); "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main] kernel launches in the main-path run: {launches}")
     require(launches["window_pool_multi"] > 0 and launches["resident_pool"]
-            > 0, f"a kernel of the path never launched: {launches}")
+            > 0 and launches["window_pool_multi_quant"] == 0,
+            f"a kernel of the path never launched: {launches}")
     for key, shape in (("boxes", (8, 100, 4)), ("scores", (8, 100)),
                        ("classes", (8, 100)), ("valid", (8, 100))):
         require(out[key].shape == shape and tuple(res[key].shape) == shape,
@@ -378,7 +485,7 @@ def main_path():
             "no detections with score_threshold=0")
     profile_once("profile", "one batch",
                  lambda: detect_batch(model, cfg0, *dev_inputs))
-    return launches
+    return launches, ips
 
 
 # ------------------------------------------------------------- phase 6 ---
@@ -466,8 +573,8 @@ def check_and_time_grad_kernels(gen):
     (K3's float32 result, K4's bf16 buffer as the path uses them); then
     WindowPoolMulti's backward on the card against autograd through the
     plain forward, float32, atol 1e-4. Returns ({name: {"float32": err,
-    "bfloat16": err, "ms": t, "plain_ms": t}} for K3 and K4, K1's train
-    errors)."""
+    "bfloat16": err, "ms": t, "plain_ms": t, "bound_ms": t, "bound_by":
+    ...}} for K3 and K4, K1's train errors)."""
     k3, k4, pyr, rois = train_geometry(gen)
     k1_train = check_train_forward(pyr, rois)
     out = {}
@@ -490,8 +597,15 @@ def check_and_time_grad_kernels(gen):
             args = k4 + (torch.bfloat16,)
         ms, plain_ms = alternate_ms(lambda: ref(*args), lambda: kern(*args),
                                     2, 10)
-        log(f"[grad] {name} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        out[name].update(ms=ms, plain_ms=plain_ms)
+        if name == "window_grad":    # (batch * rows, wmax, C) float32
+            b_ms, b_by = grad_bound(args[0], args[5] * args[6] * args[7]
+                                    * args[0].shape[-1], 4)
+        else:                        # the buffer's shape, in bf16
+            b_ms, b_by = grad_bound(args[0], int(np.prod(args[5])), 2)
+        log(f"[grad] {name} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by})")
+        out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by)
         # the wrapper's own passes (zeroing, the cast) beside the kernel's
         profile_once("grad", f"{name} wrapper, one call",
                      lambda: kern(*args), top=4)
@@ -609,8 +723,10 @@ def train_path():
             "a step sampled no foreground ROI")
     for name in ("window_pool_multi", "window_grad", "window_rmw_grad"):
         require(launches[name] > 0, f"{name} never launched in training")
-    require(launches["resident_pool"] == 0,
-            f"resident_pool launched in training: {launches}")
+    for name in ("resident_pool", "window_pool_multi_quant",
+                 "resident_pool_quant"):
+        require(launches[name] == 0, f"{name} launched in training: "
+                f"{launches}")
     params = dict(trainer.model.named_parameters())
     for name, before in frozen.items():
         require(torch.equal(params[name], before), f"frozen {name} moved")
@@ -620,6 +736,154 @@ def train_path():
     profile_once("train", "one step",
                  lambda: trainer.step(state, batch), top=24)
     return launches
+
+
+# ------------------------------------------------------------- phase 8 ---
+
+def check_and_time_quant_kernels(gen):
+    """K1 and K2 with the int8 epilogue at the main path's shapes (bench.py's
+    8 x 1000 proposals on random 640^2 c3/c4/c5 maps, C = 512, a random skip
+    bias), float32 and bfloat16: bit for bit against quant_view_ref of the
+    same kernel's own pooled output; against the fully plain version codes
+    within 1 and scales within 1e-5 (float32) / 1e-2 (bfloat16) relative.
+    In bf16, each timed against its plain version and against the kernel
+    without the epilogue followed by the plain epilogue ("unfused").
+    Returns {name: {"float32": max code error, "bfloat16": ..., "ms": t,
+    "plain_ms": t, "bound_ms": t, "bound_by": ..., "extra": {...}}}."""
+    _, _, boxes, _ = make_inputs(8, 1000, 640)
+    rois = torch.from_numpy(boxes).cuda()
+    levels = random_levels(8, 640, 512, gen, torch.bfloat16)
+    out = {"window_pool_multi_quant": {"extra": {}},
+           "resident_pool_quant": {"extra": {}}}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        k1, k2, _, _ = pool_inputs(
+            {n: (f.to(dtype), s) for n, (f, s) in levels.items()}, rois, 640)
+        bias = (torch.randn(512, generator=gen, device="cuda") * 0.5).to(
+            dtype)
+        for name, kern, ref, args in (
+                ("window_pool_multi_quant", roi_pool.window_pool_multi,
+                 roi_pool.window_pool_multi_ref, k1),
+                ("resident_pool_quant", roi_pool.resident_pool,
+                 roi_pool.resident_pool_ref, k2)):
+            q, s = kern(*args, quant_bias=bias)
+            torch.cuda.synchronize()
+            n = s.numel()
+
+            def unfused():
+                pooled = kern(*args).reshape(n, 7, 7, 512)
+                return roi_pool.quant_view_ref(pooled, bias)
+
+            own_q, own_s = unfused()
+            require(torch.equal(q.reshape(n, 7, 7, 512), own_q)
+                    and torch.equal(s.reshape(n), own_s),
+                    f"{name} {key}: not bit-equal to the plain epilogue on "
+                    f"its own pooled output")
+            plain_q, plain_s = ref(*args, quant_bias=bias)
+            diff = (q.int() - plain_q.int()).abs()
+            code_err = int(diff.max())
+            share = float((diff > 0).float().mean())
+            scale_err = float(((s - plain_s).abs() / plain_s).max())
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            require(code_err <= 1 and scale_err <= tol,
+                    f"{name} {key} disagrees with its plain version: codes "
+                    f"{code_err}, scales rel {scale_err}")
+            log(f"[quant] {name} {key}, {n} views: bit-equal to the plain "
+                f"epilogue on its own pooled output; against the plain "
+                f"version max code error {code_err} ({100 * share:.4f}% of "
+                f"codes), scales max rel err {scale_err:.3e} (tol {tol}) ok")
+            out[name][key] = code_err
+            out[name]["extra"].update({f"code_share_{key}": share,
+                                       f"scale_rel_err_{key}": scale_err})
+            del q, s, own_q, own_s, plain_q, plain_s, diff
+            if dtype != torch.bfloat16:
+                continue
+            ms, plain_ms = alternate_ms(
+                lambda: ref(*args, quant_bias=bias),
+                lambda: kern(*args, quant_bias=bias), 2, 10)
+            unfused_ms = cuda_ms(unfused, 10)
+            flats, row0s, x0s = ((args[0], args[1], args[2])
+                                 if name == "window_pool_multi_quant" else
+                                 ([args[0]], [args[1]], [args[2]]))
+            b_ms, b_by = pool_bound(flats, row0s, x0s, quant=True)
+            log(f"[quant] {name} bf16: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, kernel without the epilogue + plain "
+                f"epilogue {unfused_ms:.3f} ms, bound {b_ms:.3f} ms "
+                f"({b_by})")
+            out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+            out[name]["extra"]["unfused_ms"] = round(unfused_ms, 4)
+        del k1, k2
+    return out
+
+
+# -------------------------------------------------------- phases 9, 10 ---
+
+def serving_path(preset_name: str, tag: str):
+    """Detector on an int8 serving preset at 8 x 1000 proposals, 640^2:
+    bench.py's flow, the preset's own layout (factored at its ranks) drawn
+    in float32 on the card, then Detector's load-time transform quantizes
+    it. Returns (launches, steady img/s)."""
+    cfg = preset(preset_name)
+    m = cfg.model
+    b, p = 8, cfg.data.max_proposals
+    canvas = cfg.data.image_size[0]
+    require((b, p, canvas, m.head_quant) == (8, 1000, 640, "int8"),
+            f"unexpected {preset_name} shape {(b, p, canvas, m.head_quant)}")
+    t0 = time.perf_counter()
+    float_model = build_model(dataclasses.replace(m, head_quant="none"),
+                              param_dtype=torch.float32, device="cuda")
+    n_params = seeded_normal_(float_model, 0)
+    tree = convert.flax_from_state_dict(float_model.state_dict(), host=False)
+    del float_model
+    model = build_model(m, device="cuda")
+    det = Detector(model, cfg, params=tree)
+    del tree
+    torch.cuda.synchronize()
+    require(bool(model.head.fc6_f0.weight_i8.any()),
+            "the int8 head holds no weights")
+    log(f"[{tag}] {preset_name}: {n_params / 1e6:.1f}M float32 params "
+        f"(fc6_rank {m.fc6_rank}, fc7_rank {m.fc7_rank}) drawn on the card "
+        f"and quantized at load in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    inputs = make_inputs(b, p, canvas)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = det(*inputs)
+    first_s = time.perf_counter() - t0
+    dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
+    iters = 10
+    detect_batch(model, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        res = detect_batch(model, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    ips = b * iters / dt
+    log(f"[{tag}] first call {first_s:.2f} s; steady: {iters} batches x {b} "
+        f"images in {dt:.3f} s = {ips:.2f} img/s ({1e3 * dt / iters:.2f} "
+        f"ms/batch); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{tag}] kernel launches in this run: {launches}")
+    require(launches["window_pool_multi_quant"] > 0
+            and launches["resident_pool_quant"] > 0,
+            f"a quant kernel never launched: {launches}")
+    require(launches["window_pool_multi"] == 0
+            and launches["resident_pool"] == 0,
+            f"a pool kernel without the epilogue launched: {launches}")
+    for key, shape in (("boxes", (8, 100, 4)), ("scores", (8, 100)),
+                       ("classes", (8, 100)), ("valid", (8, 100))):
+        require(out[key].shape == shape and tuple(res[key].shape) == shape,
+                f"{key} shape {out[key].shape}")
+    require(np.isfinite(out["boxes"]).all() and np.isfinite(
+        out["scores"]).all(), "non-finite detections")
+    profile_once(tag, "one batch",
+                 lambda: detect_batch(model, cfg, *dev_inputs))
+    return launches, ips
 
 
 def main() -> None:
@@ -646,29 +910,47 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stats = check_and_time_kernels(gen)
     torch.cuda.empty_cache()
-    eval_launches = main_path()
+    eval_launches, bf16_ips = main_path()
     torch.cuda.empty_cache()
     grad_stats, k1_train = check_and_time_grad_kernels(gen)
     stats.update(grad_stats)
     torch.cuda.empty_cache()
     train_launches = train_path()
+    torch.cuda.empty_cache()
+    stats.update(check_and_time_quant_kernels(gen))
+    torch.cuda.empty_cache()
+    int8_launches, int8_ips = serving_path("multipath_vgg16_int8", "int8")
+    torch.cuda.empty_cache()
+    svd_launches, svd_ips = serving_path("multipath_vgg16_int8_svd",
+                                         "int8_svd")
+    log(f"[serving] steady img/s at 8 x 1000 proposals, 640^2, this process "
+        f"and card: bf16 {bf16_ips:.2f} (phase 4), int8 {int8_ips:.2f}, "
+        f"int8+SVD {svd_ips:.2f}")
 
-    # launches: the eval and train paths' runs, each counted from 0;
-    # K1's train_max_abs_err*: its forward at the train path's groups
+    # launches: each path's run, counted from 0, and their sum; K1's
+    # train_max_abs_err*: its forward at the train path's groups; the quant
+    # kernels' max_abs_err*: the largest code difference from the plain
+    # version (their epilogue is bit-equal on their own pooled output)
+    paths = {"eval": eval_launches, "train": train_launches,
+             "int8": int8_launches, "int8_svd": svd_launches}
+    extra = {"window_pool_multi": {
+        "train_max_abs_err": k1_train["float32"],
+        "train_max_abs_err_bf16": k1_train["bfloat16"]}}
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": eval_launches[name] + train_launches[name],
-        "eval_launches": eval_launches[name],
-        "train_launches": train_launches[name],
+        "launches": sum(counts[name] for counts in paths.values()),
+        **{f"{path}_launches": counts[name]
+           for path, counts in paths.items()},
         "max_abs_err": stats[name]["float32"],
         "max_abs_err_bf16": stats[name]["bfloat16"],
-        **({"train_max_abs_err": k1_train["float32"],
-            "train_max_abs_err_bf16": k1_train["bfloat16"]}
-           if name == "window_pool_multi" else {}),
         "ms": round(stats[name]["ms"], 4),
         "plain_ms": round(stats[name]["plain_ms"], 4),
-    } for name, (source, replaces) in KERNELS.items()]
+        "bound_ms": round(stats[name]["bound_ms"], 4),
+        "bound_by": stats[name]["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes the function
+        **extra.get(name, {}), **stats[name].get("extra", {}),
+    } for name, (source, replaces, _, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,16 @@ pooling through the window kernels, the heads, the mean of the K integral
 softmaxes, delta decode and clip, then class-aware NMS — all on the model's
 device, with only the fixed-size detection set copied back to the host.
 The ROI pooling streams fixed windows, so all P proposals go through in one
-pass (no chunking).
+pass (no chunking). An int8 head (head_quant="int8") always takes the
+quantized pool route: the head's skip bias, ReLU and per-view int8
+quantization run in the pool kernels' epilogue, as the reference's
+roi_impl="pallas" route does (the port has only the kernel route).
+
+`Detector` takes its weights as a flax-layout tree and transforms them at
+load for a serving config, as the reference's Detector does
+(`serving_params`): truncated-SVD factorization when the config has fc
+ranks, then int8 quantization when it has head_quant="int8"; a tree
+already in that form passes through.
 """
 
 from __future__ import annotations
@@ -13,10 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multipathnet_tpu_torch.core.config import Config
+from multipathnet_tpu_torch.core.config import Config, ModelConfig
 from multipathnet_tpu_torch.data import transforms
+from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import MultiPathNet
 from multipathnet_tpu_torch.ops import boxes as box_ops
+from multipathnet_tpu_torch.ops import lowrank, quant
 from multipathnet_tpu_torch.ops import nms as nms_ops
 
 
@@ -35,8 +46,14 @@ def score_batch(model: MultiPathNet, cfg: Config,
     rois = proposals.to(torch.float32) * scales[:, None, None]
 
     feats = model.features(canvases)
-    pooled = model.pool_rois(feats, rois, canvas_hw)
-    scores, deltas = model.predict_rois(pooled)
+    if cfg.model.head_quant == "int8":
+        pooled, pooled_scale = model.pool_rois_quantized(
+            feats, rois, canvas_hw, model.head.skip_bias)
+        scores, deltas = model.predict_rois(pooled,
+                                            pooled_scale=pooled_scale)
+    else:
+        scores, deltas = model.predict_rois(
+            model.pool_rois(feats, rois, canvas_hw))
 
     # integral heads: average the K softmaxes (MultiPath §3.3 test protocol)
     probs = torch.softmax(scores, dim=-1).mean(dim=2)   # (B, P, C)
@@ -75,14 +92,45 @@ def detect_batch(model: MultiPathNet, cfg: Config, images_u8, src_hws,
     return out
 
 
+def serving_params(params, cfg: ModelConfig, svd_report: dict | None = None):
+    """The load-time transforms of a flax-layout tree (numpy or torch
+    leaves) for a serving config, in the reference's order: factorize the
+    fc kernels of a full-rank float tree when the config has ranks (or
+    check an already factored tree's ranks), then quantize a float head
+    when head_quant="int8" (an int8 tree passes). Raises ValueError on an
+    int8 tree under head_quant="none": no dequantizing route exists.
+    `svd_report`, if a dict, receives each factorized kernel's relative
+    truncation error."""
+    if cfg.fc6_rank or cfg.fc7_rank:
+        if lowrank.is_factored(params):
+            lowrank.check_factored_ranks(params, cfg.fc6_rank, cfg.fc7_rank)
+        else:
+            params = lowrank.factorize_head_params(
+                params, cfg.fc6_rank, cfg.fc7_rank, report=svd_report)
+    if cfg.head_quant == "int8":
+        if not quant.is_quantized(params):
+            params = quant.quantize_head_params(params)
+    elif quant.is_quantized(params):
+        raise ValueError("params are already int8-quantized but the config "
+                         "says head_quant='none'; re-export from the float "
+                         "checkpoint")
+    return params
+
+
 class Detector:
     """User-facing wrapper: numpy in, numpy out, on one device.
 
-    The model must already hold its weights (models/convert.py loads a
-    flax tree); it is moved to `device` and put in eval mode.
+    `params`, a flax-layout tree (numpy or torch leaves; models/convert.py),
+    goes through `serving_params` for cfg.model and into `model`, which must
+    be built for cfg.model. Without it the model serves the weights it
+    holds. The model is moved to `device` (by default its own, which
+    build_model puts on the card) and put in eval mode.
     """
 
-    def __init__(self, model: MultiPathNet, cfg: Config, device=None):
+    def __init__(self, model: MultiPathNet, cfg: Config, device=None,
+                 params=None):
+        if params is not None:
+            convert.load_flax_params(model, serving_params(params, cfg.model))
         self.device = torch.device(device) if device is not None else (
             next(model.parameters()).device)
         self.model = model.to(self.device).eval()

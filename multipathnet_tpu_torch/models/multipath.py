@@ -15,6 +15,12 @@ VMEM budget has no counterpart here).
 Parameters are stored in `param_dtype` (float32 for training, as flax keeps
 them) and cast to the compute dtype `cfg.dtype` at each call; an eval model
 stores them in the compute dtype.
+
+Serving (`head_quant="int8"`, `fc6_rank`/`fc7_rank`) builds the int8 and
+factored head (models/heads.py); its weights come from the load-time
+transforms of a float tree (eval/detect.serving_params). An int8 model
+pools through `pool_rois_quantized`: the head's skip bias, ReLU and the
+per-view int8 quantization run in the pool kernels' epilogue.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 
 from multipathnet_tpu_torch.core.config import ModelConfig
+from multipathnet_tpu_torch.core.device import resolve_device
 from multipathnet_tpu_torch.models import layers
 from multipathnet_tpu_torch.models.backbones import get_backbone
 from multipathnet_tpu_torch.models.heads import MultiPathHead
@@ -35,13 +42,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for model options the port does not run
     yet, naming the ROADMAP item that ports each."""
-    if cfg.head_quant != "none":
-        raise NotImplementedError(
-            f"head_quant={cfg.head_quant!r} is not ported yet (ROADMAP A9)")
-    if cfg.fc6_rank or cfg.fc7_rank:
-        raise NotImplementedError(
-            "low-rank fc6_rank/fc7_rank heads are not ported yet "
-            "(ROADMAP A10)")
     if cfg.roi_mode != "align":
         raise NotImplementedError(
             f"roi_mode={cfg.roi_mode!r} is not ported yet (ROADMAP A14)")
@@ -85,7 +85,9 @@ class MultiPathNet(nn.Module):
             skip_reduce_dim=cfg.skip_reduce_dim,
             roi_output_size=cfg.roi_output_size,
             class_specific_bbox=cfg.class_specific_bbox,
-            dtype=dtype, device=device, param_dtype=param_dtype)
+            dtype=dtype, device=device, param_dtype=param_dtype,
+            quant=cfg.head_quant, fc6_rank=cfg.fc6_rank,
+            fc7_rank=cfg.fc7_rank)
 
     def features(self, images: torch.Tensor) -> dict:
         """images (B, H, W, 3) normalized float -> {level: (B, Hl, Wl, C)}
@@ -112,10 +114,12 @@ class MultiPathNet(nn.Module):
         return [((fs[0],), ls), (tuple(fs[1:]), (ls[-1],))]
 
     def pool_rois(self, feats: dict, rois: torch.Tensor, image_hw,
-                  train: bool = False) -> torch.Tensor:
+                  train: bool = False, quant_bias=None):
         """feats: level -> (B, Hl, Wl, C); rois (B, R, 4) image coords ->
         (B, F, R, G, G, C) in the trunk dtype. `train` sends every group
-        through the differentiable K1."""
+        through the differentiable K1. With `quant_bias` (the head's skip
+        bias in its dtype; eval only) the kernels' int8 epilogue runs:
+        returns (int8 (B, F, R, G, G, C), float32 scales (B, F, R, 1))."""
         b, r = rois.shape[:2]
         g = self.cfg.roi_output_size
         s = self.cfg.roi_samples_per_bin
@@ -124,7 +128,7 @@ class MultiPathNet(nn.Module):
             lv: roi_pyramid.build_pyramid_batch(
                 feats[lv].contiguous(), 1.0 / strides[lv], output_size=g)
             for lv in self.cfg.skip_levels}
-        outs = []
+        outs, scales = [], []
         for factors, levels in self._view_level_plan():
             nf = len(factors)
             views = torch.stack(
@@ -133,7 +137,8 @@ class MultiPathNet(nn.Module):
             if len(levels) == 1 and not train:
                 flat, meta = pyramids[levels[0]]
                 out = roi_pool.batched_pyramid_pool_resident(
-                    flat, meta, views, b, output_size=g, samples_per_bin=s)
+                    flat, meta, views, b, output_size=g, samples_per_bin=s,
+                    quant_bias=quant_bias)
             else:
                 img_idx = torch.arange(
                     b, dtype=torch.int32,
@@ -142,16 +147,34 @@ class MultiPathNet(nn.Module):
                     [pyramids[lv][0] for lv in levels],
                     [pyramids[lv][1] for lv in levels],
                     views, img_idx, output_size=g, samples_per_bin=s,
-                    trainable=train)
+                    trainable=train, quant_bias=quant_bias)
+            if quant_bias is not None:
+                out, scale = out
+                scales.append(scale.reshape(b, nf, r, 1))
             outs.append(out.reshape(b, nf, r, g, g, out.shape[-1]))
+        if quant_bias is not None:
+            return torch.cat(outs, dim=1), torch.cat(scales, dim=1)
         return torch.cat(outs, dim=1)
 
+    def pool_rois_quantized(self, feats: dict, rois: torch.Tensor, image_hw,
+                            skip_bias: torch.Tensor):
+        """Eval pooling with the int8 head's input stage in the kernels'
+        epilogue (head_quant="int8"): the skip bias in the head dtype, ReLU
+        and one int8 scale per (image, view, ROI). Returns (pooled int8
+        (B, F, R, G, G, C), scales (B, F, R, 1) float32) for predict_rois.
+        """
+        return self.pool_rois(feats, rois, image_hw, train=False,
+                              quant_bias=skip_bias.to(self.head.dtype))
+
     def predict_rois(self, pooled: torch.Tensor, train: bool = False,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     pooled_scale: torch.Tensor | None = None):
         """pooled (B, F, R, G, G, C) -> scores (B, R, K, classes) f32,
-        deltas (B, R, D) f32. `generator` draws the train-mode dropout."""
+        deltas (B, R, D) f32. `generator` draws the train-mode dropout;
+        `pooled_scale` goes with the int8 output of pool_rois_quantized."""
         b, r = pooled.shape[0], pooled.shape[2]
-        scores, deltas = self.head(pooled, train=train, generator=generator)
+        scores, deltas = self.head(pooled, train=train, generator=generator,
+                                   pooled_scale=pooled_scale)
         return (scores.reshape(b, r, scores.shape[1], -1),
                 deltas.reshape(b, r, -1))
 
@@ -167,8 +190,10 @@ class MultiPathNet(nn.Module):
 
 def build_model(cfg: ModelConfig, freeze_stages: int = 0, param_dtype=None,
                 device=None) -> MultiPathNet:
-    return MultiPathNet(cfg, device=device, freeze_stages=freeze_stages,
-                        param_dtype=param_dtype)
+    """The model for `cfg` on `device`: the CUDA card unless the caller
+    names another (device="cpu"); raises where there is no card."""
+    return MultiPathNet(cfg, device=resolve_device(device),
+                        freeze_stages=freeze_stages, param_dtype=param_dtype)
 
 
 @torch.no_grad()

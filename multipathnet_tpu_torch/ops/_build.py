@@ -33,9 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu)
 _SIGNATURES = {
     "mpn_window_pool_multi": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                              _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P],
+                          _P, _P, _P],
     "mpn_window_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_window_rmw_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }

@@ -14,6 +14,12 @@ Two kernels compute it (csrc/roi_window_pool.cu):
       over c3 + c4 + c5.
   resident_pool (K2) — one level, image-relative rows into a batch of
       per-image pyramids; the context views over c5.
+Given the head's skip bias (`quant_bias`, eval only), either one runs the
+int8 serving head's input stage in its epilogue (roi_pallas._quant_view):
+bias, ReLU and one int8 scale per view, returning int8 codes and float32
+scales instead of the pooled tensor (`quant_view_ref` is its plain
+version). Each wrapper counts its launches per mode: `launches` without
+the epilogue, `quant_launches` with it.
 Training differentiates K1 (`WindowPoolMulti`). Its backward is the
 transpose of the pool per view, gwin = wy^T g wx (10 x 16 x C), summed into
 the pyramid gradient at the window, by one of two kernels
@@ -30,9 +36,12 @@ from __future__ import annotations
 
 import torch
 
+from multipathnet_tpu_torch.ops import quant
 from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the int8 epilogue gives one block a whole view, 2 channels per thread
+_QUANT_MAX_CHANNELS = 512
 
 
 def view_geometry(pyr: Pyramid, rois: torch.Tensor, *, output_size: int = 7,
@@ -104,24 +113,44 @@ def _pool_level_ref(flat, row0, x0, wy, wx) -> torch.Tensor:
     return torch.einsum("nixc,njx->nijc", t, wx.float())
 
 
-def window_pool_multi_ref(flats, row0s, x0s, wys, wxs) -> torch.Tensor:
+def quant_view_ref(pooled, bias):
+    """Plain version of the pool kernels' int8 epilogue, the port of
+    roi_pallas._quant_view step for step: pooled (N, G, G, C) in the pool
+    dtype -> the head dtype (bias's) -> + bias (one float32 add, one
+    rounding to the head dtype) -> ReLU -> float32 -> one scale per view,
+    amax * float32(1/127) floored at 1e-12 -> round half to even, clip to
+    +-127. That is the head's relu + ops.quant.quantize_rows on each
+    view's (G * G * C) row. Returns (int8 (N, G, G, C), float32 (N,))."""
+    y = torch.relu(pooled.to(bias.dtype) + bias)
+    q, s = quant.quantize_rows(y.reshape(y.shape[0], -1))
+    return q.reshape(pooled.shape), s.reshape(-1)
+
+
+def window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias=None):
     """Plain version of K1: the windows gathered, two einsums in float32,
-    summed over levels, one cast to the pyramid dtype."""
+    summed over levels, one cast to the pyramid dtype; with `quant_bias`,
+    then quant_view_ref."""
     out = sum(_pool_level_ref(*a) for a in zip(flats, row0s, x0s, wys, wxs))
-    return out.to(flats[0].dtype)
+    out = out.to(flats[0].dtype)
+    return out if quant_bias is None else quant_view_ref(out, quant_bias)
 
 
-def resident_pool_ref(flat, row0, x0, wy, wx) -> torch.Tensor:
+def resident_pool_ref(flat, row0, x0, wy, wx, quant_bias=None):
     """Plain version of K2: flat (B, rows, Wmax, C), row0/x0 (B, V)
-    image-relative, wy (B, V, G, 10), wx (B, V, G, 16) -> (B, V, G, G, C)."""
+    image-relative, wy (B, V, G, 10), wx (B, V, G, 16) -> (B, V, G, G, C);
+    with `quant_bias`, quant_view_ref of it: (int8 (B, V, G, G, C),
+    float32 (B, V))."""
     b, rows, wmax, c = flat.shape
     v, g = wy.shape[1:3]
     img_rows = torch.arange(b, device=flat.device)[:, None] * rows
     out = _pool_level_ref(flat.reshape(b * rows, wmax, c),
                           (row0.long() + img_rows).reshape(-1),
                           x0.reshape(-1), wy.reshape(b * v, g, WINDOW),
-                          wx.reshape(b * v, g, WINDOW_X))
-    return out.to(flat.dtype).reshape(b, v, g, g, c)
+                          wx.reshape(b * v, g, WINDOW_X)).to(flat.dtype)
+    if quant_bias is None:
+        return out.reshape(b, v, g, g, c)
+    q, s = quant_view_ref(out, quant_bias)
+    return q.reshape(b, v, g, g, c), s.reshape(b, v)
 
 
 def _check(name, t, shape, dtype, device):
@@ -154,17 +183,39 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def window_pool_multi(flats, row0s, x0s, wys, wxs) -> torch.Tensor:
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _pool_outputs(flat, shape, device, quant_bias):
+    """The pool's output of `shape`, in the pyramid dtype -> (out, None);
+    with the int8 epilogue, after checking its skip bias -> (int8 out,
+    float32 scales of shape[:-3])."""
+    if quant_bias is None:
+        return torch.empty(shape, dtype=flat.dtype, device=device), None
+    c = flat.shape[-1]
+    _check("quant_bias", quant_bias, (c,), flat.dtype, device)
+    if c > _QUANT_MAX_CHANNELS:
+        raise ValueError(f"the int8 epilogue takes at most "
+                         f"{_QUANT_MAX_CHANNELS} channels, got {c}")
+    return (torch.empty(shape, dtype=torch.int8, device=device),
+            torch.empty(shape[:-3], dtype=torch.float32, device=device))
+
+
+def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
     """K1: level-summed window pooling.
 
     flats: L (rows_l, Wmax_l, C) stacked pyramids (same C and dtype, L <= 3);
     row0s/x0s: L (N,) int32 absolute window origins; wys/wxs: L (N, G, 10) /
     (N, G, 16) float32 weight rows. Returns (N, G, G, C) in the pyramid
-    dtype. Replaces roi_pallas.pallas_window_pool_multi (no int8 epilogue).
+    dtype. With `quant_bias`, the (C,) skip bias in the pyramid dtype (the
+    head's; C <= 512), it runs the int8 epilogue and returns (int8
+    (N, G, G, C), float32 (N,) scales). Replaces
+    roi_pallas.pallas_window_pool_multi.
     """
     flat0 = flats[0]
     if flat0.device.type == "cpu":
-        return window_pool_multi_ref(flats, row0s, x0s, wys, wxs)
+        return window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias)
     nl = len(flats)
     if not 1 <= nl <= 3 or not (len(row0s) == len(x0s) == len(wys)
                                 == len(wxs) == nl):
@@ -189,9 +240,9 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs) -> torch.Tensor:
     _check("x0s", x0, (nl, n), torch.int32, dev)
     _check("wys", wy, (nl, n, g, WINDOW), torch.float32, dev)
     _check("wxs", wx, (nl, n, g, WINDOW_X), torch.float32, dev)
-    out = torch.empty((n, g, g, c), dtype=flat0.dtype, device=dev)
+    out, scales = _pool_outputs(flat0, (n, g, g, c), dev, quant_bias)
     if n == 0:
-        return out
+        return out if quant_bias is None else (out, scales)
     from multipathnet_tpu_torch.ops import _build
 
     pad = [None] * (3 - nl)
@@ -201,27 +252,32 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs) -> torch.Tensor:
     rc = _build.kernels().mpn_window_pool_multi(
         _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
         row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        out.data_ptr(), _stream(dev))
+        _ptr(quant_bias), out.data_ptr(), _ptr(scales), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_pool_multi launch failed: "
                            f"cudaError {rc}")
-    window_pool_multi.launches += 1
-    return out
+    if quant_bias is None:
+        window_pool_multi.launches += 1
+        return out
+    window_pool_multi.quant_launches += 1
+    return out, scales
 
 
 window_pool_multi.launches = 0
+window_pool_multi.quant_launches = 0
 
 
-def resident_pool(flat, row0, x0, wy, wx) -> torch.Tensor:
+def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
     """K2: one-level window pooling over a batch of per-image pyramids.
 
     flat (B, rows, Wmax, C); row0/x0 (B, V) int32 image-relative origins;
     wy (B, V, G, 10), wx (B, V, G, 16) float32 -> (B, V, G, G, C) in the
-    pyramid dtype. Replaces roi_pallas.pallas_resident_pool (no int8
-    epilogue).
+    pyramid dtype. With `quant_bias` (as window_pool_multi's) it returns
+    (int8 (B, V, G, G, C), float32 (B, V) scales). Replaces
+    roi_pallas.pallas_resident_pool.
     """
     if flat.device.type == "cpu":
-        return resident_pool_ref(flat, row0, x0, wy, wx)
+        return resident_pool_ref(flat, row0, x0, wy, wx, quant_bias)
     dev = flat.device
     _check_pyramid("flat", flat, dev)
     if flat.dim() != 4:
@@ -235,22 +291,26 @@ def resident_pool(flat, row0, x0, wy, wx) -> torch.Tensor:
     _check("x0", x0, (b, v), torch.int32, dev)
     _check("wy", wy, (b, v, g, WINDOW), torch.float32, dev)
     _check("wx", wx, (b, v, g, WINDOW_X), torch.float32, dev)
-    out = torch.empty((b, v, g, g, c), dtype=flat.dtype, device=dev)
+    out, scales = _pool_outputs(flat, (b, v, g, g, c), dev, quant_bias)
     if b * v == 0:
-        return out
+        return out if quant_bias is None else (out, scales)
     from multipathnet_tpu_torch.ops import _build
 
     rc = _build.kernels().mpn_resident_pool(
         _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c, flat.data_ptr(),
         row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        out.data_ptr(), _stream(dev))
+        _ptr(quant_bias), out.data_ptr(), _ptr(scales), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"resident_pool launch failed: cudaError {rc}")
-    resident_pool.launches += 1
-    return out
+    if quant_bias is None:
+        resident_pool.launches += 1
+        return out
+    resident_pool.quant_launches += 1
+    return out, scales
 
 
 resident_pool.launches = 0
+resident_pool.quant_launches = 0
 
 
 # ------------------------------------------------------------- backward ---
@@ -493,14 +553,17 @@ class WindowPoolMulti(torch.autograd.Function):
 def batched_pyramid_pool_multi(flat_batches, pyr_metas, rois_views,
                                img_idx, *, output_size: int = 7,
                                samples_per_bin: int = 2,
-                               trainable: bool = False) -> torch.Tensor:
+                               trainable: bool = False, quant_bias=None):
     """Level-summed pooling over batched pyramids through K1.
 
     flat_batches: L (B * rows_l, Wmax_l, C) stacked pyramids; pyr_metas: L
     single-image metas; rois_views (N, 4) shared by all levels; img_idx (N,)
-    each view's image. Returns (N, G, G, C). `trainable` runs it through
+    each view's image. Returns (N, G, G, C), or with `quant_bias` (int8
+    (N, G, G, C), float32 (N,) scales). `trainable` runs it through
     WindowPoolMulti, so gradients reach the pyramids (views image-major).
     """
+    if trainable and quant_bias is not None:
+        raise ValueError("quantized emission is eval-only")
     row0s, x0s, wys, wxs = [], [], [], []
     for meta in pyr_metas:
         row0, x0, wy, wx = view_geometry(meta, rois_views,
@@ -516,14 +579,16 @@ def batched_pyramid_pool_multi(flat_batches, pyr_metas, rois_views,
         batch = flat_batches[0].shape[0] // rows_list[0]
         return WindowPoolMulti.apply((row0s, x0s, wys, wxs), rows_list,
                                      batch, *flat_batches)
-    return window_pool_multi(list(flat_batches), row0s, x0s, wys, wxs)
+    return window_pool_multi(list(flat_batches), row0s, x0s, wys, wxs,
+                             quant_bias)
 
 
 def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
                                   batch: int, *, output_size: int = 7,
-                                  samples_per_bin: int = 2) -> torch.Tensor:
+                                  samples_per_bin: int = 2, quant_bias=None):
     """One-level pooling through K2. flat_batch (B * rows, Wmax, C);
-    rois_views (N, 4), N = B * V, grouped by image. Returns (N, G, G, C)."""
+    rois_views (N, 4), N = B * V, grouped by image. Returns (N, G, G, C),
+    or with `quant_bias` (int8 (N, G, G, C), float32 (N,) scales)."""
     rows = pyr_meta.flat.shape[0]
     wmax, c = flat_batch.shape[1:]
     n = rois_views.shape[0]
@@ -537,5 +602,8 @@ def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
     out = resident_pool(flat_batch.reshape(batch, rows, wmax, c),
                         row0.reshape(batch, v), x0.reshape(batch, v),
                         wy.reshape(batch, v, g, WINDOW),
-                        wx.reshape(batch, v, g, WINDOW_X))
-    return out.reshape(n, g, g, c)
+                        wx.reshape(batch, v, g, WINDOW_X), quant_bias)
+    if quant_bias is None:
+        return out.reshape(n, g, g, c)
+    q, s = out
+    return q.reshape(n, g, g, c), s.reshape(n)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from multipathnet_tpu_torch.core.config import Config
+from multipathnet_tpu_torch.core.device import resolve_device
 from multipathnet_tpu_torch.data import sampler as sampler_lib
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models.multipath import (MultiPathNet,
@@ -134,7 +135,8 @@ def make_train_step(model: MultiPathNet, cfg: Config):
 
 class Trainer:
     """Owns the model (float32 parameters, frozen stages excluded from the
-    optimizer) and the train step, on one device."""
+    optimizer) and the train step, on one device: the CUDA card unless the
+    caller names another (device="cpu")."""
 
     def __init__(self, cfg: Config, device=None):
         if cfg.model.head_quant != "none":
@@ -142,7 +144,7 @@ class Trainer:
                 "training is float-only: set model.head_quant='none' and "
                 "quantize the trained checkpoint at export")
         self.cfg = cfg
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         n_frozen = cfg.train.freeze_backbone_stages
         self.model = build_model(cfg.model, freeze_stages=n_frozen,
                                  param_dtype=torch.float32,

@@ -49,10 +49,13 @@ print("IMPORTED", sorted(m for m in sys.modules
 sys.exit(1 if bad else 0)
 """
 
-# modules the subprocess must have imported, the training path's included
-_MUST_IMPORT = ("ops.roi_pool", "ops._build", "models.layers",
-                "models.multipath", "data.sampler", "train.losses",
-                "train.schedule", "train.loop", "eval.detect")
+# modules the subprocess must have imported, the training and serving
+# paths' included
+_MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
+                "core.device", "models.layers", "models.heads",
+                "models.convert", "models.multipath", "data.sampler",
+                "train.losses", "train.schedule", "train.loop",
+                "eval.detect", "eval.serving")
 
 
 def test_port_never_imports_jax():

@@ -2,9 +2,11 @@
 detections, at the `tiny` preset in float32. The JAX side runs
 roi_impl="pallas" — the Pallas pool kernels in interpret mode on the CPU —
 and the port runs its pool kernels' plain versions, with one parameter
-tree converted by models/convert.py."""
+tree converted by models/convert.py; the int8 and int8 + SVD serving forms
+are made from that tree by each side's Detector at load."""
 
 import dataclasses
+import warnings
 from functools import partial
 
 import jax
@@ -67,7 +69,8 @@ def slice_pair():
 
     params = jax.tree_util.tree_map_with_path(leaf, shapes)
     tcfg = _cfg(preset)
-    tmodel = convert.load_flax_params(build_model(tcfg.model), params)
+    tmodel = convert.load_flax_params(
+        build_model(tcfg.model, device="cpu"), params)
     return (jmodel, params, jcfg), (tmodel.eval(), tcfg)
 
 
@@ -119,3 +122,40 @@ def test_model_forward_matches_reference(slice_pair):
                               torch.from_numpy(rois))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-4)
+
+
+def _serving_cfg(cfg, fc6_rank, fc7_rank):
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, head_quant="int8", fc6_rank=fc6_rank, fc7_rank=fc7_rank))
+
+
+@pytest.mark.parametrize("ranks", [(0, 0), (16, 8)], ids=["int8", "int8_svd"])
+def test_int8_serving_matches_reference(slice_pair, ranks):
+    """int8 serving, and int8 with truncated-SVD heads, of slice_pair's one
+    float tree: each side's Detector factorizes (fc6 rank 16, fc7 rank 8)
+    and quantizes it at load, then scores the same images and proposals
+    through its quantized pool route. The pools sum in other orders, so a
+    pooled value one ULP apart can flip an int8 code at a rounding tie
+    (test_torch_quant bounds their share); a flipped code moves a score by
+    one code step (seen: probs 4.8e-4, boxes 1.9e-2 pixels), hence probs
+    atol 2e-3 and boxes atol 5e-2."""
+    (_, params, jcfg), (_, tcfg) = slice_pair
+    jcfg, tcfg = (_serving_cfg(c, *ranks) for c in (jcfg, tcfg))
+    jmodel = jbuild(jcfg.model)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # random weights: a flat spectrum
+        jdet = jdetect.Detector(jmodel, params, jcfg)
+        tdet = tdetect.Detector(build_model(tcfg.model, device="cpu"), tcfg,
+                                params=params)
+    images, src_hws, proposals, prop_mask = _inputs()
+    want_b, want_p = jax.jit(partial(jdetect.score_batch, model=jmodel,
+                                     cfg=jcfg))(
+        jdet.params, images_u8=images, src_hws=src_hws, proposals=proposals)
+    got_b, got_p = tdetect.score_batch(
+        tdet.model, tcfg, *(torch.from_numpy(x) for x in
+                            (images, src_hws, proposals)))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=2e-3)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), atol=5e-2)
+    got = tdet(images, src_hws, proposals, prop_mask)
+    d = tcfg.eval.max_detections
+    assert got["boxes"].shape == (B, d, 4) and got["valid"].any()

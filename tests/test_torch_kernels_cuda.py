@@ -1,5 +1,5 @@
-"""The CUDA pool kernels (forward K1/K2, backward K3/K4) against their plain
-PyTorch versions, on the card.
+"""The CUDA pool kernels (forward K1/K2 with and without their int8
+epilogue, backward K3/K4) against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
@@ -7,7 +7,10 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (tests/conftest.py imports jax, which a GPU machine need not have).
 Tolerances: float32 atol 1e-4 (the kernel sums in another order than the
 einsums); bfloat16 rtol 1e-2, atol 1e-2 (one bf16 rounding of a float32
-sum, 2^-8 relative).
+sum, 2^-8 relative). The int8 epilogue is held bit for bit against its
+plain version (quant_view_ref) on the same kernel's own pooled output; against
+the fully plain version, whose pooled sums differ in their last bits, codes
+within 1 and scales to the pooled tolerance.
 """
 
 import dataclasses
@@ -148,7 +151,7 @@ def test_tiny_slice_on_gpu_matches_cpu(cuda):
     cfg = preset("tiny")
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
     torch.manual_seed(0)
-    cpu_model = build_model(cfg.model).eval()
+    cpu_model = build_model(cfg.model, device="cpu").eval()
     gpu_model = build_model(cfg.model, device=cuda).eval()
     gpu_model.load_state_dict(cpu_model.state_dict())
     rng = np.random.default_rng(0)
@@ -332,3 +335,134 @@ def test_tiny_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
     for name in sd_c:
         torch.testing.assert_close(sd_g[name], sd_c[name], rtol=0, atol=1e-4,
                                    msg=name)
+
+
+# ------------------------------------------------- K1/K2 int8 epilogue ---
+
+def _quant_cases(dev, dtype, c, seed):
+    """K1 (3 levels, 2 images x 300 views) and K2 (2 x 300 views over the
+    coarsest level) arguments, and a skip bias in the pyramid dtype."""
+    b, canvas, n = 2, 320, 600
+    pyrs = _levels(dev, dtype, b, canvas, c, 3, seed=seed)
+    rois = torch.from_numpy(_rois(np.random.default_rng(seed), n,
+                                  canvas)).to(dev)
+    img_idx = torch.arange(b, dtype=torch.int32,
+                           device=dev).repeat_interleave(n // b)
+    k1 = [[], [], [], [], []]
+    for flat, meta in pyrs:
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+        row0 = (row0 + img_idx * meta.flat.shape[0]).contiguous()
+        for dst, v in zip(k1, (flat, row0, x0, wy, wx)):
+            dst.append(v)
+    flat, meta = pyrs[-1]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+    rows, wmax = meta.flat.shape[:2]
+    v = n // b
+    k2 = [flat.reshape(b, rows, wmax, c), row0.reshape(b, v),
+          x0.reshape(b, v), wy.reshape(b, v, 7, 10), wx.reshape(b, v, 7, 16)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bias = (torch.randn(c, generator=gen, device=dev) * 0.5).to(dtype)
+    return k1, k2, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [512, 200, 32])
+def test_quant_epilogue_matches_plain(cuda, dtype, c):
+    """K1 and K2 with the epilogue: bit for bit against quant_view_ref of
+    the same kernel's pooled output; codes within 1 and scales to the pooled
+    tolerance against the fully plain version."""
+    k1, k2, bias = _quant_cases(cuda, dtype, c, seed=21)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    for kern, ref, args in ((roi_pool.window_pool_multi,
+                             roi_pool.window_pool_multi_ref, k1),
+                            (roi_pool.resident_pool,
+                             roi_pool.resident_pool_ref, k2)):
+        launches = kern.quant_launches
+        q, s = kern(*args, quant_bias=bias)
+        torch.cuda.synchronize()
+        assert kern.quant_launches == launches + 1
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        pooled = kern(*args)
+        n = s.numel()
+        want_q, want_s = roi_pool.quant_view_ref(
+            pooled.reshape(n, 7, 7, c), bias)
+        assert torch.equal(q.reshape(n, 7, 7, c), want_q)
+        assert torch.equal(s.reshape(n), want_s)
+        plain_q, plain_s = ref(*args, quant_bias=bias)
+        assert (q.int() - plain_q.int()).abs().max() <= 1
+        torch.testing.assert_close(s, plain_s, rtol=rtol, atol=0)
+
+
+def test_quant_out_of_range_view_is_zero_codes_nan_scale(cuda):
+    (flat, meta), = _levels(cuda, torch.bfloat16, 1, 160, 64, 1, seed=22)
+    rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]] * 2, device=cuda)
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+    row0[1] = flat.shape[0] - 5          # window hangs past the last row
+    bias = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    q, s = roi_pool.window_pool_multi([flat], [row0], [x0], [wy], [wx],
+                                      quant_bias=bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(s[0]) and torch.isnan(s[1])
+    assert q[0].abs().max() > 0 and not q[1].any()
+
+
+def test_quant_wrappers_check_their_inputs(cuda):
+    (flat, meta), = _levels(cuda, torch.bfloat16, 1, 160, 64, 1, seed=23)
+    rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]], device=cuda)
+    geo = [[t] for t in roi_pool.view_geometry(meta, rois)]
+    bias = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        roi_pool.window_pool_multi([flat], *geo, quant_bias=bias.float())
+    with pytest.raises(ValueError):
+        roi_pool.window_pool_multi([flat], *geo, quant_bias=bias[:32])
+    with pytest.raises(ValueError):
+        roi_pool.window_pool_multi([flat], *geo, quant_bias=bias.cpu())
+    wide = torch.zeros((flat.shape[0], flat.shape[1], 520),
+                       dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="at most 512"):
+        roi_pool.window_pool_multi(
+            [wide], *geo, quant_bias=torch.zeros(520, dtype=torch.bfloat16,
+                                                 device=cuda))
+    with pytest.raises(ValueError, match="eval-only"):
+        roi_pool.batched_pyramid_pool_multi(
+            [flat], [meta], rois, torch.zeros(1, dtype=torch.int32,
+                                              device=cuda),
+            trainable=True, quant_bias=bias)
+
+
+@pytest.mark.parametrize("ranks", [(0, 0), (16, 8)], ids=["int8", "int8_svd"])
+def test_tiny_int8_slice_on_gpu_matches_cpu(cuda, ranks):
+    """The int8 (and int8 + truncated-SVD) slice at the tiny preset in
+    float32: the GPU (quant kernels, torch._int_mm) against the CPU (plain
+    versions) from one float tree transformed at load. Probabilities atol
+    2e-3: a pooled sum that differs in its last bit can flip one int8 code
+    at a rounding tie."""
+    from multipathnet_tpu_torch.eval.detect import Detector
+    from multipathnet_tpu_torch.models import convert
+    from multipathnet_tpu_torch.models.multipath import init_params_
+
+    cfg = preset("tiny")
+    fcfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    fmodel = init_params_(build_model(fcfg.model, device="cpu"),
+                          torch.Generator().manual_seed(0))
+    tree = convert.flax_from_state_dict(fmodel.state_dict())
+    qcfg = fcfg.replace(model=dataclasses.replace(
+        fcfg.model, head_quant="int8", fc6_rank=ranks[0], fc7_rank=ranks[1]))
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 60, 64, 3), dtype=np.uint8)
+    hws = np.asarray([[60, 64], [50, 41]], np.float32)
+    xy = rng.uniform(0, 40, (2, 24, 2))
+    wh = rng.uniform(6, 24, (2, 24, 2))
+    props = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        det = Detector(build_model(qcfg.model, device=dev), qcfg,
+                       params=tree)
+        launches = roi_pool.window_pool_multi.launches
+        outs.append(score_batch(det.model, qcfg, *(
+            torch.from_numpy(x).to(dev) for x in (images, hws, props))))
+        assert roi_pool.window_pool_multi.launches == launches
+    (want_b, want_p), (got_b, got_p) = outs
+    torch.testing.assert_close(got_p.cpu(), want_p, rtol=0, atol=2e-3)
+    torch.testing.assert_close(got_b.cpu(), want_b, rtol=0, atol=5e-2)

@@ -105,9 +105,6 @@ def test_convert_layouts():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("head_quant", "int8", "A9"),
-    ("fc6_rank", 8, "A10"),
-    ("fc7_rank", 8, "A10"),
     ("roi_mode", "max", "A14"),
     ("preprocess", "caffe_bgr", "A14"),
     ("backbone", "resnet50", "A13"),

@@ -218,7 +218,7 @@ def test_trainer_freezes_stages():
     cfg = preset("tiny")
     cfg = cfg.replace(train=dataclasses.replace(
         cfg.train, freeze_backbone_stages=2))
-    trainer = tloop.Trainer(cfg)
+    trainer = tloop.Trainer(cfg, device="cpu")
     state = trainer.init_state(0)
     before = {n: p.detach().clone()
               for n, p in trainer.model.named_parameters()}
@@ -258,7 +258,7 @@ def test_weight_bridge_round_trip_keeps_float32():
     from multipathnet_tpu_torch.models.multipath import build_model
 
     cfg = preset("tiny").model          # bf16 compute
-    model = build_model(cfg, param_dtype=torch.float32)
+    model = build_model(cfg, param_dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(8)
     tree = convert.flax_from_state_dict(
         {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
@@ -278,7 +278,7 @@ def test_trainer_is_float_only():
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 head_quant="int8"))
     with pytest.raises(ValueError, match="float-only"):
-        tloop.Trainer(cfg)
+        tloop.Trainer(cfg, device="cpu")
 
 
 # ------------------------------------------------------------- one step ---
@@ -367,7 +367,7 @@ def test_one_train_step_matches_reference(monkeypatch):
 
     tsample = tsampler.RoiSample(*map(_t, sample))
     monkeypatch.setattr(tsampler, "sample_batch", lambda *a, **k: tsample)
-    trainer = tloop.Trainer(tcfg)
+    trainer = tloop.Trainer(tcfg, device="cpu")
     state = trainer.init_state(0)
     convert.load_flax_params(trainer.model, params)
     trainer.model.head.dropout_rate = 0.0
