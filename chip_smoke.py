@@ -458,8 +458,10 @@ def main_path():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main] kernel launches in the main-path run: {launches}")
     require(launches["window_pool_multi"] > 0 and launches["resident_pool"]
-            > 0 and launches["window_pool_multi_quant"] == 0,
-            f"a kernel of the path never launched: {launches}")
+            > 0 and launches["window_pool_multi_quant"] == 0
+            and launches["resident_pool_quant"] == 0,
+            f"a kernel of the path never launched, or a quant one did: "
+            f"{launches}")
     for key, shape in (("boxes", (8, 100, 4)), ("scores", (8, 100)),
                        ("classes", (8, 100)), ("valid", (8, 100))):
         require(out[key].shape == shape and tuple(res[key].shape) == shape,

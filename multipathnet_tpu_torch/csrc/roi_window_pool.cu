@@ -153,17 +153,12 @@ __device__ __forceinline__ float biased_relu(float acc, float bias) {
 // = __frcp_rn(s). The quotient is taken as y * r and divided for real only
 // where y * r lies within 1e-4 of a half-integer: both are below 128 and
 // within 2.3e-5 of each other (2^-23 and 2^-24 relative), so elsewhere
-// they round to the same integer. Built with -DMPN_QUANT_IEEE_DIV, every
-// element takes the IEEE division (a subroutine call at 255 registers);
-// multipathnet_tpu_torch/tools/quant_division.py times the two builds.
+// they round to the same integer. The IEEE division is a subroutine call at
+// 255 registers; one per element made the quant K2 1.9x slower on an H100.
 __device__ __forceinline__ signed char quantize(float y, float s, float r) {
-#ifdef MPN_QUANT_IEEE_DIV
-  const float q = rintf(__fdiv_rn(y, s));
-#else
   const float t = __fmul_rn(y, r);
   float q = rintf(t);
   if (fabsf(fabsf(t - q) - 0.5f) < 1e-4f) q = rintf(__fdiv_rn(y, s));
-#endif
   return static_cast<signed char>(fminf(fmaxf(q, -127.f), 127.f));
 }
 

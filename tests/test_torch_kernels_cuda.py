@@ -455,14 +455,19 @@ def test_tiny_int8_slice_on_gpu_matches_cpu(cuda, ranks):
     xy = rng.uniform(0, 40, (2, 24, 2))
     wh = rng.uniform(6, 24, (2, 24, 2))
     props = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    kernels = (roi_pool.window_pool_multi, roi_pool.resident_pool)
     outs = []
     for dev in ("cpu", cuda):
         det = Detector(build_model(qcfg.model, device=dev), qcfg,
                        params=tree)
-        launches = roi_pool.window_pool_multi.launches
+        before = [(k.launches, k.quant_launches) for k in kernels]
         outs.append(score_batch(det.model, qcfg, *(
             torch.from_numpy(x).to(dev) for x in (images, hws, props))))
-        assert roi_pool.window_pool_multi.launches == launches
+        for k, (plain, quant) in zip(kernels, before):
+            # the int8 route runs only the quant instances, and only on
+            # the card
+            assert k.launches == plain
+            assert (k.quant_launches > quant) == (dev is cuda)
     (want_b, want_p), (got_b, got_p) = outs
     torch.testing.assert_close(got_p.cpu(), want_p, rtol=0, atol=2e-3)
     torch.testing.assert_close(got_b.cpu(), want_b, rtol=0, atol=5e-2)

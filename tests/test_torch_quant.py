@@ -359,8 +359,11 @@ def test_quant_view_ref_matches_reference_epilogue(pooled_pair, dtype):
 
 def test_pool_rois_quantized_matches_reference(pooled_pair):
     """float32: the port's pool with the epilogue (plain versions) from the
-    reference's features. Scales to rtol 1e-6; codes equal but for at most
-    0.5% that differ by 1 (a pooled sum one ULP apart at a rounding tie)."""
+    reference's features. Scales to rtol 1e-6 (2.4e-7 read here); codes
+    equal but for at most 1e-4 of them (7 of the 75,264) that differ by 1,
+    a pooled sum one ULP apart at a rounding tie. None differs here; on an
+    H100 the quant kernels differ from their plain version in 7.7e-7 (K1)
+    and 3.7e-7 (K2) of the codes at the main path's shapes."""
     rois, bias, out = pooled_pair
     feats, _, pq, ps = out["float32"]
     cfg = preset("tiny")
@@ -373,4 +376,4 @@ def test_pool_rois_quantized_matches_reference(pooled_pair):
     assert s.shape == ps.shape == (2, 4, 6, 1)
     np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=1e-6, atol=0)
     diff = np.abs(q.numpy().astype(np.int32) - np.asarray(pq, np.int32))
-    assert diff.max() <= 1 and diff.mean() <= 5e-3, (diff.max(), diff.mean())
+    assert diff.max() <= 1 and diff.mean() <= 1e-4, (diff.max(), diff.sum())
