@@ -62,11 +62,31 @@ Phases, each of which raises on failure (nothing is caught):
      the factored layout (fc6 rank 1024, fc7 rank 256) drawn directly in
      float32, as bench.py does (the load-time SVD is tested on the CPU).
      Then phase 4's bf16 img/s is printed beside both.
+ 11. single-level pools: K5 (window_pool) on the main path's 8000 1x views
+     (bench.py's 8 x 1000 proposals, 640^2) over the stacked 8-image c3
+     pyramid of a random C = 512 map, against its plain version in float32
+     (atol 1e-4) and bfloat16 (rtol/atol 1e-2), timed against it in bf16.
+     Then the entry points as a path of their own (`pool_api`, launches
+     counted from 0): batched_pyramid_pool on those views in bf16, and the
+     three differentiable forms in float32 with their backward, each
+     through K4 (accumulate_windows): batched_pyramid_pool(trainable) on
+     the same views, batched_pyramid_pool_resident(trainable) on the main
+     path's 8 x 3000 context views over c5, and WindowPoolMulti without
+     rows_list on the train geometry (512 1x views over c3+c4+c5). Each
+     gradient is held against autograd through the plain forward, float32,
+     atol 1e-4 x max(1, max |g|) (GRAD_ATOL says why).
+ 12. window-read probe P (tools/probe_int8_window_dma.py of the port) at
+     its tool's shapes (32000 views over a (4096, 160, 512) buffer), bf16
+     and int8 windows: the kernel against its plain version (rtol/atol
+     1e-2, a bf16 output), each timed against it; then the tool's `bench`
+     for each dtype as the path `probe` (launches counted from 0).
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9 and 10, each counted from 0, and their sum), error,
-times and bound: the larger of the bytes it must move (each pyramid cell
-under a window, the geometry and the output once) over 3.35 TB/s and its
-float32 operations over 67 TF/s; the last line is {"ok": true, "device":
+runs of phases 4, 7, 9, 10, 11 and 12, each counted from 0, and their sum),
+error, times and bound: for the pool kernels the larger of the bytes they
+must move (each pyramid cell under a window, the geometry and the output
+once) over 3.35 TB/s and their float32 operations over 67 TF/s; for P the
+distinct cells under its windows and its output over 3.35 TB/s, with the
+int8 numbers beside the bf16 ones. The last line is {"ok": true, "device":
 {...}}.
 """
 
@@ -86,10 +106,12 @@ from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
+from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.loop import Batch, Trainer
 
 POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
+PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
 # name -> (source, the TPU kernel it replaces, wrapper, its launch counter)
 KERNELS = {
@@ -106,6 +128,10 @@ KERNELS = {
                     "launches"),
     "window_rmw_grad": (GRAD_SOURCE, f"{PALLAS}:745",
                         roi_pool.window_rmw_grad, "launches"),
+    "window_pool": (POOL_SOURCE, f"{PALLAS}:113", roi_pool.window_pool,
+                    "launches"),
+    "window_read_probe": (PROBE_SOURCE, "tools/probe_int8_window_dma.py:30",
+                          probe.window_read_probe, "launches"),
 }
 
 
@@ -888,6 +914,210 @@ def serving_path(preset_name: str, tag: str):
     return launches, ips
 
 
+# ------------------------------------------------------------ phase 11 ---
+
+# The single-level backwards are held to atol 1e-4 x max(1, max |g|): on
+# the c5 context group the gradient sums thousands of overlapping windows
+# and reaches |g| near 100 (the run prints it), where one float32 ulp is
+# 7.6e-6 and two float32 summation orders (K4's atomics, index_put_) differ
+# by about 1e-4.
+GRAD_ATOL = 1e-4
+
+def check_and_time_window_pool(pyr, views, img_idx):
+    """K5 against its plain version on `views` (rows absolute) over the
+    stacked c3 pyramid, float32 (atol 1e-4) and bfloat16 (rtol/atol 1e-2),
+    then timed against it in bf16. Returns {"float32": err, "bfloat16":
+    err, "ms": t, "plain_ms": t, "bound_ms": t, "bound_by": ...}."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        (flat,), (row0,), (x0,), (wy,), (wx,) = k1_args(pyr, ("c3",), views,
+                                                        img_idx, dtype)
+        args = (flat, row0, x0, wy, wx)
+        got = roi_pool.window_pool(*args)
+        torch.cuda.synchronize()
+        err, tol = compare("window_pool", dtype, got,
+                           roi_pool.window_pool_ref(*args))
+        out[str(dtype)[6:]] = err
+        log(f"[pool_api] window_pool {str(dtype)[6:]}, {row0.numel()} views "
+            f"over c3, max abs err {err:.3e} ({tol}) ok")
+        del got
+    ms, plain_ms = alternate_ms(lambda: roi_pool.window_pool_ref(*args),
+                                lambda: roi_pool.window_pool(*args), 2, 10)
+    b_ms, b_by = pool_bound([flat], [row0], [x0], quant=False)
+    log(f"[pool_api] window_pool bf16 kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def pool_api_path(gen):
+    """Phase 11: K5 checked and timed (check_and_time_window_pool), then
+    the single-level entry points as the path `pool_api`, launches counted
+    from 0: batched_pyramid_pool on the main path's 8000 1x views over c3
+    in bf16; in float32 with their backward, batched_pyramid_pool(trainable)
+    on the same views, batched_pyramid_pool_resident(trainable) on the
+    8 x 3000 context views over c5, and WindowPoolMulti without rows_list
+    on the train geometry (512 1x views over c3+c4+c5). After the path,
+    each gradient against autograd through the plain forward, float32,
+    atol 1e-4 x max(1, max |g|). Returns (K5's stats, the path's
+    launches)."""
+    _, _, boxes, _ = make_inputs(8, 1000, 640)
+    rois = torch.from_numpy(boxes).cuda()
+    levels = random_levels(8, 640, 512, gen, torch.float32)
+    pyr = {name: roi_pyramid.build_pyramid_batch(f, 1.0 / s)
+           for name, (f, s) in levels.items()}
+    del levels
+    ones, ones_img = group_views(rois, FOVEAL[:1])
+    ctx, _ = group_views(rois, CONTEXT)
+    _, _, train_boxes, _ = make_inputs(8, 64, 640)
+    train_ones, train_img = group_views(torch.from_numpy(train_boxes).cuda(),
+                                        FOVEAL[:1])
+    stats = check_and_time_window_pool(pyr, ones, ones_img)
+    names = [n for n, _ in LEVELS]
+    flat3, meta3 = pyr["c3"]
+    flat5, meta5 = pyr["c5"]
+    c = flat3.shape[-1]
+    g1 = torch.randn((ones.shape[0], 7, 7, c), generator=gen, device="cuda")
+    g2 = torch.randn((ctx.shape[0], 7, 7, c), generator=gen, device="cuda")
+    g3 = torch.randn((train_ones.shape[0], 7, 7, c), generator=gen,
+                     device="cuda")
+    leaf = {n: pyr[n][0].detach().requires_grad_() for n in names}
+    train_geo = k1_args(pyr, names, train_ones, train_img)[1:]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pooled = roi_pool.batched_pyramid_pool(flat3.bfloat16(), meta3, ones,
+                                               ones_img)
+    out = roi_pool.batched_pyramid_pool(leaf["c3"], meta3, ones, ones_img,
+                                        trainable=True)
+    (k5_grad,) = torch.autograd.grad((out * g1).sum(), leaf["c3"])
+    out = roi_pool.batched_pyramid_pool_resident(leaf["c5"], meta5, ctx, 8,
+                                                 trainable=True)
+    (k2_grad,) = torch.autograd.grad((out * g2).sum(), leaf["c5"])
+    flats = [leaf[n] for n in names]
+    out = roi_pool.WindowPoolMulti.apply(train_geo, None, None, *flats)
+    k1_grads = torch.autograd.grad((out * g3).sum(), flats)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[pool_api] path: K5 forward, K5/K2/K1 forward + backward in "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}")
+    del out
+    require(launches["window_pool"] == 2 and launches["resident_pool"] == 1
+            and launches["window_pool_multi"] == 1
+            and launches["window_rmw_grad"] == 5
+            and launches["window_grad"] == 0
+            and launches["window_pool_multi_quant"] == 0
+            and launches["resident_pool_quant"] == 0,
+            f"pool_api launched other kernels than K5 x 2, K2, K1 and K4 x 5:"
+            f" {launches}")
+    require(pooled.shape == (ones.shape[0], 7, 7, c)
+            and pooled.dtype == torch.bfloat16
+            and bool(torch.isfinite(pooled).all()), "K5's bf16 pool")
+
+    def plain_grad(fn, flats, gout):
+        flats = [f.detach().requires_grad_() for f in flats]
+        return torch.autograd.grad((fn(*flats) * gout).sum(), flats)
+
+    row0, x0, wy, wx = roi_pool.view_geometry(meta3, ones)
+    row0 = row0 + ones_img * meta3.flat.shape[0]
+    checks = [("window_pool_trainable backward, c3", k5_grad, plain_grad(
+        lambda f: roi_pool.window_pool_ref(f, row0, x0, wy, wx), [flat3],
+        g1)[0])]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta5, ctx)
+    rows, wmax = meta5.flat.shape[:2]
+    v = ctx.shape[0] // 8
+    plain = plain_grad(lambda f: roi_pool.resident_pool_ref(
+        f.reshape(8, rows, wmax, c), row0.reshape(8, v), x0.reshape(8, v),
+        wy.reshape(8, v, 7, 10), wx.reshape(8, v, 7, 16)).reshape(-1, 7, 7, c),
+        [flat5], g2)[0]
+    checks.append(("resident_pool_trainable backward, c5", k2_grad, plain))
+    plain = plain_grad(lambda *fs: roi_pool.window_pool_multi_ref(
+        list(fs), *train_geo), [pyr[n][0] for n in names], g3)
+    checks += [(f"WindowPoolMulti backward without rows_list, {n}", got,
+                want) for n, got, want in zip(names, k1_grads, plain)]
+    errs = []
+    for what, got, want in checks:
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{what}: {got.shape}/{got.dtype} vs {want.shape}/"
+                f"{want.dtype}")
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        require(err <= GRAD_ATOL * scale, f"{what} disagrees with autograd "
+                f"of the plain forward: max abs err {err} at max |g| {scale}")
+        log(f"[pool_api] {what}: max abs err {err:.3e} (atol 1e-4 x max(1, "
+            f"max |g| = {scale:.2f})) ok")
+        errs.append(err)
+    stats["extra"] = {"backward_max_abs_err": max(errs)}
+    return stats, launches
+
+
+# ------------------------------------------------------------ phase 12 ---
+
+def probe_bound(flat, row0, x0):
+    """bound() of one P call: the distinct cells under its windows read
+    once, row0/x0 read once, the (N, 49, C) bf16 output written once; 160
+    float32 adds per view and channel."""
+    rows, wmax, c = flat.shape
+    n = row0.numel()
+    cells = window_cells(row0, x0, rows, wmax)
+    return bound(cells * c * flat.element_size() + n * 8 + n * 49 * c * 2,
+                 n * c * 160)
+
+
+def probe_path():
+    """Phase 12: P against its plain version at its tool's shapes, bf16 and
+    int8 windows (rtol/atol 1e-2), each timed against it; then the tool's
+    bench for each dtype as the path `probe`, launches counted from 0.
+    Returns (stats with the bf16 numbers as the row's and the int8 ones in
+    "extra", the path's launches)."""
+    stats = {"extra": {}}
+    for dtype in (torch.bfloat16, torch.int8):
+        key = str(dtype)[6:]
+        args = probe.probe_inputs(dtype)
+        got = probe.window_read_probe(*args)
+        torch.cuda.synchronize()
+        err, tol = compare(f"window_read_probe {key}", torch.bfloat16, got,
+                           probe.window_read_probe_ref(*args))
+        del got
+        ms, plain_ms = alternate_ms(lambda: probe.window_read_probe_ref(*args),
+                                    lambda: probe.window_read_probe(*args),
+                                    1, 10)
+        b_ms, b_by = probe_bound(*args)
+        n, c = args[1].numel(), args[0].shape[-1]
+        read_gb_s = n * 160 * c * args[0].element_size() / ms / 1e6
+        log(f"[probe] window_read_probe {key} windows, {n} views: max abs "
+            f"err {err:.3e} ({tol}) ok; kernel {ms:.4f} ms ({read_gb_s:.1f} "
+            f"GB/s of window reads), plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if dtype == torch.bfloat16:
+            stats.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+            stats["extra"]["read_gb_s"] = read_gb_s
+        else:
+            stats["extra"].update(
+                max_abs_err_int8=err, int8_ms=round(ms, 4),
+                int8_plain_ms=round(plain_ms, 4),
+                int8_bound_ms=round(b_ms, 4), int8_bound_by=b_by,
+                int8_read_gb_s=read_gb_s)
+        del args
+        torch.cuda.empty_cache()
+    reset_launches()
+    bf16 = probe.bench(torch.bfloat16)
+    int8 = probe.bench(torch.int8)
+    launches = read_launches()
+    log(f"[probe] bench: bf16 / int8 time {bf16['ms'] / int8['ms']:.3f}x; "
+        f"launches {launches}")
+    require(launches["window_read_probe"] > 0
+            and sum(launches.values()) == launches["window_read_probe"],
+            f"the probe's bench launched {launches}")
+    stats["extra"].update(bench_ms=round(bf16["ms"], 4),
+                          int8_bench_ms=round(int8["ms"], 4),
+                          bench_read_gb_s=bf16["gb_s"],
+                          int8_bench_read_gb_s=int8["gb_s"])
+    return stats, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -928,13 +1158,19 @@ def main() -> None:
     log(f"[serving] steady img/s at 8 x 1000 proposals, 640^2, this process "
         f"and card: bf16 {bf16_ips:.2f} (phase 4), int8 {int8_ips:.2f}, "
         f"int8+SVD {svd_ips:.2f}")
+    torch.cuda.empty_cache()
+    stats["window_pool"], pool_api_launches = pool_api_path(gen)
+    torch.cuda.empty_cache()
+    stats["window_read_probe"], probe_launches = probe_path()
 
     # launches: each path's run, counted from 0, and their sum; K1's
     # train_max_abs_err*: its forward at the train path's groups; the quant
     # kernels' max_abs_err*: the largest code difference from the plain
-    # version (their epilogue is bit-equal on their own pooled output)
+    # version (their epilogue is bit-equal on their own pooled output);
+    # P's max_abs_err: its bf16 windows' (its output is bf16 either way)
     paths = {"eval": eval_launches, "train": train_launches,
-             "int8": int8_launches, "int8_svd": svd_launches}
+             "int8": int8_launches, "int8_svd": svd_launches,
+             "pool_api": pool_api_launches, "probe": probe_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}
@@ -944,8 +1180,10 @@ def main() -> None:
         "launches": sum(counts[name] for counts in paths.values()),
         **{f"{path}_launches": counts[name]
            for path, counts in paths.items()},
-        "max_abs_err": stats[name]["float32"],
-        "max_abs_err_bf16": stats[name]["bfloat16"],
+        **({"max_abs_err": stats[name]["float32"],
+            "max_abs_err_bf16": stats[name]["bfloat16"]}
+           if "float32" in stats[name]
+           else {"max_abs_err": stats[name]["max_abs_err"]}),
         "ms": round(stats[name]["ms"], 4),
         "plain_ms": round(stats[name]["plain_ms"], 4),
         "bound_ms": round(stats[name]["bound_ms"], 4),

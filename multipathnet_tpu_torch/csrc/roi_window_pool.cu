@@ -1,5 +1,5 @@
-// ROI window pooling for Hopper (sm_90a): the CUDA port of the two Pallas
-// pool kernels on the detector's eval path, with their int8 epilogue.
+// ROI window pooling for Hopper (sm_90a): the CUDA port of the three Pallas
+// pool kernels, with the int8 epilogue of two of them.
 //
 //   window_pool_multi (K1) replaces _multi_window_pool_kernel /
 //     pallas_window_pool_multi in multipathnet_tpu/ops/roi_pallas.py:
@@ -8,6 +8,15 @@
 //   resident_pool (K2) replaces _resident_pool_kernel /
 //     pallas_resident_pool in the same file: the 1.5x/2x/4x context views
 //     pooled over each image's c5 pyramid.
+//   window_pool (K5) replaces _window_pool_kernel / pallas_window_pool in
+//     the same file: one level at absolute rows, which is exactly K1's
+//     function at L = 1, so ops/roi_pool.window_pool launches
+//     window_pool_kernel<T, 1, false> through mpn_window_pool_multi with one
+//     level (no second body). One difference from the TPU kernel: it rounds
+//     the combined weights W2 = wy (x) wx to the pyramid dtype before its
+//     GEMM (roi_pallas.py:156), while this body keeps float32 weights; so
+//     in bf16 K5 is held against its plain version, not against the TPU's
+//     rounding.
 //   With a skip bias given, either one also runs the int8 epilogue of its
 //   Pallas kernel (the quant_bias branches, roi_pallas.py:536 and :977,
 //   both calling _quant_view, roi_pallas.py:228): bias + ReLU and one
@@ -70,6 +79,9 @@
 //       views grouped by image), so an image's views run together. K2 is
 //       bounded by L2 bandwidth and the FMA rate, and its output write goes
 //       to HBM.
+//   K5 (chip_smoke's phase 11: the same 8000 1x views over c3 alone): 1.3
+//       GB of window reads out of the 0.42 GB c3 pyramid, 0.4 GB written,
+//       13 GFLOP; bounded like K1, by HBM reads, at a third of its work.
 // The epilogue halves the write and adds about 5 operations per output
 // element; the reads and the FMA, which bound both kernels, are unchanged.
 // A quant block of 256 threads at 255 registers fills one SM's register

@@ -25,12 +25,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-SOURCES = ("roi_window_pool.cu", "roi_window_grad.cu")
+SOURCES = ("roi_window_pool.cu", "roi_window_grad.cu", "window_read_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu)
+# entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu,
+# csrc/window_read_probe.cu)
 _SIGNATURES = {
     "mpn_window_pool_multi": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -38,6 +39,7 @@ _SIGNATURES = {
                           _P, _P, _P],
     "mpn_window_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_window_rmw_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib = None

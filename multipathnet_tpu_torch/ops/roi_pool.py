@@ -9,23 +9,27 @@ per bin averaged in (bilinear interpolation is linear, so the sample axis
 folds into the weights). The pool is then
     out[i, j, c] = sum_l sum_{y,x} wy_l[i, y] * wx_l[j, x] * win_l[y, x, c].
 
-Two kernels compute it (csrc/roi_window_pool.cu):
+Three wrappers launch one kernel body (csrc/roi_window_pool.cu):
   window_pool_multi (K1) — L levels summed, absolute rows; the 1x view
       over c3 + c4 + c5.
   resident_pool (K2) — one level, image-relative rows into a batch of
       per-image pyramids; the context views over c5.
-Given the head's skip bias (`quant_bias`, eval only), either one runs the
+  window_pool (K5) — one level, absolute rows (batched_pyramid_pool).
+Given the head's skip bias (`quant_bias`, eval only), K1 or K2 runs the
 int8 serving head's input stage in its epilogue (roi_pallas._quant_view):
 bias, ReLU and one int8 scale per view, returning int8 codes and float32
 scales instead of the pooled tensor (`quant_view_ref` is its plain
 version). Each wrapper counts its launches per mode: `launches` without
 the epilogue, `quant_launches` with it.
-Training differentiates K1 (`WindowPoolMulti`). Its backward is the
-transpose of the pool per view, gwin = wy^T g wx (10 x 16 x C), summed into
-the pyramid gradient at the window, by one of two kernels
-(csrc/roi_window_grad.cu) or the per-image placement GEMMs:
+The differentiable forms are WindowPoolMulti (K1), WindowPool (K5) and
+ResidentPool (K2). Their backward is the transpose of the pool per view,
+gwin = wy^T g wx (10 x 16 x C), summed into the pyramid gradient at the
+window, by one of two kernels (csrc/roi_window_grad.cu) or the per-image
+placement GEMMs:
   window_grad (K3) — image-relative rows, a float32 gradient.
-  window_rmw_grad (K4) — absolute rows, a gradient in the buffer's dtype.
+  window_rmw_grad (K4) — absolute rows, a gradient in the buffer's dtype;
+      also the one route of `accumulate_windows`, the single-level
+      backward.
 Each wrapper runs its plain PyTorch version (`*_ref`: gather or scatter
 the windows, two einsums in float32) for tensors on the CPU, launches its
 kernel for tensors on a CUDA device, and raises for anything else.
@@ -135,6 +139,12 @@ def window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias=None):
     return out if quant_bias is None else quant_view_ref(out, quant_bias)
 
 
+def window_pool_ref(flat, row0, x0, wy, wx) -> torch.Tensor:
+    """Plain version of K5: one level at absolute rows, the windows
+    gathered, two einsums in float32, one cast to the flat's dtype."""
+    return _pool_level_ref(flat, row0, x0, wy, wx).to(flat.dtype)
+
+
 def resident_pool_ref(flat, row0, x0, wy, wx, quant_bias=None):
     """Plain version of K2: flat (B, rows, Wmax, C), row0/x0 (B, V)
     image-relative, wy (B, V, G, 10), wx (B, V, G, 16) -> (B, V, G, G, C);
@@ -213,9 +223,45 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
     (N, G, G, C), float32 (N,) scales). Replaces
     roi_pallas.pallas_window_pool_multi.
     """
-    flat0 = flats[0]
-    if flat0.device.type == "cpu":
+    if flats[0].device.type == "cpu":
         return window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias)
+    out, scales, launched = _pool_levels(flats, row0s, x0s, wys, wxs,
+                                         quant_bias)
+    if quant_bias is None:
+        window_pool_multi.launches += launched
+        return out
+    window_pool_multi.quant_launches += launched
+    return out, scales
+
+
+window_pool_multi.launches = 0
+window_pool_multi.quant_launches = 0
+
+
+def window_pool(flat, row0, x0, wy, wx):
+    """K5: one-level window pooling at absolute rows.
+
+    flat (rows, Wmax, C) stacked pyramid(s); row0/x0 (N,) int32 absolute
+    window origins; wy (N, G, 10), wx (N, G, 16) float32 -> (N, G, G, C) in
+    the flat's dtype. It launches K1's kernel body at one level and counts
+    its own launches. Replaces roi_pallas.pallas_window_pool, which pads N
+    to its tile; here N = 0 returns an empty output.
+    """
+    if flat.device.type == "cpu":
+        return window_pool_ref(flat, row0, x0, wy, wx)
+    out, _, launched = _pool_levels([flat], [row0], [x0], [wy], [wx], None)
+    window_pool.launches += launched
+    return out
+
+
+window_pool.launches = 0
+
+
+def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
+    """Checks the arguments of window_pool_kernel over L absolute-row levels
+    (csrc/roi_window_pool.cu) and launches it unless N = 0. Returns (out,
+    scales or None, launches made: 0 or 1)."""
+    flat0 = flats[0]
     nl = len(flats)
     if not 1 <= nl <= 3 or not (len(row0s) == len(x0s) == len(wys)
                                 == len(wxs) == nl):
@@ -242,7 +288,7 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
     _check("wxs", wx, (nl, n, g, WINDOW_X), torch.float32, dev)
     out, scales = _pool_outputs(flat0, (n, g, g, c), dev, quant_bias)
     if n == 0:
-        return out if quant_bias is None else (out, scales)
+        return out, scales, 0
     from multipathnet_tpu_torch.ops import _build
 
     pad = [None] * (3 - nl)
@@ -254,17 +300,9 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
         row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
         _ptr(quant_bias), out.data_ptr(), _ptr(scales), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"window_pool_multi launch failed: "
+        raise RuntimeError(f"window_pool_kernel launch failed: "
                            f"cudaError {rc}")
-    if quant_bias is None:
-        window_pool_multi.launches += 1
-        return out
-    window_pool_multi.quant_launches += 1
-    return out, scales
-
-
-window_pool_multi.launches = 0
-window_pool_multi.quant_launches = 0
+    return out, scales, 1
 
 
 def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
@@ -480,6 +518,91 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
 window_rmw_grad.launches = 0
 
 
+def accumulate_windows(row0, x0, gout, wy, wx, shape, dtype) -> torch.Tensor:
+    """The single-level pools' shared backward, the port of
+    roi_pallas._accumulate_windows: the window gradients wy^T gout wx
+    (window_cotangent) of N views summed into zeros of `shape` (rows, Wmax,
+    C) at absolute (row0, x0), returned in `dtype`. The origins are first
+    clamped into the buffer, as the reference clamps them, so a window never
+    hangs past its edge.
+
+    It takes the pool's cotangent gout (N, G, G, C) and the weight rows
+    rather than the window gradients, because every width goes to K4
+    (window_rmw_grad), which forms them itself: the kernel on the card, its
+    plain version (window_cotangent, then the scatter) on the CPU. The
+    reference's two routes are not ported: the one-hot placement GEMMs over
+    the whole buffer for Wmax <= _PLACE_MM_MAX_W exist because a TPU's
+    scatter is HBM-bound while its matrix unit idles, and the scatter_add
+    is XLA's. Numerics: K4 sums in float32 and rounds once to `dtype`; the
+    reference's scatter sums a bf16 buffer in bf16, its placement in
+    float32.
+    """
+    rows, wmax = shape[0], shape[1]
+    row0 = torch.clamp(row0.to(torch.int32), 0, rows - WINDOW).contiguous()
+    x0 = torch.clamp(x0.to(torch.int32), 0, wmax - WINDOW_X).contiguous()
+    return window_rmw_grad(gout.float().contiguous(), row0, x0, wy, wx,
+                           tuple(shape), dtype)
+
+
+class WindowPool(torch.autograd.Function):
+    """Differentiable K5 — the counterpart of
+    roi_pallas.window_pool_trainable: apply(flat, row0, x0, wy, wx), the
+    arguments of window_pool. Gradients go to `flat` only: the geometry
+    derives from ROI coordinates, which are data. The backward keeps no
+    pyramid, only its shape and dtype."""
+
+    @staticmethod
+    def forward(ctx, flat, row0, x0, wy, wx):
+        ctx.save_for_backward(row0, x0, wy, wx)
+        ctx.flat_meta = (tuple(flat.shape), flat.dtype)
+        return window_pool(flat, row0, x0, wy, wx)
+
+    @staticmethod
+    def backward(ctx, gout):
+        row0, x0, wy, wx = ctx.saved_tensors
+        shape, dtype = ctx.flat_meta
+        return (accumulate_windows(row0, x0, gout, wy, wx, shape, dtype),
+                None, None, None, None)
+
+
+def window_pool_trainable(flat, row0, x0, wy, wx) -> torch.Tensor:
+    """window_pool with a gradient to `flat` (WindowPool)."""
+    return WindowPool.apply(flat, row0, x0, wy, wx)
+
+
+class ResidentPool(torch.autograd.Function):
+    """Differentiable K2 — the counterpart of
+    roi_pallas.resident_pool_trainable: apply(flat, row0, x0, wy, wx), the
+    arguments of resident_pool. The backward follows _rpt_bwd: the views
+    flattened to (B * V), their rows made absolute in the (B * rows, Wmax,
+    C) view of `flat`, accumulate_windows there. Gradients go to `flat`
+    only; no pyramid is kept."""
+
+    @staticmethod
+    def forward(ctx, flat, row0, x0, wy, wx):
+        ctx.save_for_backward(row0, x0, wy, wx)
+        ctx.flat_meta = (tuple(flat.shape), flat.dtype)
+        return resident_pool(flat, row0, x0, wy, wx)
+
+    @staticmethod
+    def backward(ctx, gout):
+        row0, x0, wy, wx = ctx.saved_tensors
+        (b, rows, wmax, c), dtype = ctx.flat_meta
+        v, g = wy.shape[1:3]
+        img_rows = torch.arange(b, dtype=torch.int32,
+                                device=row0.device)[:, None] * rows
+        grad = accumulate_windows(
+            (row0 + img_rows).reshape(b * v), x0.reshape(b * v),
+            gout.reshape(b * v, g, g, c), wy.reshape(b * v, g, WINDOW),
+            wx.reshape(b * v, g, WINDOW_X), (b * rows, wmax, c), dtype)
+        return grad.reshape(b, rows, wmax, c), None, None, None, None
+
+
+def resident_pool_trainable(flat, row0, x0, wy, wx) -> torch.Tensor:
+    """resident_pool with a gradient to `flat` (ResidentPool)."""
+    return ResidentPool.apply(flat, row0, x0, wy, wx)
+
+
 def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
                             ) -> torch.Tensor:
     """Port of roi_pallas._place_windows_per_image: each image's window
@@ -506,7 +629,10 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
 
 
 def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
-    """One level's pyramid gradient, routed as roi_pallas._mwpt_bwd."""
+    """One level's pyramid gradient, routed as roi_pallas._mwpt_bwd; without
+    the level's rows per image or the image count, accumulate_windows."""
+    if not (rows and batch):
+        return accumulate_windows(row0, x0, g, wy, wx, shape, dtype)
     wmax, c = shape[1], shape[2]
     n = g.shape[0]
     if rows * wmax * c * 4 <= _GRAD_VMEM_BUDGET:
@@ -522,20 +648,24 @@ def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
 
 class WindowPoolMulti(torch.autograd.Function):
     """Differentiable K1 — the counterpart of
-    roi_pallas.multi_window_pool_trainable with rows_list and batch.
+    roi_pallas.multi_window_pool_trainable.
 
     apply((row0s, x0s, wys, wxs), rows_list, batch, *flats): the geometry
     lists as window_pool_multi takes them (row0 absolute), each level's rows
-    per image, the image count, then the L stacked pyramids. Gradients go to
-    the pyramids only: the geometry derives from ROI coordinates, which are
-    data. Like the reference's zero stubs, the backward keeps no pyramid,
-    only its shape and dtype.
+    per image, the image count, then the L stacked pyramids. With rows_list
+    and batch the backward routes each level as _mwpt_bwd does (K3, the
+    per-image placement or K4); with None for either, every level goes
+    through accumulate_windows (the reference's last branch). Gradients go
+    to the pyramids only: the geometry derives from ROI coordinates, which
+    are data. Like the reference's zero stubs, the backward keeps no
+    pyramid, only its shape and dtype.
     """
 
     @staticmethod
     def forward(ctx, geometry, rows_list, batch, *flats):
         ctx.geometry = geometry
-        ctx.rows_list = tuple(rows_list)
+        ctx.rows_list = (tuple(rows_list) if rows_list is not None
+                         else (None,) * len(flats))
         ctx.batch = batch
         ctx.flat_meta = [(tuple(f.shape), f.dtype) for f in flats]
         return window_pool_multi(list(flats), *geometry)
@@ -583,12 +713,35 @@ def batched_pyramid_pool_multi(flat_batches, pyr_metas, rois_views,
                              quant_bias)
 
 
+def batched_pyramid_pool(flat_batch, pyr_meta: Pyramid, rois_views, img_idx,
+                         *, output_size: int = 7, samples_per_bin: int = 2,
+                         trainable: bool = False) -> torch.Tensor:
+    """One-level pooling through K5 (roi_pallas.batched_pyramid_pool).
+
+    flat_batch (B * rows, Wmax, C): B per-image pyramids stacked on rows;
+    pyr_meta: one image's Pyramid; rois_views (N, 4); img_idx (N,) each
+    view's image. Returns (N, G, G, C). `trainable` runs it through
+    WindowPool, so the gradient reaches flat_batch."""
+    row0, x0, wy, wx = view_geometry(pyr_meta, rois_views,
+                                     output_size=output_size,
+                                     samples_per_bin=samples_per_bin)
+    rows = pyr_meta.flat.shape[0]
+    row0 = (row0 + img_idx.to(torch.int32) * rows).contiguous()
+    pool = window_pool_trainable if trainable else window_pool
+    return pool(flat_batch, row0, x0, wy, wx)
+
+
 def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
                                   batch: int, *, output_size: int = 7,
-                                  samples_per_bin: int = 2, quant_bias=None):
+                                  samples_per_bin: int = 2,
+                                  trainable: bool = False, quant_bias=None):
     """One-level pooling through K2. flat_batch (B * rows, Wmax, C);
     rois_views (N, 4), N = B * V, grouped by image. Returns (N, G, G, C),
-    or with `quant_bias` (int8 (N, G, G, C), float32 (N,) scales)."""
+    or with `quant_bias` (int8 (N, G, G, C), float32 (N,) scales).
+    `trainable` runs it through ResidentPool, so the gradient reaches
+    flat_batch."""
+    if trainable and quant_bias is not None:
+        raise ValueError("quantized emission is eval-only")
     rows = pyr_meta.flat.shape[0]
     wmax, c = flat_batch.shape[1:]
     n = rois_views.shape[0]
@@ -599,10 +752,12 @@ def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
                                      output_size=output_size,
                                      samples_per_bin=samples_per_bin)
     g = wy.shape[1]
-    out = resident_pool(flat_batch.reshape(batch, rows, wmax, c),
-                        row0.reshape(batch, v), x0.reshape(batch, v),
-                        wy.reshape(batch, v, g, WINDOW),
-                        wx.reshape(batch, v, g, WINDOW_X), quant_bias)
+    args = (flat_batch.reshape(batch, rows, wmax, c), row0.reshape(batch, v),
+            x0.reshape(batch, v), wy.reshape(batch, v, g, WINDOW),
+            wx.reshape(batch, v, g, WINDOW_X))
+    if trainable:
+        return resident_pool_trainable(*args).reshape(n, g, g, c)
+    out = resident_pool(*args, quant_bias)
     if quant_bias is None:
         return out.reshape(n, g, g, c)
     q, s = out

@@ -52,6 +52,7 @@ sys.exit(1 if bad else 0)
 # modules the subprocess must have imported, the training and serving
 # paths' included
 _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
+                "tools.probe_int8_window_dma",
                 "core.device", "models.layers", "models.heads",
                 "models.convert", "models.multipath", "data.sampler",
                 "train.losses", "train.schedule", "train.loop",

@@ -1,5 +1,6 @@
 """The CUDA pool kernels (forward K1/K2 with and without their int8
-epilogue, backward K3/K4) against their plain PyTorch versions, on the card.
+epilogue, K5, backward K3/K4 and the single-level backward through K4) and
+the window-read probe P against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
@@ -471,3 +472,180 @@ def test_tiny_int8_slice_on_gpu_matches_cpu(cuda, ranks):
     (want_b, want_p), (got_b, got_p) = outs
     torch.testing.assert_close(got_p.cpu(), want_p, rtol=0, atol=2e-3)
     torch.testing.assert_close(got_b.cpu(), want_b, rtol=0, atol=5e-2)
+
+
+# ------------------------------------- K5, the single-level backward, P ---
+
+def _k5_args(dev, dtype, c, seed, b=2, canvas=320, n=600):
+    """K5's arguments: n views (image-major) over a batch of c3-sized
+    pyramids, rows absolute."""
+    (flat, meta), = _levels(dev, dtype, b, canvas, c, 3, seed=seed)[:1]
+    rois = torch.from_numpy(_rois(np.random.default_rng(seed), n,
+                                  canvas)).to(dev)
+    img = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(
+        n // b)
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+    return flat, (row0 + img * meta.flat.shape[0]).contiguous(), x0, wy, wx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [512, 200])
+def test_window_pool_kernel_matches_plain(cuda, dtype, c):
+    """K5 against window_pool_ref; its own counter moves, K1's does not."""
+    args = _k5_args(cuda, dtype, c, seed=31)
+    k5, k1 = roi_pool.window_pool.launches, roi_pool.window_pool_multi.launches
+    got = roi_pool.window_pool(*args)
+    torch.cuda.synchronize()
+    assert roi_pool.window_pool.launches == k5 + 1
+    assert roi_pool.window_pool_multi.launches == k1
+    want = roi_pool.window_pool_ref(*args)
+    assert got.dtype == want.dtype == dtype and got.shape == (600, 7, 7, c)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_window_pool_checks_its_inputs(cuda):
+    flat, row0, x0, wy, wx = _k5_args(cuda, torch.float32, 64, seed=32)
+    with pytest.raises(TypeError):
+        roi_pool.window_pool(flat, row0.long(), x0, wy, wx)
+    with pytest.raises(TypeError):
+        roi_pool.window_pool(flat.half(), row0, x0, wy, wx)
+    with pytest.raises(ValueError):
+        roi_pool.window_pool(flat[..., :63], row0, x0, wy, wx)
+    with pytest.raises(ValueError):
+        roi_pool.window_pool(flat[None], row0, x0, wy, wx)
+    with pytest.raises(ValueError):
+        roi_pool.window_pool(flat, row0.cpu(), x0, wy, wx)
+    out = roi_pool.window_pool(flat, row0[:0], x0[:0], wy[:0], wx[:0])
+    assert out.shape == (0, 7, 7, 64)
+
+
+def test_accumulate_windows_launches_k4_once(cuda, monkeypatch):
+    """Every width goes to K4, once per call, origins clamped first; the
+    plain scatter (index_put_) never runs on the card."""
+    def no_scatter(*a, **k):
+        raise AssertionError("the plain scatter ran on the card")
+
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    n, rows, c = 300, 64, 64
+    cases = []
+    for wmax in (48, 160):
+        row0 = torch.randint(-5, rows, (n,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        x0 = torch.randint(-1, wmax // 8 + 1, (n,), generator=gen,
+                           device=cuda, dtype=torch.int32) * 8
+        cases.append((row0, x0,
+                      torch.randn((n, 7, 7, c), generator=gen, device=cuda),
+                      torch.rand((n, 7, 10), generator=gen, device=cuda),
+                      torch.rand((n, 7, 16), generator=gen, device=cuda),
+                      (rows, wmax, c), torch.float32))
+    with monkeypatch.context() as m:
+        m.setattr(roi_pool, "_scatter_windows", no_scatter)
+        got = []
+        for args in cases:
+            launches = roi_pool.window_rmw_grad.launches
+            got.append(roi_pool.accumulate_windows(*args))
+            torch.cuda.synchronize()
+            assert roi_pool.window_rmw_grad.launches == launches + 1
+    for g_, args in zip(got, cases):
+        want = roi_pool.accumulate_windows(*(t.cpu() for t in args[:5]),
+                                           *args[5:])
+        torch.testing.assert_close(g_.cpu(), want, **_tol(torch.float32))
+
+
+def test_single_level_backwards_match_autograd_of_plain(cuda):
+    """window_pool_trainable, resident_pool_trainable and WindowPoolMulti
+    without rows_list: the gradients on the card against autograd through
+    the plain forward, float32; each backward launches K4 per level."""
+    b, v, c = 2, 150, 64
+    pyrs = _levels(cuda, torch.float32, b, 320, c, 3, seed=34)
+    rois = torch.from_numpy(_rois(np.random.default_rng(34), b * v,
+                                  320)).to(cuda)
+    img = torch.arange(b, dtype=torch.int32, device=cuda).repeat_interleave(v)
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    gout = torch.randn((b * v, 7, 7, c), generator=gen, device=cuda)
+    geos = []
+    for flat, meta in pyrs:
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+        geos.append(((row0 + img * meta.flat.shape[0]).contiguous(), x0, wy,
+                     wx))
+
+    def grads(fn, flats):
+        flats = [f.detach().requires_grad_() for f in flats]
+        k4 = roi_pool.window_rmw_grad.launches
+        out = torch.autograd.grad((fn(*flats) * gout).sum(), flats)
+        return out, roi_pool.window_rmw_grad.launches - k4
+
+    c3 = pyrs[0][0]
+    got, k4 = grads(lambda f: roi_pool.window_pool_trainable(f, *geos[0]),
+                    [c3])
+    want, _ = grads(lambda f: roi_pool.window_pool_ref(f, *geos[0]), [c3])
+    assert k4 == 1
+    torch.testing.assert_close(got[0], want[0], **_tol(torch.float32))
+
+    flat5, meta5 = pyrs[2]
+    rows, wmax = meta5.flat.shape[:2]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta5, rois)
+    rel = (row0.reshape(b, v), x0.reshape(b, v), wy.reshape(b, v, 7, 10),
+           wx.reshape(b, v, 7, 16))
+    flat4 = flat5.reshape(b, rows, wmax, c)
+    g5 = gout.reshape(b, v, 7, 7, c)
+    k4 = roi_pool.window_rmw_grad.launches
+    f = flat4.detach().requires_grad_()
+    (got,) = torch.autograd.grad(
+        (roi_pool.resident_pool_trainable(f, *rel) * g5).sum(), f)
+    assert roi_pool.window_rmw_grad.launches == k4 + 1
+    (want,) = torch.autograd.grad(
+        (roi_pool.resident_pool_ref(f, *rel) * g5).sum(), f)
+    torch.testing.assert_close(got, want, **_tol(torch.float32))
+
+    flats = [flat for flat, _ in pyrs]
+    geometry = [list(a) for a in zip(*geos)]
+    got, k4 = grads(lambda *fs: roi_pool.WindowPoolMulti.apply(
+        geometry, None, None, *fs), flats)
+    want, _ = grads(lambda *fs: roi_pool.window_pool_multi_ref(
+        list(fs), *geometry), flats)
+    assert k4 == 3
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("c", [512, 200])
+def test_window_read_probe_matches_plain(cuda, dtype, c):
+    from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
+
+    flat, row0, x0 = probe.probe_inputs(dtype, 3000, 512, 160, c,
+                                        device=cuda)
+    launches = probe.window_read_probe.launches
+    got = probe.window_read_probe(flat, row0, x0)
+    torch.cuda.synchronize()
+    assert probe.window_read_probe.launches == launches + 1
+    want = probe.window_read_probe_ref(flat, row0, x0)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == (3000, 49, c)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_window_read_probe_checks_its_inputs(cuda):
+    from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
+
+    flat, row0, x0 = probe.probe_inputs(torch.int8, 10, 64, 48, 16,
+                                        device=cuda)
+    with pytest.raises(TypeError):
+        probe.window_read_probe(flat.float(), row0, x0)
+    with pytest.raises(TypeError):
+        probe.window_read_probe(flat, row0.long(), x0)
+    with pytest.raises(ValueError):
+        probe.window_read_probe(flat[..., :14], row0, x0)
+    with pytest.raises(ValueError):
+        probe.window_read_probe(flat[None], row0, x0)
+    with pytest.raises(ValueError):
+        probe.window_read_probe(flat, row0, x0.cpu())
+    bad = row0.clone()
+    bad[3] = 60                      # the window hangs past the last row
+    out = probe.window_read_probe(flat, bad, x0)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[3]).all() and torch.isfinite(out[2]).all()
