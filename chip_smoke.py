@@ -7,14 +7,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each of which raises on failure (nothing is caught):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit.
-  2. build: compiles csrc/ with nvcc (ops/_build.py) and prints the time.
+  2. build: compiles csrc/ with nvcc (ops/_build.py) and prints the time,
+     ptxas's report and each pool instance's registers, local memory
+     (spills) and static/dynamic shared memory (cudaFuncGetAttributes).
   3. kernels: K1 (window_pool_multi) and K2 (resident_pool) against their
      plain PyTorch versions on random 640^2 c3/c4/c5 maps in float32
      (atol 1e-4) and bfloat16 (rtol 1e-2, atol 1e-2: one bf16 rounding of a
-     float32 sum), at the main path's shapes (8 images x 1000 proposals:
-     K1 8000 views x 3 levels, K2 8 x 3000 views) and on 2 images with
-     2048 ROIs at every pyramid scale, border ROIs included; then both
-     timed against their plain versions on the main path's bf16 inputs.
+     float32 sum; the share of outputs that differ at all is printed), at
+     the main path's shapes (8 images x 1000 proposals: K1 8000 views x 3
+     levels, K2 8 x 3000 views) and on 2 images with 2048 ROIs at every
+     pyramid scale, border ROIs included; then both timed against their
+     plain versions on the main path's bf16 inputs, with the rate at which
+     they read windows.
   4. main path: Detector on `multipath_vgg16_batched` (bf16 VGG-16,
      8 images x 1000 proposals, 640^2 canvas, weights normal * 0.02 drawn
      on the card from a seeded generator): first-call time, steady img/s
@@ -48,9 +52,10 @@ Phases, each of which raises on failure (nothing is caught):
      C = 512), float32 and bfloat16: bit for bit against the plain epilogue
      (roi_pool.quant_view_ref) applied to the same kernel's own pooled
      output, and against the fully plain version codes within 1 and scales
-     within 1e-5 (float32) / 1e-2 (bfloat16) relative; in bf16 each timed
-     against its plain version and against the kernel without the epilogue
-     followed by the plain epilogue.
+     within 1e-5 (float32) / 1e-2 (bfloat16) relative; in bf16 the share of
+     pooled outputs that differ from the plain version is printed, and each
+     kernel timed against its plain version and against the kernel without
+     the epilogue followed by the plain epilogue.
   9. int8 serving: Detector on `multipath_vgg16_int8` at 8 x 1000
      proposals, 640^2: float32 weights normal * 0.02 drawn on the card
      from a seeded generator, quantized by Detector's load-time transform
@@ -84,7 +89,9 @@ The line before the last is a JSON object with each kernel's launches (the
 runs of phases 4, 7, 9, 10, 11 and 12, each counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
-once) over 3.35 TB/s and their float32 operations over 67 TF/s; for P the
+once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
+bf16 body's W2 GEMM, 2 x 49 x 160 per view, level and channel, over the
+989 TF/s of the bf16 tensor cores); for P the
 distinct cells under its windows and its output over 3.35 TB/s, with the
 int8 numbers beside the bf16 ones. The last line is {"ok": true, "device":
 {...}}.
@@ -92,6 +99,7 @@ int8 numbers beside the bf16 ones. The last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -109,7 +117,9 @@ from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.loop import Batch, Trainer
 
-POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool.cu"
+# every model path pools in bf16, which runs the tensor-core body; the
+# float32 body (csrc/roi_window_pool.cu) is checked in phases 3, 6, 8, 11
+POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool_wgmma.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
 PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
@@ -201,19 +211,24 @@ def alternate_ms(plain, kernel, iters_plain: int, iters_kernel: int):
 
 HBM_BYTES_PER_MS = 3.35e9     # H100 SXM, 3.35 TB/s
 F32_OPS_PER_MS = 67e9         # H100 SXM float32 on the CUDA cores, 67 TF/s
+BF16_OPS_PER_MS = 989e9       # H100 SXM bf16 dense tensor cores, 989 TF/s
 # per view and level: row0, x0 (int32), wy (7 x 10), wx (7 x 16) float32
 GEOMETRY_BYTES = 4 + 4 + 4 * 7 * 10 + 4 * 7 * 16
 POOL_OPS = 2 * 1610           # per view, level and channel: the separable
 #                               contraction's FMAs (csrc/roi_window_pool.cu)
+W2_OPS = 2 * 49 * 160         # the same for the bf16 body's W2 GEMM
+#                               (csrc/roi_window_pool_wgmma.cu)
 EPILOGUE_OPS = 5              # per output element: bias add, ReLU, max,
 #                               divide, round
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, n_bf16_ops=0):
     """The least time the card could take, in ms, and what sets it: the
-    larger of the bytes over the HBM rate and the float32 operations over
-    the CUDA cores' peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
+    larger of the bytes over the HBM rate and the operations, float32 ones
+    over the CUDA cores' peak and bf16 tensor-core ones over theirs (two
+    units that can run at once, so the larger of their two times)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_MS
+    t_ops = max(n_ops / F32_OPS_PER_MS, n_bf16_ops / BF16_OPS_PER_MS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -232,9 +247,11 @@ def pool_bound(flats, row0s, x0s, quant: bool):
     """bound() of one K1 or K2 call on these inputs: each pyramid cell
     under a window read once, the geometry read once, the (N, 7, 7, C)
     output written once (int8 codes, one float32 scale per view and the
-    bias read with the epilogue); POOL_OPS per view, level and channel,
-    plus EPILOGUE_OPS per output element with the epilogue. K2's per-image
-    pyramids (B, rows, Wmax, C) take image-relative rows."""
+    bias read with the epilogue); per view, level and channel POOL_OPS
+    float32 operations (the float32 body) or W2_OPS bf16 tensor-core ones
+    (the bf16 body), plus EPILOGUE_OPS float32 operations per output
+    element with the epilogue. K2's per-image pyramids (B, rows, Wmax, C)
+    take image-relative rows."""
     c, size = flats[0].shape[-1], flats[0].element_size()
     n = row0s[0].numel()
     cells = 0
@@ -246,9 +263,20 @@ def pool_bound(flats, row0s, x0s, quant: bool):
         cells += window_cells(row0.reshape(-1), x0.reshape(-1),
                               flat.numel() // (wmax * c), wmax)
     out = n * 49 * c + n * 4 + c * size if quant else n * 49 * c * size
+    views = n * len(flats) * c
+    bf16 = flats[0].dtype == torch.bfloat16
     return bound(cells * c * size + n * len(flats) * GEOMETRY_BYTES + out,
-                 n * len(flats) * c * POOL_OPS
-                 + (n * 49 * c * EPILOGUE_OPS if quant else 0))
+                 (0 if bf16 else views * POOL_OPS)
+                 + (n * 49 * c * EPILOGUE_OPS if quant else 0),
+                 views * W2_OPS if bf16 else 0)
+
+
+def window_read_gb_s(flats, row0s, ms: float) -> float:
+    """The rate at which one K1/K2/K5 call of `ms` reads its windows:
+    every view's L (10, 16, C) windows, counted each time a view reads one
+    (neighbouring views read cells again), in GB/s."""
+    c, size = flats[0].shape[-1], flats[0].element_size()
+    return row0s[0].numel() * len(flats) * 160 * c * size / ms / 1e6
 
 
 def grad_bound(gout, out_numel: int, out_size: int):
@@ -258,6 +286,24 @@ def grad_bound(gout, out_numel: int, out_size: int):
     n, c = gout.shape[0], gout.shape[-1]
     return bound(gout.numel() * 4 + n * GEOMETRY_BYTES + out_numel * out_size,
                  n * c * POOL_OPS)
+
+
+def log_pool_instances() -> None:
+    """Phase 2: each pool instance's registers, local memory (spills) and
+    shared memory, from cudaFuncGetAttributes (mpn_pool_kernel_attrs)."""
+    attrs = (ctypes.c_int * 5)()
+    for is_bf16, body in ((1, "bf16 tensor-core"), (0, "float32 CUDA-core")):
+        for levels in (1, 2, 3):
+            for quant in (0, 1):
+                rc = _build.kernels().mpn_pool_kernel_attrs(
+                    is_bf16, levels, quant, ctypes.addressof(attrs))
+                require(rc == 0, f"mpn_pool_kernel_attrs: cudaError {rc}")
+                regs, local, static, dynamic, threads = attrs
+                log(f"[build] pool {body} body, L = {levels}"
+                    f"{', int8 epilogue' if quant else ''}: {regs} registers,"
+                    f" {local} B local memory (spills), {static} B static + "
+                    f"{dynamic} B dynamic shared memory, at most {threads} "
+                    f"threads per block")
 
 
 # ------------------------------------------------------------- phase 3 ---
@@ -323,10 +369,16 @@ def pool_inputs(levels, rois, canvas):
     return k1, k2, c3_levels, c3_meta.num_scales
 
 
+def differ_share(got, want) -> float:
+    """The share of outputs that are not equal to the plain version's."""
+    return float((got != want).float().mean())
+
+
 def compare(name, dtype, got, want):
     """Max abs error of a kernel's output against its plain version, held
     to atol 1e-4 in float32 and to rtol/atol 1e-2 in bfloat16 (one bf16
-    rounding of a float32 sum)."""
+    rounding of a float32 sum); in bfloat16 the tolerance string also
+    gives the share of outputs that differ at all."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = (got.float() - want.float()).abs().max().item()
@@ -334,7 +386,8 @@ def compare(name, dtype, got, want):
         ok, tol = err <= 1e-4, "atol 1e-4"
     else:
         ok = torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-        tol = "rtol 1e-2, atol 1e-2"
+        tol = (f"rtol 1e-2, atol 1e-2; {100 * differ_share(got, want):.4f}% "
+               f"of the outputs differ")
     require(ok and np.isfinite(err), f"{name} {dtype} disagrees with its "
             f"plain version: max abs err {err}")
     return err, tol
@@ -388,8 +441,9 @@ def check_and_time_kernels(gen):
                                          ([args[0]], [args[1]], [args[2]]))
                     b_ms, b_by = pool_bound(flats, row0s, x0s, quant=False)
                     log(f"[kernels] main path: {name} bf16 kernel {ms:.3f} "
-                        f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-                        f"({b_by})")
+                        f"ms ({window_read_gb_s(flats, row0s, ms):.0f} GB/s "
+                        f"of window reads), plain {plain_ms:.3f} ms, bound "
+                        f"{b_ms:.3f} ms ({b_by})")
                     out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by)
             del k1, k2
@@ -808,6 +862,10 @@ def check_and_time_quant_kernels(gen):
                     f"{name} {key}: not bit-equal to the plain epilogue on "
                     f"its own pooled output")
             plain_q, plain_s = ref(*args, quant_bias=bias)
+            if dtype == torch.bfloat16:
+                log(f"[quant] {name.removesuffix('_quant')} bf16 pooled "
+                    f"output: {100 * differ_share(kern(*args), ref(*args)):.4f}"
+                    f"% differs from its plain version")
             diff = (q.int() - plain_q.int()).abs()
             code_err = int(diff.max())
             share = float((diff > 0).float().mean())
@@ -834,7 +892,9 @@ def check_and_time_quant_kernels(gen):
                                  if name == "window_pool_multi_quant" else
                                  ([args[0]], [args[1]], [args[2]]))
             b_ms, b_by = pool_bound(flats, row0s, x0s, quant=True)
-            log(f"[quant] {name} bf16: kernel {ms:.3f} ms, plain "
+            log(f"[quant] {name} bf16: kernel {ms:.3f} ms "
+                f"({window_read_gb_s(flats, row0s, ms):.0f} GB/s of window "
+                f"reads), plain "
                 f"{plain_ms:.3f} ms, kernel without the epilogue + plain "
                 f"epilogue {unfused_ms:.3f} ms, bound {b_ms:.3f} ms "
                 f"({b_by})")
@@ -944,7 +1004,9 @@ def check_and_time_window_pool(pyr, views, img_idx):
     ms, plain_ms = alternate_ms(lambda: roi_pool.window_pool_ref(*args),
                                 lambda: roi_pool.window_pool(*args), 2, 10)
     b_ms, b_by = pool_bound([flat], [row0], [x0], quant=False)
-    log(f"[pool_api] window_pool bf16 kernel {ms:.3f} ms, plain "
+    log(f"[pool_api] window_pool bf16 kernel {ms:.3f} ms "
+        f"({window_read_gb_s([flat], [row0], ms):.0f} GB/s of window reads), "
+        f"plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     return out
@@ -1138,6 +1200,7 @@ def main() -> None:
     for line in nvcc_out.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build]   {line.strip()}")
+    log_pool_instances()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stats = check_and_time_kernels(gen)

@@ -7,6 +7,8 @@ use, into build/kernels/<hash>/ at the repository root (listed in
 source rebuilds and an unchanged one loads what is there. The library is
 bound with ctypes: every pointer and the stream pass as c_void_p, every
 size as c_int, and each entry point returns the cudaError_t of its launch.
+The bf16 pool body encodes its TMA tensor maps through the runtime's
+cudaGetDriverEntryPoint, so the link line names no driver library.
 
 Nothing is compiled or loaded when this module is imported; CPU-only hosts
 never reach `kernels()`.
@@ -25,7 +27,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-SOURCES = ("roi_window_pool.cu", "roi_window_grad.cu", "window_read_probe.cu")
+SOURCES = ("roi_window_pool.cu", "roi_window_pool_wgmma.cu",
+           "roi_window_grad.cu", "window_read_probe.cu")
+HEADERS = ("roi_window_pool.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -37,6 +41,7 @@ _SIGNATURES = {
                               _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P],
+    "mpn_pool_kernel_attrs": [_I, _I, _I, _P],
     "mpn_window_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_window_rmw_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -59,7 +64,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -9,7 +9,13 @@ per bin averaged in (bilinear interpolation is linear, so the sample axis
 folds into the weights). The pool is then
     out[i, j, c] = sum_l sum_{y,x} wy_l[i, y] * wx_l[j, x] * win_l[y, x, c].
 
-Three wrappers launch one kernel body (csrc/roi_window_pool.cu):
+As the reference's kernels compute it, the weights are combined first:
+W2 = wy (x) wx, the float32 product rounded once to the pyramid dtype, then
+one float32 contraction over the 160 window cells (in float32 the rounding
+is a no-op). Three wrappers launch the same two kernel bodies
+(csrc/roi_window_pool.cu): bfloat16 pyramids the tensor-core body
+(wgmma on TMA-staged windows, csrc/roi_window_pool_wgmma.cu; C divisible
+by 8), float32 ones the CUDA-core body:
   window_pool_multi (K1) — L levels summed, absolute rows; the 1x view
       over c3 + c4 + c5.
   resident_pool (K2) — one level, image-relative rows into a batch of
@@ -31,7 +37,7 @@ placement GEMMs:
       also the one route of `accumulate_windows`, the single-level
       backward.
 Each wrapper runs its plain PyTorch version (`*_ref`: gather or scatter
-the windows, two einsums in float32) for tensors on the CPU, launches its
+the windows, contract them in float32) for tensors on the CPU, launches its
 kernel for tensors on a CUDA device, and raises for anything else.
 `launches` on each wrapper counts its kernel launches.
 """
@@ -44,7 +50,8 @@ from multipathnet_tpu_torch.ops import quant
 from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the int8 epilogue gives one block a whole view, 2 channels per thread
+# the int8 epilogue gives one block a whole view: the bf16 body's 512-channel
+# tile, the float32 body's 256 threads x 2 channels
 _QUANT_MAX_CHANNELS = 512
 
 
@@ -109,12 +116,22 @@ def view_geometry(pyr: Pyramid, rois: torch.Tensor, *, output_size: int = 7,
 
 
 def _pool_level_ref(flat, row0, x0, wy, wx) -> torch.Tensor:
-    """One level: flat (rows, Wmax, C), row0/x0 (N,) -> (N, G, G, C) f32."""
+    """One level: flat (rows, Wmax, C), row0/x0 (N,) -> (N, G, G, C) f32.
+
+    The W2 form of the reference's pool kernels (roi_pallas.py:156, :534,
+    :975): W2[n, i, j, y, x] = wy[n, i, y] * wx[n, j, x], the float32
+    product rounded once to the pyramid dtype (a no-op in float32), then
+    one float32 contraction over the 160 window cells."""
+    g, c = wy.shape[1], flat.shape[-1]
     ys = row0.long()[:, None] + torch.arange(WINDOW, device=flat.device)
     xs = x0.long()[:, None] + torch.arange(WINDOW_X, device=flat.device)
     win = flat[ys[:, :, None], xs[:, None, :]].float()  # (N, 10, 16, C)
-    t = torch.einsum("niy,nyxc->nixc", wy.float(), win)
-    return torch.einsum("nixc,njx->nijc", t, wx.float())
+    w2 = (wy.float()[:, :, None, :, None] * wx.float()[:, None, :, None, :]
+          ).to(flat.dtype).float()                      # (N, G, G, 10, 16)
+    n = w2.shape[0]
+    out = torch.bmm(w2.reshape(n, g * g, WINDOW * WINDOW_X),
+                    win.reshape(n, WINDOW * WINDOW_X, c))
+    return out.reshape(n, g, g, c)
 
 
 def quant_view_ref(pooled, bias):
@@ -131,9 +148,9 @@ def quant_view_ref(pooled, bias):
 
 
 def window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias=None):
-    """Plain version of K1: the windows gathered, two einsums in float32,
-    summed over levels, one cast to the pyramid dtype; with `quant_bias`,
-    then quant_view_ref."""
+    """Plain version of K1: the windows gathered, each level's W2
+    contraction in float32 (_pool_level_ref), summed over levels, one cast
+    to the pyramid dtype; with `quant_bias`, then quant_view_ref."""
     out = sum(_pool_level_ref(*a) for a in zip(flats, row0s, x0s, wys, wxs))
     out = out.to(flats[0].dtype)
     return out if quant_bias is None else quant_view_ref(out, quant_bias)
@@ -141,7 +158,8 @@ def window_pool_multi_ref(flats, row0s, x0s, wys, wxs, quant_bias=None):
 
 def window_pool_ref(flat, row0, x0, wy, wx) -> torch.Tensor:
     """Plain version of K5: one level at absolute rows, the windows
-    gathered, two einsums in float32, one cast to the flat's dtype."""
+    gathered, the W2 contraction in float32 (_pool_level_ref), one cast to
+    the flat's dtype."""
     return _pool_level_ref(flat, row0, x0, wy, wx).to(flat.dtype)
 
 
@@ -187,6 +205,12 @@ def _check_pyramid(name, flat, device):
     if flat.shape[-1] % 2:
         raise ValueError(f"{name}: the kernel needs an even channel count, "
                          f"got {flat.shape[-1]}")
+    # the bf16 body reads windows by TMA, whose strides are 16-byte units
+    if flat.dtype == torch.bfloat16 and (flat.shape[-1] % 8
+                                         or flat.data_ptr() % 16):
+        raise ValueError(f"{name}: the bf16 kernel needs a channel count "
+                         f"divisible by 8 and a 16-byte aligned buffer, got "
+                         f"{flat.shape[-1]} channels at {flat.data_ptr():#x}")
 
 
 def _stream(device) -> int:

@@ -6,9 +6,13 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -m cuda -q
 (tests/conftest.py imports jax, which a GPU machine need not have).
-Tolerances: float32 atol 1e-4 (the kernel sums in another order than the
-einsums); bfloat16 rtol 1e-2, atol 1e-2 (one bf16 rounding of a float32
-sum, 2^-8 relative). The int8 epilogue is held bit for bit against its
+Every bf16 pool launch runs the tensor-core body (wgmma on TMA-staged
+windows), every float32 one the CUDA-core body. Tolerances: float32 atol
+1e-4 (the kernel sums in another order than the plain version); bfloat16
+rtol 1e-2, atol 1e-2 (one bf16 rounding of a float32 sum, 2^-8 relative;
+both sides round W2 = wy (x) wx to bf16 first, so they differ only where
+the float32 sums, taken in other orders, round to neighbouring bf16
+values). The int8 epilogue is held bit for bit against its
 plain version (quant_view_ref) on the same kernel's own pooled output; against
 the fully plain version, whose pooled sums differ in their last bits, codes
 within 1 and scales to the pooled tolerance.
@@ -63,7 +67,8 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_levels,c", [(3, 512), (2, 200), (1, 32)])
+@pytest.mark.parametrize("n_levels,c", [(3, 512), (2, 200), (1, 32),
+                                         (2, 72)])
 def test_window_pool_multi_kernel_matches_plain(cuda, dtype, n_levels, c):
     b, canvas, n = 2, 320, 600
     pyrs = _levels(cuda, dtype, b, canvas, c, n_levels, seed=n_levels)
@@ -111,6 +116,62 @@ def test_out_of_range_window_is_nan_not_read(cuda):
     out = roi_pool.window_pool_multi([flat], [row0], [x0], [wy], [wx])
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+
+
+def _one_level_views(dev, dtype, c, seed, n=6):
+    """K1 and K2 arguments for n views over one 2-image level, the window
+    of view 1 moved past the last row of its buffer."""
+    (flat, meta), = _levels(dev, dtype, 2, 160, c, 1, seed=seed)
+    rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]] * n, device=dev)
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+    rows, wmax = meta.flat.shape[:2]
+    bad = row0.clone()
+    bad[1] = 2 * rows - 5                # K1: absolute rows
+    k1 = ([flat], [bad], [x0], [wy], [wx])
+    rel = row0.clone()
+    rel[1] = rows - 5                    # K2: image-relative rows
+    v = n // 2
+    k2 = (flat.reshape(2, rows, wmax, c), rel.reshape(2, v),
+          x0.reshape(2, v), wy.reshape(2, v, 7, 10), wx.reshape(2, v, 7, 16))
+    return k1, k2
+
+
+def test_bf16_out_of_range_window_is_not_read(cuda):
+    """The tensor-core body checks bounds itself (TMA would zero-fill):
+    NaN out without the epilogue, zero codes and a NaN scale with it, in K1
+    and K2; every other view is pooled as its plain version pools it."""
+    k1, k2 = _one_level_views(cuda, torch.bfloat16, 64, seed=24)
+    bias = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    for kern, args in ((roi_pool.window_pool_multi, k1),
+                       (roi_pool.resident_pool, k2)):
+        out = kern(*args).reshape(6, 7, 7, 64)
+        q, s = kern(*args, quant_bias=bias)
+        torch.cuda.synchronize()
+        q, s = q.reshape(6, 7, 7, 64), s.reshape(6)
+        assert torch.isnan(out[1]).all()
+        assert torch.isnan(s[1]) and not q[1].any()
+        keep = [0, 2, 3, 4, 5]
+        assert torch.isfinite(out[keep]).all() and torch.isfinite(s[keep]).all()
+        assert q[keep].abs().max() > 0
+
+
+def test_bf16_wrappers_need_channels_divisible_by_8(cuda):
+    """TMA strides are 16-byte units: the bf16 body takes C % 8 == 0 only;
+    float32 takes any even C."""
+    for c, ok in ((36, False), (40, True)):
+        k1, k2 = _one_level_views(cuda, torch.bfloat16, c, seed=25)
+        for kern, args in ((roi_pool.window_pool_multi, k1),
+                           (roi_pool.resident_pool, k2),
+                           (roi_pool.window_pool,
+                            tuple(a[0] for a in k1))):
+            if ok:
+                kern(*args)
+            else:
+                with pytest.raises(ValueError, match="divisible by 8"):
+                    kern(*args)
+    k1, _ = _one_level_views(cuda, torch.float32, 36, seed=25)
+    roi_pool.window_pool_multi(*k1)
+    torch.cuda.synchronize()
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -368,7 +429,7 @@ def _quant_cases(dev, dtype, c, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [512, 200, 32])
+@pytest.mark.parametrize("c", [512, 200, 32, 72])
 def test_quant_epilogue_matches_plain(cuda, dtype, c):
     """K1 and K2 with the epilogue: bit for bit against quant_view_ref of
     the same kernel's pooled output; codes within 1 and scales to the pooled

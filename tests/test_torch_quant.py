@@ -6,10 +6,12 @@ kernels in interpret mode), jitted where the reference runs jitted.
 
 The int32 GEMM is exact on both sides and the quantizers are the same
 formulas, so quantization, the epilogue on identical pooled input and the
-int8 head on identical int8 input are held bit for bit. Pooling with the
-epilogue is not: the port sums the pool in another order than the
-reference's W2 GEMM, and a pooled value one ULP apart flips a code at a
-rounding tie (the share of such codes is bounded below)."""
+int8 head on identical int8 input are held bit for bit. So is bf16
+pooling, with and without the epilogue: both sides round W2 = wy (x) wx to
+bf16 and contract in float32, and the float32 sums, taken in another
+order, agree to within a rounding of bf16. Float32 pooling with the
+epilogue is not held bit for bit: a pooled value one ULP apart flips a code
+at a rounding tie (the share of such codes is bounded below)."""
 
 import dataclasses
 import warnings
@@ -357,23 +359,54 @@ def test_quant_view_ref_matches_reference_epilogue(pooled_pair, dtype):
     assert np.asarray(pq).any() and (np.asarray(ps) > 1e-12).all()
 
 
-def test_pool_rois_quantized_matches_reference(pooled_pair):
-    """float32: the port's pool with the epilogue (plain versions) from the
-    reference's features. Scales to rtol 1e-6 (2.4e-7 read here); codes
-    equal but for at most 1e-4 of them (7 of the 75,264) that differ by 1,
-    a pooled sum one ULP apart at a rounding tie. None differs here; on an
-    H100 the quant kernels differ from their plain version in 7.7e-7 (K1)
-    and 3.7e-7 (K2) of the codes at the main path's shapes."""
-    rois, bias, out = pooled_pair
-    feats, _, pq, ps = out["float32"]
+def _port_pool_model(dtype):
     cfg = preset("tiny")
-    model = build_model(dataclasses.replace(
-        cfg.model, head_quant="int8", dtype="float32"), device="cpu")
-    q, s = model.pool_rois_quantized({k: _t(v) for k, v in feats.items()},
-                                     torch.from_numpy(rois), (64, 64),
-                                     _t(bias))
+    return build_model(dataclasses.replace(
+        cfg.model, head_quant="int8", dtype=dtype), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pool_rois_quantized_matches_reference(pooled_pair, dtype):
+    """The port's pool with the epilogue (plain versions) from the
+    reference's features.
+
+    float32: scales to rtol 1e-6 (2.4e-7 read here); codes equal but for at
+    most 1e-4 of them (7 of the 75,264) that differ by 1, a pooled sum one
+    ULP apart at a rounding tie. None differs here; on an H100 the quant
+    kernels differ from their plain version in 7.7e-7 (K1) and 3.7e-7 (K2)
+    of the codes at the main path's shapes.
+
+    bfloat16: codes and scales bit for bit. The port rounds W2 = wy (x) wx
+    to bf16 before one float32 contraction, as the reference's kernels do;
+    with float32 weights 2,891 of the 75,264 codes differed, by up to 2."""
+    rois, bias, out = pooled_pair
+    feats, _, pq, ps = out[dtype]
+    model = _port_pool_model(dtype)
+    q, s = model.pool_rois_quantized(
+        {k: _t(v) for k, v in feats.items()}, torch.from_numpy(rois),
+        (64, 64), _t(bias).to(DTYPES[dtype][1]))
     assert q.dtype == torch.int8 and q.shape == pq.shape
     assert s.shape == ps.shape == (2, 4, 6, 1)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ps))
+        return
     np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=1e-6, atol=0)
     diff = np.abs(q.numpy().astype(np.int32) - np.asarray(pq, np.int32))
     assert diff.max() <= 1 and diff.mean() <= 1e-4, (diff.max(), diff.sum())
+
+
+def test_pool_rois_bf16_matches_reference_bit_for_bit(pooled_pair):
+    """bf16 pool_rois (plain versions) equal the reference's jitted
+    pool_rois, Pallas kernels in interpret mode, in every one of the 75,264
+    pooled values: the W2 rounding of roi_pallas.py:534 and :975. With
+    float32 weights 18,307 of them differed, by up to 0.0625."""
+    rois, _, out = pooled_pair
+    feats, pooled, _, _ = out["bfloat16"]
+    model = _port_pool_model("bfloat16")
+    got = model.pool_rois({k: _t(v) for k, v in feats.items()},
+                          torch.from_numpy(rois), (64, 64))
+    want = _t(pooled)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape and want.numel() == 75264
+    assert torch.equal(got, want)

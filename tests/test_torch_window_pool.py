@@ -3,9 +3,10 @@
 without rows_list with their shared backward (accumulate_windows), and the
 probe's plain version, against the JAX package on the same numpy inputs.
 The JAX side runs its Pallas kernels in interpret mode, in float32 (XLA:CPU
-rejects bf16 x bf16 -> f32 dots). Tolerances: forward atol 1e-5, gradients
-atol/rtol 1e-4 (float32 sums in another order); the probe as each test
-states."""
+rejects bf16 x bf16 -> f32 dots); the bf16 K5 is held, bit for bit, to the
+reference's combined weights (roi_pallas._w2_all) rounded to bf16.
+Tolerances: forward atol 1e-5, gradients atol/rtol 1e-4 (float32 sums in
+another order); the probe as each test states."""
 
 import importlib.util
 from functools import partial
@@ -96,10 +97,23 @@ def test_window_pool_empty_and_dtype():
     assert tuple(out.shape) == (0, 7, 7, 8)
     bf = trk.window_pool(flat.bfloat16(), row0, x0, wy, wx)
     assert bf.dtype == torch.bfloat16
-    # one rounding of the float32 pool of the bf16 pyramid
-    torch.testing.assert_close(
-        bf, trk.window_pool(flat.bfloat16().float(), row0, x0, wy,
-                            wx).bfloat16(), rtol=0, atol=0)
+    # the W2 semantics of the reference's kernels: W2 = wy (x) wx built by
+    # roi_pallas._w2_all in float32, rounded once to bf16, one float32
+    # contraction over the 160 window cells, one rounding of the result
+    n = row0.shape[0]
+    consts = jrk._expansion_consts(7, n)
+    w2 = jrk._w2_all(*consts, jrk._cat_layout(jnp.asarray(lv["geo"][2]), n)[0],
+                     jrk._cat_layout(jnp.asarray(lv["geo"][3]), n)[0])
+    w2 = _t(np.asarray(w2[:49]).reshape(49, n, 160).transpose(1, 0, 2))
+    ys = row0.long()[:, None] + torch.arange(10)
+    xs = x0.long()[:, None] + torch.arange(16)
+    win = flat.bfloat16()[ys[:, :, None], xs[:, None, :]].float()
+    want = torch.bmm(w2.bfloat16().float(), win.reshape(n, 160, 8))
+    torch.testing.assert_close(bf, want.reshape(n, 7, 7, 8).bfloat16(),
+                               rtol=0, atol=0)
+    # which float32 weights would not give
+    f32w = trk.window_pool(flat.bfloat16().float(), row0, x0, wy, wx)
+    assert not torch.equal(bf, f32w.bfloat16())
 
 
 def test_window_pool_rejects_other_devices():
