@@ -8,8 +8,9 @@ Phases, each of which raises on failure (nothing is caught):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit.
   2. build: compiles csrc/ with nvcc (ops/_build.py) and prints the time,
-     ptxas's report and each pool instance's registers, local memory
-     (spills) and static/dynamic shared memory (cudaFuncGetAttributes).
+     ptxas's report and each pool and gradient instance's registers, local
+     memory (spills) and static/dynamic shared memory
+     (cudaFuncGetAttributes).
   3. kernels: K1 (window_pool_multi) and K2 (resident_pool) against their
      plain PyTorch versions on random 640^2 c3/c4/c5 maps in float32
      (atol 1e-4) and bfloat16 (rtol 1e-2, atol 1e-2: one bf16 rounding of a
@@ -24,6 +25,9 @@ Phases, each of which raises on failure (nothing is caught):
      on the card from a seeded generator): first-call time, steady img/s
      over 10 batches, a profiler breakdown of one batch; both kernels must
      have launched, outputs finite with shapes (8, 100, 4) / (8, 100).
+     Then the bias passes (models/layers.py adds each bias after its
+     product, as flax does): every biased layer's output of one batch
+     recorded, and the time of its bias add, head and trunk apart.
   5. NMS under load: the same with eval.score_threshold = 0, so NMS sees
      candidates (random weights put every class near 1/81 < 0.05);
      detections must be > 0.
@@ -33,20 +37,26 @@ Phases, each of which raises on failure (nothing is caught):
      the single-level instance eval never launches) against its plain
      version in float32 (atol 1e-4) and bfloat16 (rtol/atol 1e-2), each
      timed against it; K3 (window_grad) and K4 (window_rmw_grad) against
-     their plain versions (K3 on c5 with all 2048 foveal views, K4 on c3
-     with the 512 1x views) on random float32 cotangents, float32 (atol
-     1e-4) and cast to bfloat16 (rtol/atol 1e-2), then both timed against
-     their plain versions; and WindowPoolMulti's backward on the card (K3
-     on c5, the placement GEMMs on c4, K4 on c3) against autograd through
-     the plain forward.
+     their plain versions (K3 on c5 with all 2048 foveal views and on c4
+     with the 512 1x views, K4 on c3 with the 512 1x views) on random
+     float32 cotangents, with a float32 output (atol 1e-4 x max(1, max
+     |g|)) and the bf16 output the path writes (within one bf16 step of
+     the plain float32 sum rounded), each output equal bit for bit over two
+     calls, then each timed against its plain version in bf16; and
+     WindowPoolMulti's backward on the card (K3 on c5 and c4, K4 on c3, no
+     placement GEMM) against autograd through the plain forward.
   7. training: Trainer on `multipath_vgg16_train` at full width (VGG-16,
      conv1-2 frozen, float32 parameters, bf16 compute, batch 8 at 640^2,
      1000 proposals and 64 sampled ROIs per image), weights normal * 0.02
      from a seeded generator on the card, a synthetic batch from seed 0:
      the first step's time, 10 timed steps (ms/step, img/s), peak device
      memory and a profiler breakdown of one step. Every loss finite, fg
-     sampled, K1/K3/K4 launched and K2 not, frozen blocks bit-identical,
-     conv3_1's gradient nonzero.
+     sampled, K1/K3/K4 launched (K3 three times a step: c5 twice, c4) and
+     K2 and the placement GEMMs not, frozen blocks bit-identical, conv3_1's
+     gradient nonzero. Then two steps from one saved state on one batch,
+     under the default settings and under cudnn.deterministic: whether
+     loss, gradients and parameters come out equal, and the
+     deterministic step's ms/step.
   8. int8 epilogue: K1 and K2 with the skip bias (the quant instances) at
      the main path's shapes (K1 8000 views x 3 levels, K2 8 x 3000 views,
      C = 512), float32 and bfloat16: bit for bit against the plain epilogue
@@ -110,12 +120,14 @@ import torch
 
 from multipathnet_tpu_torch.core.config import preset
 from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
-from multipathnet_tpu_torch.models import convert
+from multipathnet_tpu_torch.models import convert, layers
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
-from multipathnet_tpu_torch.train.loop import Batch, Trainer
+from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
+                                               restore_train_state,
+                                               snapshot_train_state)
 
 # every model path pools in bf16, which runs the tensor-core body; the
 # float32 body (csrc/roi_window_pool.cu) is checked in phases 3, 6, 8, 11
@@ -281,17 +293,28 @@ def window_read_gb_s(flats, row0s, ms: float) -> float:
 
 def grad_bound(gout, out_numel: int, out_size: int):
     """bound() of one K3 or K4 call: the float32 cotangent and the geometry
-    read once, the whole gradient buffer written once; POOL_OPS per view
-    and channel (the transposed contraction)."""
+    read once, the whole gradient buffer written once in the dtype the
+    path writes (out_size bytes a value); POOL_OPS per view and channel
+    (the transposed contraction)."""
     n, c = gout.shape[0], gout.shape[-1]
     return bound(gout.numel() * 4 + n * GEOMETRY_BYTES + out_numel * out_size,
                  n * c * POOL_OPS)
 
 
 def log_pool_instances() -> None:
-    """Phase 2: each pool instance's registers, local memory (spills) and
-    shared memory, from cudaFuncGetAttributes (mpn_pool_kernel_attrs)."""
+    """Phase 2: each pool and gradient instance's registers, local memory
+    (spills) and shared memory, from cudaFuncGetAttributes
+    (mpn_pool_kernel_attrs, mpn_grad_kernel_attrs)."""
     attrs = (ctypes.c_int * 5)()
+    for out_bf16 in (0, 1):
+        rc = _build.kernels().mpn_grad_kernel_attrs(out_bf16,
+                                                    ctypes.addressof(attrs))
+        require(rc == 0, f"mpn_grad_kernel_attrs: cudaError {rc}")
+        regs, local, static, dynamic, threads = attrs
+        log(f"[build] K3/K4 gradient body, {'bf16' if out_bf16 else 'float32'}"
+            f" output: {regs} registers, {local} B local memory (spills), "
+            f"{static} B static + {dynamic} B dynamic shared memory, at most "
+            f"{threads} threads per block")
     for is_bf16, body in ((1, "bf16 tensor-core"), (0, "float32 CUDA-core")):
         for levels in (1, 2, 3):
             for quant in (0, 1):
@@ -567,7 +590,50 @@ def main_path():
             "no detections with score_threshold=0")
     profile_once("profile", "one batch",
                  lambda: detect_batch(model, cfg0, *dev_inputs))
+    bias = bias_pass_ms(lambda: detect_batch(model, cfg0, *dev_inputs))
+    log(f"[profile] bias passes per batch (each bias added after its "
+        f"product, models/layers.py): head {bias['head']:.3f} ms over "
+        f"{bias['head_calls']} layers, trunk {bias['trunk']:.3f} ms over "
+        f"{bias['trunk_calls']} layers")
     return launches, ips
+
+
+def bias_pass_ms(run):
+    """The bias passes of one run(): every biased conv and linear output
+    that models/layers.py makes in it recorded by shape (the layer
+    functions wrapped for that one run), then each output's bias add timed
+    alone on random data of its shape and dtype. Returns {"head": ms,
+    "trunk": ms, "head_calls": n, "trunk_calls": n}; the head is every
+    linear layer, the trunk every convolution."""
+    seen = []
+    conv, linear = layers.conv, layers.linear
+
+    def record(part, fn):
+        def wrapped(mod, x, dtype):
+            y = fn(mod, x, dtype)
+            if mod.bias is not None:
+                seen.append((part, tuple(y.shape), y.dtype))
+            return y
+        return wrapped
+
+    layers.conv = record("trunk", conv)
+    layers.linear = record("head", linear)
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        layers.conv, layers.linear = conv, linear
+    out = {"head": 0.0, "trunk": 0.0, "head_calls": 0, "trunk_calls": 0}
+    for part, shape, dtype in seen:
+        y = torch.randn(shape, device="cuda").to(dtype)
+        channels = shape[1] if part == "trunk" else shape[-1]
+        b = torch.randn(channels, device="cuda").to(dtype)
+        if part == "trunk":
+            b = b[:, None, None]
+        out[part] += cuda_ms(lambda: y + b, 5)
+        out[f"{part}_calls"] += 1
+        del y
+    return out
 
 
 # ------------------------------------------------------------- phase 6 ---
@@ -594,6 +660,9 @@ def train_geometry(gen, batch=8, rois_per_image=64, canvas=640, c=512):
     maps, 64 ROIs per image from bench.py's generator, and
       k3: all 4 foveal views of every ROI over c5 (8 x 256 = 2048 views,
           image-major, rows image-relative) -> window_grad args;
+      k3_c4: the 1x views over c4 (512 views, rows image-relative) ->
+          window_grad args: the level the reference sends to its
+          placement GEMMs and the card to K3;
       k4: the 1x views over c3 (512 views, rows absolute) ->
           window_rmw_grad args (without the dtype);
     plus the pyramids and the ROIs (B, R, 4) for K1 and WindowPoolMulti."""
@@ -610,12 +679,18 @@ def train_geometry(gen, batch=8, rois_per_image=64, canvas=640, c=512):
                        device="cuda")
     k3 = (gout, row0, x0, wy, wx, batch, rows, wmax)
     ones, img_idx = group_views(rois, FOVEAL[:1], canvas)
+    meta = pyr["c4"][1]
+    rows, wmax = meta.flat.shape[:2]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, ones)
+    gout = torch.randn((ones.shape[0], 7, 7, c), generator=gen,
+                       device="cuda")
+    k3_c4 = (gout, row0, x0, wy, wx, batch, rows, wmax)
     (flat,), (row0,), (x0,), (wy,), (wx,) = k1_args(pyr, ("c3",), ones,
                                                     img_idx)
     gout = torch.randn((ones.shape[0], 7, 7, c), generator=gen,
                        device="cuda")
     k4 = (gout, row0, x0, wy, wx, tuple(flat.shape))
-    return k3, k4, pyr, rois
+    return k3, k3_c4, k4, pyr, rois
 
 
 def check_train_forward(pyr, rois):
@@ -648,49 +723,128 @@ def check_train_forward(pyr, rois):
     return out
 
 
+def views_per_tile(row0, x0, batch, rows, wmax, tile=16):
+    """What count_kernel counts in csrc/roi_window_grad.cu: for each
+    tile x tile block of each image's (rows, wmax) gradient, the views
+    (image-major, rows image-relative) whose 10 x 16 window meets it.
+    Returns (tiles, tiles with a view, the most views on one tile, the
+    median over tiles with a view)."""
+    n = row0.numel()
+    r0, x0 = row0.long(), x0.long()
+    img = torch.arange(n, device=row0.device) // max(1, n // batch)
+    rt = torch.stack([r0 // tile, (r0 + 9) // tile], 1)
+    ct = torch.stack([x0 // tile, (x0 + 15) // tile], 1)
+    n_rt, n_ct = -(-rows // tile), -(-wmax // tile)
+    ids = []
+    for a in (0, 1):
+        for b in (0, 1):
+            keep = torch.ones(n, dtype=torch.bool, device=row0.device)
+            if a:
+                keep &= rt[:, 1] != rt[:, 0]
+            if b:
+                keep &= ct[:, 1] != ct[:, 0]
+            ids.append(((img * n_rt + rt[:, a]) * n_ct + ct[:, b])[keep])
+    counts = torch.bincount(torch.cat(ids), minlength=batch * n_rt * n_ct)
+    hit = counts[counts > 0].float()
+    return (counts.numel(), hit.numel(), int(hit.max()),
+            float(hit.median()))
+
+
+def grad_close(name, got, want32):
+    """A backward kernel's output against its plain version's float32 sum:
+    a float32 output to atol GRAD_ATOL x max(1, max |g|) (float32 sums of
+    overlapping windows in another order); a bf16 one within one bf16 step
+    (the spacing of bf16 values at the larger magnitude) of the float32
+    sum rounded, since each side rounds its own float32 sum once. Returns
+    (max abs error, the tolerance as a string)."""
+    require(got.shape == want32.shape, f"{name}: {got.shape} vs "
+            f"{want32.shape}")
+    g = got.float()
+    err = (g - want32).abs().max().item()
+    if got.dtype == torch.float32:
+        scale = max(1.0, want32.abs().max().item())
+        ok = err <= GRAD_ATOL * scale
+        tol = f"atol 1e-4 x max(1, max |g| = {scale:.2f})"
+    else:
+        want = want32.to(got.dtype).float()
+        _, e = torch.frexp(torch.maximum(g.abs(), want.abs()))
+        over = int(((g - want).abs()
+                    > torch.ldexp(torch.ones_like(g), e - 8)).sum())
+        ok = over == 0
+        err = (g - want).abs().max().item()
+        tol = (f"one bf16 step; {100 * differ_share(g, want):.4f}% of the "
+               f"outputs differ from the plain sum rounded")
+    require(ok and np.isfinite(err), f"{name} {got.dtype} disagrees with "
+            f"its plain version: max abs err {err} ({tol})")
+    return err, tol
+
+
 def check_and_time_grad_kernels(gen):
     """K1's forward at the train path's two groups (check_train_forward);
-    K3 and K4 against their plain versions on the train path's geometry
-    (float32 atol 1e-4; the bf16 cast rtol/atol 1e-2), timed against them
-    (K3's float32 result, K4's bf16 buffer as the path uses them); then
-    WindowPoolMulti's backward on the card against autograd through the
-    plain forward, float32, atol 1e-4. Returns ({name: {"float32": err,
-    "bfloat16": err, "ms": t, "plain_ms": t, "bound_ms": t, "bound_by":
-    ...}} for K3 and K4, K1's train errors)."""
-    k3, k4, pyr, rois = train_geometry(gen)
+    K3 (on c5 and c4) and K4 (on c3) against their plain versions on the
+    train path's geometry, with a float32 and a bf16 output (grad_close),
+    each output equal bit for bit over two calls, then timed against the
+    plain version with the bf16 output the path writes; then
+    WindowPoolMulti's backward on the card (K3 on c5 and c4, K4 on c3, no
+    placement GEMM) against autograd through the plain forward, float32.
+    Returns ({name: {"float32": err, "bfloat16": err, "ms": t, "plain_ms":
+    t, "bound_ms": t, "bound_by": ..., "extra": {c4's numbers}}} for K3
+    (the c5 case) and K4, K1's train errors)."""
+    k3, k3_c4, k4, pyr, rois = train_geometry(gen)
     k1_train = check_train_forward(pyr, rois)
-    out = {}
-    for name, kern, ref, args in (
-            ("window_grad", roi_pool.window_grad, roi_pool.window_grad_ref,
-             k3),
-            ("window_rmw_grad", roi_pool.window_rmw_grad,
-             roi_pool.window_rmw_grad_ref, k4 + (torch.float32,))):
-        got = kern(*args)
-        torch.cuda.synchronize()
-        want = ref(*args)
-        out[name] = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            err, tol = compare(name, dtype, got.to(dtype), want.to(dtype))
-            out[name][str(dtype)[6:]] = err
-            log(f"[grad] {name} {str(dtype)[6:]}, {args[0].shape[0]} views "
-                f"into {tuple(got.shape)}, max abs err {err:.3e} ({tol}) ok")
-        del got, want
-        if name == "window_rmw_grad":
-            args = k4 + (torch.bfloat16,)
-        ms, plain_ms = alternate_ms(lambda: ref(*args), lambda: kern(*args),
-                                    2, 10)
-        if name == "window_grad":    # (batch * rows, wmax, C) float32
-            b_ms, b_by = grad_bound(args[0], args[5] * args[6] * args[7]
-                                    * args[0].shape[-1], 4)
-        else:                        # the buffer's shape, in bf16
-            b_ms, b_by = grad_bound(args[0], int(np.prod(args[5])), 2)
-        log(f"[grad] {name} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
-        out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by)
-        # the wrapper's own passes (zeroing, the cast) beside the kernel's
-        profile_once("grad", f"{name} wrapper, one call",
-                     lambda: kern(*args), top=4)
+    out = {"window_grad": {"extra": {}}, "window_rmw_grad": {}}
+    bf16 = torch.bfloat16
+    for name, level, kern, plain, args in (
+            ("window_grad", "c5", roi_pool.window_grad,
+             lambda *a: roi_pool.window_grad_ref(*a[:-1]).to(a[-1]), k3),
+            ("window_grad", "c4", roi_pool.window_grad,
+             lambda *a: roi_pool.window_grad_ref(*a[:-1]).to(a[-1]), k3_c4),
+            ("window_rmw_grad", "c3", roi_pool.window_rmw_grad,
+             roi_pool.window_rmw_grad_ref, k4)):
+        if name == "window_grad":
+            tiles = views_per_tile(args[1], args[2], args[5], args[6],
+                                   args[7])
+        else:
+            tiles = views_per_tile(args[1], args[2], 1, *args[5][:2])
+        log(f"[grad] {name} on {level}: {tiles[0]} tiles of 16 x 16, "
+            f"{tiles[1]} with a view; views per tile: at most {tiles[2]}, "
+            f"median {tiles[3]:.0f}")
+        want = plain(*args, torch.float32)
+        stats = {}
+        for dtype in (torch.float32, bf16):
+            got = kern(*args, dtype)
+            again = kern(*args, dtype)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"{name} on {level}, "
+                    f"{dtype}: two calls on the same inputs differ")
+            err, tol = grad_close(f"{name} on {level}", got, want)
+            stats[str(dtype)[6:]] = err
+            log(f"[grad] {name} on {level}, {str(dtype)[6:]} output, "
+                f"{args[0].shape[0]} views into {tuple(got.shape)}: max abs "
+                f"err {err:.3e} ({tol}) ok; bit-equal over two calls")
+            del got, again
+        del want
+        ms, plain_ms = alternate_ms(lambda: plain(*args, bf16),
+                                    lambda: kern(*args, bf16), 2, 10)
+        if name == "window_grad":    # (batch * rows, wmax, C)
+            numel = args[5] * args[6] * args[7] * args[0].shape[-1]
+        else:                        # the buffer's shape
+            numel = int(np.prod(args[5]))
+        b_ms, b_by = grad_bound(args[0], numel, 2)
+        log(f"[grad] {name} on {level}, bf16 output: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        if level == "c4":
+            out[name]["extra"].update(
+                c4_ms=round(ms, 4), c4_plain_ms=round(plain_ms, 4),
+                c4_bound_ms=round(b_ms, 4), c4_max_abs_err=stats["float32"],
+                c4_max_abs_err_bf16=stats["bfloat16"])
+            continue
+        out[name].update(float32=stats["float32"],
+                         bfloat16=stats["bfloat16"], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # the wrapper's own passes beside the kernel's: none are left
+        profile_once("grad", f"{name} on {level} wrapper, one call",
+                     lambda: kern(*args, bf16), top=4)
 
     names = [n for n, _ in LEVELS]
     flats = [pyr[n][0].detach().requires_grad_() for n in names]
@@ -698,18 +852,28 @@ def check_and_time_grad_kernels(gen):
     ones, img_idx = group_views(rois, FOVEAL[:1])
     gout = torch.randn((ones.shape[0], 7, 7, flats[0].shape[-1]),
                        generator=gen, device="cuda")
+    before = (roi_pool.window_grad.launches,
+              roi_pool.window_rmw_grad.launches,
+              roi_pool.place_windows_per_image.calls)
     got = torch.autograd.grad(
         (roi_pool.batched_pyramid_pool_multi(flats, metas, ones, img_idx,
                                              trainable=True) * gout).sum(),
         flats)
+    torch.cuda.synchronize()
+    calls = (roi_pool.window_grad.launches - before[0],
+             roi_pool.window_rmw_grad.launches - before[1],
+             roi_pool.place_windows_per_image.calls - before[2])
+    require(calls == (2, 1, 0), f"WindowPoolMulti backward: K3, K4, "
+            f"placement calls {calls}, expected (2, 1, 0)")
     _, *geometry = k1_args(pyr, names, ones, img_idx)
     plain = roi_pool.window_pool_multi_ref(flats, *geometry)
     want = torch.autograd.grad((plain * gout).sum(), flats)
     for (lv, _), g_, w_ in zip(LEVELS, got, want):
-        err, tol = compare(f"WindowPoolMulti backward {lv}", torch.float32,
-                           g_, w_)
+        err, tol = grad_close(f"WindowPoolMulti backward {lv}", g_, w_)
         log(f"[grad] WindowPoolMulti backward {lv}: max abs err {err:.3e} "
             f"({tol}) ok")
+    log("[grad] WindowPoolMulti backward: c5 and c4 through K3, c3 through "
+        "K4, no placement GEMM")
     return out, k1_train
 
 
@@ -776,6 +940,7 @@ def train_path():
         f"card in {time.perf_counter() - t0:.1f}s")
 
     reset_launches()
+    roi_pool.place_windows_per_image.calls = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, metrics = trainer.step(state, batch)
@@ -790,6 +955,7 @@ def train_path():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    placements = roi_pool.place_windows_per_image.calls
     b = t.batch_size
     log(f"[train] first step {first_s:.2f} s; steady: {iters} steps x {b} "
         f"images in {dt:.3f} s = {1e3 * dt / iters:.2f} ms/step, "
@@ -805,6 +971,13 @@ def train_path():
             "a step sampled no foreground ROI")
     for name in ("window_pool_multi", "window_grad", "window_rmw_grad"):
         require(launches[name] > 0, f"{name} never launched in training")
+    steps = iters + 1
+    require(launches["window_grad"] == 3 * steps
+            and launches["window_rmw_grad"] == steps and placements == 0,
+            f"the backward's routing: K3 {launches['window_grad']}, K4 "
+            f"{launches['window_rmw_grad']}, placement GEMMs {placements} "
+            f"in {steps} steps; expected K3 on c5 (both groups) and c4, K4 "
+            f"on c3, no placement")
     for name in ("resident_pool", "window_pool_multi_quant",
                  "resident_pool_quant"):
         require(launches[name] == 0, f"{name} launched in training: "
@@ -817,7 +990,61 @@ def train_path():
             "no gradient reached conv3_1")
     profile_once("train", "one step",
                  lambda: trainer.step(state, batch), top=24)
+    repeat_steps(trainer, state, batch)
     return launches
+
+
+def repeat_steps(trainer, state, batch, iters: int = 5) -> None:
+    """Two steps from one saved state (parameters, momentum, step count,
+    generator) on one batch, under the default settings and under
+    cudnn.deterministic: whether loss, every gradient and every parameter
+    come out equal bit for bit, and the deterministic setting's ms/step
+    over `iters` steps beside the default's in this call. The port's own
+    kernels (K3/K4 without atomics) repeat; cuDNN's default backward
+    algorithms may not, and only the deterministic setting is required to
+    repeat."""
+    saved = snapshot_train_state(trainer, state)
+    params = dict(trainer.model.named_parameters())
+    ms = {}
+    for setting, det in (("default", False), ("cudnn.deterministic", True)):
+        torch.backends.cudnn.deterministic = det
+        try:
+            first = None
+            for _ in range(2):
+                st = restore_train_state(trainer, saved)
+                _, m = trainer.step(st, batch)
+                run = (m["loss"].clone(),
+                       {n: (p.detach().clone(), p.grad.clone())
+                        for n, p in params.items() if p.grad is not None})
+                if first is None:
+                    first = run
+            loss_eq = bool(torch.equal(first[0], run[0]))
+            grads = [n for n in first[1]
+                     if not torch.equal(first[1][n][1], run[1][n][1])]
+            moved = [n for n in first[1]
+                     if not torch.equal(first[1][n][0], run[1][n][0])]
+            del first, run
+            st = restore_train_state(trainer, saved)
+            trainer.step(st, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                st, _ = trainer.step(st, batch)
+            torch.cuda.synchronize()
+            ms[setting] = 1e3 * (time.perf_counter() - t0) / iters
+        finally:
+            torch.backends.cudnn.deterministic = False
+        equal = loss_eq and not grads and not moved
+        log(f"[train] two steps from one state, {setting}: "
+            f"{'equal' if equal else 'NOT equal'} (loss "
+            f"{'equal' if loss_eq else 'differs'}; {len(grads)} of "
+            f"{len(params)} gradients and {len(moved)} parameters differ"
+            f"{': ' + ', '.join(sorted(grads)[:6]) if grads else ''}); "
+            f"{ms[setting]:.2f} ms/step over {iters} steps")
+        if det:
+            require(equal, "two steps from one state differ under "
+                    "cudnn.deterministic")
+    restore_train_state(trainer, saved)
 
 
 # ------------------------------------------------------------- phase 8 ---

@@ -62,7 +62,11 @@
 // and one store of int8 pairs per thread plus one float32 scale per view.
 // The pooled tensor is never written. The build keeps --use_fast_math off:
 // the epilogue must match its plain version (ops/roi_pool.quant_view_ref)
-// bit for bit.
+// bit for bit. Wider views (C > 512, in either dtype; the bf16 body's
+// epilogue also takes one 512-channel tile) go in two launches: the pool
+// without the epilogue into the pyramid dtype, then quant_view_kernel
+// below over its output, with the same arithmetic: exact, at the price of
+// writing and reading the pooled tensor once.
 //
 // A view whose window would fall outside its level's buffer (never
 // produced by view_geometry, which clamps) is not read: its output is NaN,
@@ -232,6 +236,61 @@ window_pool_kernel(const PoolParams p) {
   }
 }
 
+// The int8 epilogue as a kernel of its own, for views wider than a pool
+// block takes (C > 512): one block per view reads the pool kernel's (49, C)
+// output in the pyramid dtype T twice, first for the amax of y =
+// relu(pooled + bias) (the sum rounded to T, as quant_view_ref computes it
+// in torch), then for the codes, in the arithmetic of the fused epilogue.
+// A view whose pooled values hold a NaN (the pool kernels' out-of-range
+// window) gets zero codes and a NaN scale, as the fused epilogue gives it.
+__device__ __forceinline__ float biased_value(float v, float b) {
+  return v + b;
+}
+
+__device__ __forceinline__ float biased_value(__nv_bfloat16 v,
+                                              __nv_bfloat16 b) {
+  return __bfloat162float(__float2bfloat16_rn(__bfloat162float(v) +
+                                              __bfloat162float(b)));
+}
+
+constexpr int EPILOGUE_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(EPILOGUE_THREADS)
+quant_view_kernel(const T* pooled, const T* bias, int channels,
+                  signed char* out, float* scale) {
+  __shared__ float s_max[EPILOGUE_THREADS / 32];
+  const int n = blockIdx.x;
+  const int per_view = G * G * channels;
+  const T* src = pooled + (size_t)n * per_view;
+  float m = 0.f;
+  int has_nan = 0;
+  for (int k = threadIdx.x; k < per_view; k += EPILOGUE_THREADS) {
+    const float y = biased_value(src[k], bias[k % channels]);
+    has_nan |= y != y;
+    m = fmaxf(m, y);
+  }
+  has_nan = __syncthreads_or(has_nan);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) s_max[warp] = m;
+  __syncthreads();
+  m = 0.f;
+#pragma unroll
+  for (int w = 0; w < EPILOGUE_THREADS / 32; ++w) m = fmaxf(m, s_max[w]);
+  const float s = view_scale(m);
+  if (threadIdx.x == 0) scale[n] = has_nan ? NAN : s;
+  const float r = view_reciprocal(s);
+  signed char* dst = out + (size_t)n * per_view;
+  for (int k = threadIdx.x; k < per_view; k += EPILOGUE_THREADS)
+    dst[k] = has_nan ? 0
+                 : quantize(fmaxf(biased_value(src[k], bias[k % channels]),
+                                  0.f),
+                            s, r);
+}
+
 template <int L>
 cudaError_t launch_levels(const PoolParams& p, cudaStream_t stream) {
   if (p.bias != nullptr) {
@@ -319,6 +378,27 @@ extern "C" int mpn_resident_pool(
   p.views_per_image = views;
   p.rows_per_image = rows;
   return static_cast<int>(mpn::dispatch(p, is_bf16, 1, stream));
+}
+
+// The int8 epilogue of n_views pooled (G, G, channels) views in the
+// pyramid dtype (is_bf16: bf16, else float32) with the (channels,) skip
+// bias: out int8 (n_views, G, G, channels), scale (n_views,) float32.
+extern "C" int mpn_quant_view(int is_bf16, int n_views, int channels,
+                              const void* pooled, const void* bias,
+                              signed char* out, float* scale, void* stream) {
+  if (n_views <= 0 || channels <= 0) return static_cast<int>(
+      cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    mpn::quant_view_kernel<__nv_bfloat16>
+        <<<n_views, mpn::EPILOGUE_THREADS, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(pooled),
+            static_cast<const __nv_bfloat16*>(bias), channels, out, scale);
+  else
+    mpn::quant_view_kernel<float><<<n_views, mpn::EPILOGUE_THREADS, 0, s>>>(
+        static_cast<const float*>(pooled), static_cast<const float*>(bias),
+        channels, out, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The attributes of the pool instance for (dtype, levels, epilogue) into

@@ -44,9 +44,11 @@ class Int8Linear(nn.Module):
     Buffers, not parameters (int8 tensors cannot be Parameters): weight_i8
     (N, K) int8 (torch's (out, in) order; models/convert.py maps it to the
     reference's kernel_i8 (K, N)), weight_scale (N,) float32, bias (N,)
-    float32. N is padded to a multiple of 8 in memory, once, because
-    torch._int_mm takes no other width; the padding is zero weights, unit
-    scales and zero bias, and every state-dict round trip drops it."""
+    float32. N and K are padded to multiples of 8 in memory, once, because
+    torch._int_mm takes no other widths; the padding is zero weights (rows
+    and columns), unit scales and zero bias, the input gets zero codes in
+    the pad columns (exact: they add nothing to the int32 sums), and every
+    state-dict round trip drops it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.bfloat16, device=None):
@@ -54,28 +56,35 @@ class Int8Linear(nn.Module):
         self.in_features, self.out_features = in_features, out_features
         self.dtype = dtype
         n_pad = -(-out_features // 8) * 8
+        k_pad = -(-in_features // 8) * 8
         self.register_buffer("weight_i8", torch.zeros(
-            (n_pad, in_features), dtype=torch.int8, device=device))
+            (n_pad, k_pad), dtype=torch.int8, device=device))
         self.register_buffer("weight_scale", torch.ones(
             n_pad, dtype=torch.float32, device=device))
         self.register_buffer("bias", torch.zeros(
             n_pad, dtype=torch.float32, device=device) if bias else None)
 
+    def _logical(self, name) -> tuple:
+        """The unpadded shape of buffer `name`."""
+        return ((self.out_features, self.in_features) if name == "weight_i8"
+                else (self.out_features,))
+
     def _save_to_state_dict(self, destination, prefix, keep_vars):
         super()._save_to_state_dict(destination, prefix, keep_vars)
         for name in _INT8_BUFFERS:
             if prefix + name in destination:
-                destination[prefix + name] = (
-                    destination[prefix + name][:self.out_features])
+                destination[prefix + name] = destination[prefix + name][
+                    tuple(slice(0, n) for n in self._logical(name))]
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         for name in _INT8_BUFFERS:
             key, own = prefix + name, getattr(self, name)
             t = state_dict.get(key)
-            if (own is not None and t is not None and t.dim() == own.dim()
-                    and t.shape[0] == self.out_features < own.shape[0]):
-                state_dict[key] = torch.cat(
-                    [t, own[self.out_features:].to(t.device, t.dtype)])
+            if (own is not None and t is not None
+                    and tuple(t.shape) == self._logical(name) != own.shape):
+                padded = own.detach().to(t.device, t.dtype, copy=True)
+                padded[tuple(slice(0, n) for n in t.shape)] = t
+                state_dict[key] = padded
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor, x_scale: torch.Tensor | None = None):
@@ -83,6 +92,9 @@ class Int8Linear(nn.Module):
         row scales."""
         if x_scale is None:
             x, x_scale = quant.quantize_rows(x)
+        k_pad = self.weight_i8.shape[1]
+        if x.shape[-1] != k_pad:
+            x = F.pad(x, (0, k_pad - x.shape[-1]))
         out = quant.matmul_int8(x, x_scale, self.weight_i8,
                                 self.weight_scale, self.bias)
         return out[:, :self.out_features].to(self.dtype)

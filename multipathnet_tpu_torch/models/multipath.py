@@ -8,9 +8,11 @@ topology, group 1 (the 1x view over every skip level) goes to K1
 level) to K2 (roi_pool.resident_pool). In training every group goes through
 the differentiable K1 (roi_pool.WindowPoolMulti), one level for group 2, as
 the reference's `not train` guard routes it. The TPU-only parts of the
-reference are gone: there is no lane padding of C, and every single-level
-eval group goes to K2 whatever its pyramid's size (the reference's 4 MB
-VMEM budget has no counterpart here).
+reference are gone: C is not padded to the TPU's 128 lanes (only to a
+multiple of 8 for the bf16 kernels, whose TMA strides are 16-byte units,
+with zero bias on the pad lanes, as the reference pads), and every
+single-level eval group goes to K2 whatever its pyramid's size (the
+reference's 4 MB VMEM budget has no counterpart here).
 
 Parameters are stored in `param_dtype` (float32 for training, as flax keeps
 them) and cast to the compute dtype `cfg.dtype` at each call; an eval model
@@ -26,6 +28,7 @@ per-view int8 quantization run in the pool kernels' epilogue.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multipathnet_tpu_torch.core.config import ModelConfig
@@ -124,6 +127,17 @@ class MultiPathNet(nn.Module):
         g = self.cfg.roi_output_size
         s = self.cfg.roi_samples_per_bin
         strides = self.backbone.feature_strides
+        first = feats[self.cfg.skip_levels[0]]
+        c = first.shape[-1]
+        # the bf16 kernels take C % 8 == 0: zero pad lanes, sliced off below
+        # (exact: a zero lane pools to zero, and with a zero bias its int8
+        # code is 0 and it leaves the view's amax as it is)
+        pad = (-c) % 8 if first.dtype == torch.bfloat16 else 0
+        if pad:
+            feats = {lv: F.pad(feats[lv], (0, pad))
+                     for lv in self.cfg.skip_levels}
+            if quant_bias is not None:
+                quant_bias = F.pad(quant_bias, (0, pad))
         pyramids = {
             lv: roi_pyramid.build_pyramid_batch(
                 feats[lv].contiguous(), 1.0 / strides[lv], output_size=g)
@@ -151,7 +165,7 @@ class MultiPathNet(nn.Module):
             if quant_bias is not None:
                 out, scale = out
                 scales.append(scale.reshape(b, nf, r, 1))
-            outs.append(out.reshape(b, nf, r, g, g, out.shape[-1]))
+            outs.append(out.reshape(b, nf, r, g, g, c + pad)[..., :c])
         if quant_bias is not None:
             return torch.cat(outs, dim=1), torch.cat(scales, dim=1)
         return torch.cat(outs, dim=1)

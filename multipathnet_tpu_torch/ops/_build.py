@@ -42,10 +42,18 @@ _SIGNATURES = {
     "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P],
     "mpn_pool_kernel_attrs": [_I, _I, _I, _P],
-    "mpn_window_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "mpn_window_rmw_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mpn_quant_view": [_I, _I, _I, _P, _P, _P, _P, _P],
+    "mpn_grad_scratch_words": [_I, _I, _I, _I],
+    "mpn_window_grad": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
+    "mpn_window_rmw_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P],
+    "mpn_grad_kernel_attrs": [_I, _P],
     "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
+
+# entry points that return a size rather than a cudaError_t
+_RESTYPES = {"mpn_grad_scratch_words": ctypes.c_longlong}
 
 _lib = None
 
@@ -115,6 +123,6 @@ def kernels() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib

@@ -25,14 +25,20 @@ Given the head's skip bias (`quant_bias`, eval only), K1 or K2 runs the
 int8 serving head's input stage in its epilogue (roi_pallas._quant_view):
 bias, ReLU and one int8 scale per view, returning int8 codes and float32
 scales instead of the pooled tensor (`quant_view_ref` is its plain
-version). Each wrapper counts its launches per mode: `launches` without
-the epilogue, `quant_launches` with it.
+version). Up to 512 channels the pool kernel runs it itself; wider views
+are pooled first and quantized by the epilogue kernel (`quant_view`), the
+same arithmetic in a second launch. Each wrapper counts its calls that
+launch per mode: `launches` without the epilogue, `quant_launches` with
+it.
 The differentiable forms are WindowPoolMulti (K1), WindowPool (K5) and
 ResidentPool (K2). Their backward is the transpose of the pool per view,
 gwin = wy^T g wx (10 x 16 x C), summed into the pyramid gradient at the
-window, by one of two kernels (csrc/roi_window_grad.cu) or the per-image
+window, by one of two kernels (csrc/roi_window_grad.cu, one fixed-order
+body without atomics: each output cell is summed by one thread over the
+views in index order and written once) or, on the CPU only, the per-image
 placement GEMMs:
-  window_grad (K3) — image-relative rows, a float32 gradient.
+  window_grad (K3) — image-relative rows, a float32 gradient or one in
+      the pyramid dtype.
   window_rmw_grad (K4) — absolute rows, a gradient in the buffer's dtype;
       also the one route of `accumulate_windows`, the single-level
       backward.
@@ -50,8 +56,9 @@ from multipathnet_tpu_torch.ops import quant
 from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the int8 epilogue gives one block a whole view: the bf16 body's 512-channel
-# tile, the float32 body's 256 threads x 2 channels
+# the pool kernels' own int8 epilogue gives one block a whole view: the bf16
+# body's 512-channel tile, the float32 body's 256 threads x 2 channels;
+# wider views take the epilogue kernel in a second launch
 _QUANT_MAX_CHANNELS = 512
 
 
@@ -227,13 +234,33 @@ def _pool_outputs(flat, shape, device, quant_bias):
     float32 scales of shape[:-3])."""
     if quant_bias is None:
         return torch.empty(shape, dtype=flat.dtype, device=device), None
-    c = flat.shape[-1]
-    _check("quant_bias", quant_bias, (c,), flat.dtype, device)
-    if c > _QUANT_MAX_CHANNELS:
-        raise ValueError(f"the int8 epilogue takes at most "
-                         f"{_QUANT_MAX_CHANNELS} channels, got {c}")
+    _check("quant_bias", quant_bias, (flat.shape[-1],), flat.dtype, device)
     return (torch.empty(shape, dtype=torch.int8, device=device),
             torch.empty(shape[:-3], dtype=torch.float32, device=device))
+
+
+def _launch_pool(name, launch, flat, out, scales, quant_bias) -> None:
+    """Runs a pool kernel through launch(bias, out, scale) (pointers or
+    None) into `out` (and `scales`). With the int8 epilogue over more than
+    _QUANT_MAX_CHANNELS channels: the pool into a pyramid-dtype scratch,
+    then the epilogue kernel (mpn_quant_view) from it."""
+    from multipathnet_tpu_torch.ops import _build
+
+    if quant_bias is None or flat.shape[-1] <= _QUANT_MAX_CHANNELS:
+        rc = launch(_ptr(quant_bias), out.data_ptr(), _ptr(scales))
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        return
+    pooled = torch.empty(out.shape, dtype=flat.dtype, device=out.device)
+    rc = launch(None, pooled.data_ptr(), None)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    rc = _build.kernels().mpn_quant_view(
+        _KERNEL_DTYPES[flat.dtype], scales.numel(), flat.shape[-1],
+        pooled.data_ptr(), quant_bias.data_ptr(), out.data_ptr(),
+        scales.data_ptr(), _stream(out.device))
+    if rc != 0:
+        raise RuntimeError(f"quant_view launch failed: cudaError {rc}")
 
 
 def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
@@ -243,7 +270,7 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
     row0s/x0s: L (N,) int32 absolute window origins; wys/wxs: L (N, G, 10) /
     (N, G, 16) float32 weight rows. Returns (N, G, G, C) in the pyramid
     dtype. With `quant_bias`, the (C,) skip bias in the pyramid dtype (the
-    head's; C <= 512), it runs the int8 epilogue and returns (int8
+    head's), it runs the int8 epilogue and returns (int8
     (N, G, G, C), float32 (N,) scales). Replaces
     roi_pallas.pallas_window_pool_multi.
     """
@@ -319,13 +346,11 @@ def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
     ptrs = [f.data_ptr() for f in flats] + pad
     rows = [f.shape[0] for f in flats] + [0] * (3 - nl)
     wmax = [f.shape[1] for f in flats] + [0] * (3 - nl)
-    rc = _build.kernels().mpn_window_pool_multi(
-        _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
-        row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        _ptr(quant_bias), out.data_ptr(), _ptr(scales), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"window_pool_kernel launch failed: "
-                           f"cudaError {rc}")
+    _launch_pool("window_pool_kernel", lambda bias, dst, scale: (
+        _build.kernels().mpn_window_pool_multi(
+            _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
+            row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+            bias, dst, scale, _stream(dev))), flat0, out, scales, quant_bias)
     return out, scales, 1
 
 
@@ -358,12 +383,12 @@ def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
         return out if quant_bias is None else (out, scales)
     from multipathnet_tpu_torch.ops import _build
 
-    rc = _build.kernels().mpn_resident_pool(
-        _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c, flat.data_ptr(),
-        row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        _ptr(quant_bias), out.data_ptr(), _ptr(scales), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"resident_pool launch failed: cudaError {rc}")
+    _launch_pool("resident_pool", lambda bias, dst, scale: (
+        _build.kernels().mpn_resident_pool(
+            _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c,
+            flat.data_ptr(), row0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+            wx.data_ptr(), bias, dst, scale, _stream(dev))), flat, out,
+        scales, quant_bias)
     if quant_bias is None:
         resident_pool.launches += 1
         return out
@@ -382,10 +407,12 @@ resident_pool.quant_launches = 0
 # placement cost, not a tuning for this card. K3 takes a level whose f32
 # per-image gradient fits _GRAD_VMEM_BUDGET bytes; K4 a level with more than
 # _PLACE_PER_IMAGE_MAX_CELLS cells per image; the per-image placement GEMMs
-# the rest. At multipath_vgg16_train that is c5 -> K3, c4 -> placement,
-# c3 -> K4.
+# the rest, on the CPU. On the card that rest goes to K3 (_level_grad). At
+# multipath_vgg16_train that is c5 -> K3, c4 -> placement (CPU) or K3
+# (card), c3 -> K4.
 _GRAD_VMEM_BUDGET = 7 * 1024 * 1024
 _PLACE_PER_IMAGE_MAX_CELLS = 24 * 1024
+_GRAD_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def window_cotangent(gout, wy, wx) -> torch.Tensor:
@@ -449,13 +476,16 @@ def window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype
                             tuple(shape)).to(dtype)
 
 
-def _check_grad_args(gout, row0, x0, wy, wx, dev):
+def _check_grad_args(gout, row0, x0, wy, wx, dtype, dev):
+    if gout.device.type != "cuda":
+        raise ValueError(f"gout must be a CPU or CUDA tensor, got "
+                         f"{gout.device}")
+    if dtype not in _GRAD_OUT_DTYPES:
+        raise TypeError(f"the kernel writes float32 or bfloat16, got {dtype}")
     n, g = wy.shape[:2]
     if g != 7:
         raise ValueError(f"the kernel is written for G=7 bins, got {g}")
     c = gout.shape[-1]
-    if c % 2:
-        raise ValueError(f"the kernel needs an even channel count, got {c}")
     _check("gout", gout, (n, g, g, c), torch.float32, dev)
     _check("row0", row0, (n,), torch.int32, dev)
     _check("x0", x0, (n,), torch.int32, dev)
@@ -464,36 +494,46 @@ def _check_grad_args(gout, row0, x0, wy, wx, dev):
     return n, c
 
 
+def _grad_kernels():
+    from multipathnet_tpu_torch.ops import _build
+
+    return _build.kernels()
+
+
+def _grad_scratch(batch, rows, wmax, n_views, dev) -> torch.Tensor:
+    """The scratch of a K3/K4 launch, which the launch fills itself: one
+    view count per output tile and each view's weight rows, transposed."""
+    n = _grad_kernels().mpn_grad_scratch_words(batch, rows, wmax, n_views)
+    return torch.empty(n, dtype=torch.int32, device=dev)
+
+
 def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
-                wmax: int) -> torch.Tensor:
+                wmax: int, dtype=torch.float32) -> torch.Tensor:
     """K3: the pyramid gradient of one level, image-relative rows.
 
-    gout (N, G, G, C) float32 cotangent, views image-major (N = batch * V);
-    row0_rel/x0 (N,) int32 image-relative window origins; wy/wx the
-    forward's weight rows. Returns the (batch * rows, wmax, C) float32
-    gradient. Replaces roi_pallas.pallas_window_grad.
+    gout (N, G, G, C) float32 cotangent, views image-major (N = batch * V,
+    V = 0 allowed); row0_rel/x0 (N,) int32 image-relative window origins;
+    wy/wx the forward's weight rows. Returns the (batch * rows, wmax, C)
+    gradient in `dtype`: float32, as roi_pallas.pallas_window_grad returns
+    it, or the pyramid dtype that its caller casts to (float32 or bfloat16
+    on the card), the float32 sum rounded once. Replaces
+    roi_pallas.pallas_window_grad.
     """
     if gout.device.type == "cpu":
         _check_windows(row0_rel, x0, rows, wmax)
-        return window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows, wmax)
-    if gout.device.type != "cuda":
-        raise ValueError(f"gout must be a CPU or CUDA tensor, got "
-                         f"{gout.device}")
+        return window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows,
+                               wmax).to(dtype)
     dev = gout.device
-    n, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dev)
+    n, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dtype, dev)
     _check_windows(row0_rel, x0, rows, wmax)
     if n % batch:
         raise ValueError(f"{n} views do not split over {batch} images")
-    out = torch.zeros((batch * rows, wmax, c), dtype=torch.float32,
-                      device=dev)
-    if n == 0:
-        return out
-    from multipathnet_tpu_torch.ops import _build
-
-    rc = _build.kernels().mpn_window_grad(
-        n, n // batch, rows, wmax, c, gout.data_ptr(), row0_rel.data_ptr(),
-        x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
-        _stream(dev))
+    out = torch.empty((batch * rows, wmax, c), dtype=dtype, device=dev)
+    scratch = _grad_scratch(batch, rows, wmax, n, dev)
+    rc = _grad_kernels().mpn_window_grad(
+        _GRAD_OUT_DTYPES[dtype], batch, n // batch, rows, wmax, c,
+        gout.data_ptr(), row0_rel.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+        wx.data_ptr(), out.data_ptr(), scratch.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_grad launch failed: cudaError {rc}")
     window_grad.launches += 1
@@ -508,35 +548,29 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
 
     gout (N, G, G, C) float32; row0/x0 (N,) int32 absolute window origins
     into the stacked (shape[0], shape[1], C) buffer. Returns that buffer in
-    `dtype`. The TPU kernel accumulates in the buffer's dtype one view at a
-    time; this one accumulates in float32 and rounds once at the end.
-    Replaces roi_pallas.pallas_window_rmw_grad.
+    `dtype` (float32 or bfloat16 on the card), written once. The TPU kernel
+    accumulates in the buffer's dtype one view at a time; this one sums in
+    float32 and rounds once. Replaces roi_pallas.pallas_window_rmw_grad.
     """
     rows, wmax, c = shape
     if gout.device.type == "cpu":
         _check_windows(row0, x0, rows, wmax)
         return window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype)
-    if gout.device.type != "cuda":
-        raise ValueError(f"gout must be a CPU or CUDA tensor, got "
-                         f"{gout.device}")
     dev = gout.device
-    n, gc = _check_grad_args(gout, row0, x0, wy, wx, dev)
+    n, gc = _check_grad_args(gout, row0, x0, wy, wx, dtype, dev)
     if gc != c:
         raise ValueError(f"gout has {gc} channels, the buffer {c}")
     _check_windows(row0, x0, rows, wmax)
-    acc = torch.zeros((rows, wmax, c), dtype=torch.float32, device=dev)
-    if n:
-        from multipathnet_tpu_torch.ops import _build
-
-        rc = _build.kernels().mpn_window_rmw_grad(
-            n, rows, wmax, c, gout.data_ptr(), row0.data_ptr(),
-            x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), acc.data_ptr(),
-            _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"window_rmw_grad launch failed: cudaError "
-                               f"{rc}")
-        window_rmw_grad.launches += 1
-    return acc.to(dtype)
+    out = torch.empty((rows, wmax, c), dtype=dtype, device=dev)
+    scratch = _grad_scratch(1, rows, wmax, n, dev)
+    rc = _grad_kernels().mpn_window_rmw_grad(
+        _GRAD_OUT_DTYPES[dtype], n, rows, wmax, c, gout.data_ptr(),
+        row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"window_rmw_grad launch failed: cudaError {rc}")
+    window_rmw_grad.launches += 1
+    return out
 
 
 window_rmw_grad.launches = 0
@@ -634,8 +668,12 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
     GEMMs. gwin (N, 10, 16, C), N = batch * V image-major; row0_rel/x0 (N,)
     image-relative. The column spread is rounded to `dtype` (the compute
     dtype), the rows contraction accumulates in float32, one cast to
-    `dtype`. Returns (batch * rows, width, C)."""
+    `dtype`. Returns (batch * rows, width, C). `calls` counts its calls
+    on the card, as the launch counters count launches: the card's
+    backward makes none (_level_grad)."""
     n, ht, wd, c = gwin.shape
+    if gwin.device.type == "cuda":
+        place_windows_per_image.calls += 1
     v = n // batch
     dev = gwin.device
     row0_rel = torch.clamp(row0_rel.long(), 0, rows - ht)
@@ -652,20 +690,31 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
     return out.to(dtype).reshape(batch * rows, width, c)
 
 
+place_windows_per_image.calls = 0
+
+
 def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
-    """One level's pyramid gradient, routed as roi_pallas._mwpt_bwd; without
-    the level's rows per image or the image count, accumulate_windows."""
+    """One level's pyramid gradient; without the level's rows per image or
+    the image count, accumulate_windows.
+
+    On the CPU it is routed as roi_pallas._mwpt_bwd routes it: K3 within
+    _GRAD_VMEM_BUDGET, K4 above _PLACE_PER_IMAGE_MAX_CELLS cells per image,
+    the per-image placement GEMMs between. On the card the level that the
+    reference sends to K4 stays on K4, and every other level goes to K3:
+    the placement GEMMs exist because a TPU's scatter is HBM-bound while
+    its matrix unit idles (as accumulate_windows says), and on the card
+    K3 writes each cell of the same gradient once, exactly and in a fixed
+    order, without a one-hot GEMM over the whole buffer."""
     if not (rows and batch):
         return accumulate_windows(row0, x0, g, wy, wx, shape, dtype)
     wmax, c = shape[1], shape[2]
     n = g.shape[0]
-    if rows * wmax * c * 4 <= _GRAD_VMEM_BUDGET:
-        row0_rel = (row0 - _image_rows(n, batch, rows, g.device)).contiguous()
-        return window_grad(g, row0_rel, x0, wy, wx, batch, rows,
-                           wmax).to(dtype)
-    if rows * wmax > _PLACE_PER_IMAGE_MAX_CELLS:
+    to_k3 = rows * wmax * c * 4 <= _GRAD_VMEM_BUDGET
+    if not to_k3 and rows * wmax > _PLACE_PER_IMAGE_MAX_CELLS:
         return window_rmw_grad(g, row0, x0, wy, wx, shape, dtype)
-    row0_rel = row0 - _image_rows(n, batch, rows, g.device)
+    row0_rel = (row0 - _image_rows(n, batch, rows, g.device)).contiguous()
+    if to_k3 or g.device.type == "cuda":
+        return window_grad(g, row0_rel, x0, wy, wx, batch, rows, wmax, dtype)
     return place_windows_per_image(row0_rel, x0, window_cotangent(g, wy, wx),
                                    batch, rows, wmax, dtype)
 
@@ -677,12 +726,12 @@ class WindowPoolMulti(torch.autograd.Function):
     apply((row0s, x0s, wys, wxs), rows_list, batch, *flats): the geometry
     lists as window_pool_multi takes them (row0 absolute), each level's rows
     per image, the image count, then the L stacked pyramids. With rows_list
-    and batch the backward routes each level as _mwpt_bwd does (K3, the
-    per-image placement or K4); with None for either, every level goes
-    through accumulate_windows (the reference's last branch). Gradients go
-    to the pyramids only: the geometry derives from ROI coordinates, which
-    are data. Like the reference's zero stubs, the backward keeps no
-    pyramid, only its shape and dtype.
+    and batch the backward routes each level as _level_grad does (K3, K4,
+    and on the CPU the per-image placement); with None for either, every
+    level goes through accumulate_windows (the reference's last branch).
+    Gradients go to the pyramids only: the geometry derives from ROI
+    coordinates, which are data. Like the reference's zero stubs, the
+    backward keeps no pyramid, only its shape and dtype.
     """
 
     @staticmethod

@@ -16,6 +16,7 @@ data parallelism is ROADMAP A17.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -175,3 +176,30 @@ class Trainer:
         """One optimizer step; returns (new state, metrics of 0-d
         tensors)."""
         return self._step(state, self.put_batch(batch))
+
+
+def snapshot_train_state(trainer: Trainer, state: TrainState) -> dict:
+    """A copy of what a step reads and changes: the parameters, the
+    optimizer's momentum buffers and count, the step and the generator's
+    state. restore_train_state puts it back, so a step can be repeated
+    from one state."""
+    return {"params": {n: p.detach().clone()
+                       for n, p in trainer.model.named_parameters()},
+            "sgd": copy.deepcopy(state.optimizer.sgd.state_dict()),
+            "count": state.optimizer.count, "step": state.step,
+            "optimizer": state.optimizer,
+            "generator": state.generator.get_state()}
+
+
+@torch.no_grad()
+def restore_train_state(trainer: Trainer, saved: dict) -> TrainState:
+    """Puts a snapshot_train_state back into the trainer's model and the
+    snapshot's optimizer and generator; returns the state to step from."""
+    for n, p in trainer.model.named_parameters():
+        p.copy_(saved["params"][n])
+    opt = saved["optimizer"]
+    opt.sgd.load_state_dict(copy.deepcopy(saved["sgd"]))
+    opt.count = saved["count"]
+    gen = torch.Generator(trainer.device)
+    gen.set_state(saved["generator"])
+    return TrainState(saved["step"], opt, gen)

@@ -1,6 +1,7 @@
 """The CUDA pool kernels (forward K1/K2 with and without their int8
 epilogue, K5, backward K3/K4 and the single-level backward through K4) and
-the window-read probe P against their plain PyTorch versions, on the card.
+the window-read probe P against their plain PyTorch versions, on the card;
+K3, K4 and a whole bf16 train step repeated bit for bit.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
@@ -15,7 +16,10 @@ the float32 sums, taken in other orders, round to neighbouring bf16
 values). The int8 epilogue is held bit for bit against its
 plain version (quant_view_ref) on the same kernel's own pooled output; against
 the fully plain version, whose pooled sums differ in their last bits, codes
-within 1 and scales to the pooled tolerance.
+within 1 and scales to the pooled tolerance. The backward kernels K3/K4:
+float32 atol 1e-4 x max(1, max |gradient|) (float32 sums of many
+overlapping windows in another order), bf16 within one bf16 step of the
+plain version's float32 sum rounded (_assert_one_bf16_step).
 """
 
 import dataclasses
@@ -29,7 +33,9 @@ from multipathnet_tpu_torch.data import sampler
 from multipathnet_tpu_torch.eval.detect import score_batch
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
-from multipathnet_tpu_torch.train.loop import Batch, Trainer
+from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
+                                               restore_train_state,
+                                               snapshot_train_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +69,24 @@ def _levels(dev, dtype, b, canvas, c, n_levels, seed):
 def _tol(dtype):
     return (dict(rtol=0, atol=1e-4) if dtype == torch.float32
             else dict(rtol=1e-2, atol=1e-2))
+
+
+def _assert_grad_close(got, want32):
+    """A backward kernel's output against its plain version's float32 sum:
+    float32 to atol 1e-4 x max(1, max |want|); bf16 within one bf16 step
+    (the spacing of bf16 values at the larger magnitude) of the float32
+    sum rounded, since each side rounds its own float32 sum once."""
+    if got.dtype == torch.float32:
+        scale = max(1.0, want32.abs().max().item())
+        torch.testing.assert_close(got, want32, rtol=0, atol=1e-4 * scale)
+        return
+    assert got.dtype == torch.bfloat16
+    want = want32.to(torch.bfloat16).float()
+    got = got.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    step = torch.ldexp(torch.ones_like(got), e - 8)
+    bad = (got - want).abs() > step
+    assert not bad.any(), (int(bad.sum()), (got - want).abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -174,6 +198,49 @@ def test_bf16_wrappers_need_channels_divisible_by_8(cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["pool", "int8"])
+def test_bf16_pool_rois_pads_channels_to_8(cuda, quantized):
+    """MultiPathNet.pool_rois at C = 20 in bf16, which the kernels' TMA
+    strides cannot take: the model pads the features to 24 channels (a
+    zero skip bias on the pad lanes) and slices them off. On the card
+    against the CPU's plain versions on the same features: pooled values
+    to the bf16 tolerance, int8 codes within 1."""
+    cfg = preset("tiny")
+    mcfg = dataclasses.replace(cfg.model, skip_reduce_dim=20,
+                               head_quant="int8" if quantized else "none")
+    models = [build_model(mcfg, device=d) for d in ("cpu", cuda)]
+    gen = torch.Generator().manual_seed(43)
+    stride = models[0].backbone.feature_strides
+    feats = {lv: torch.randn((2, 64 // stride[lv], 64 // stride[lv], 20),
+                             generator=gen).bfloat16()
+             for lv in mcfg.skip_levels}
+    rois = torch.from_numpy(_rois(np.random.default_rng(43), 12, 64)
+                            ).reshape(2, 6, 4)
+    bias = (torch.randn(20, generator=gen) * 0.5).bfloat16()
+    outs = []
+    for model, dev in zip(models, ("cpu", cuda)):
+        args = ({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
+                (64, 64))
+        launches = (roi_pool.window_pool_multi.launches
+                    + roi_pool.window_pool_multi.quant_launches)
+        outs.append(model.pool_rois_quantized(*args, bias.to(dev))
+                    if quantized else model.pool_rois(*args))
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert (roi_pool.window_pool_multi.launches
+                    + roi_pool.window_pool_multi.quant_launches) > launches
+    if quantized:
+        (q_c, s_c), (q_g, s_g) = outs
+        assert q_g.shape == q_c.shape and q_g.shape[-1] == 20
+        assert (q_g.cpu().int() - q_c.int()).abs().max() <= 1
+        torch.testing.assert_close(s_g.cpu(), s_c, rtol=1e-2, atol=0)
+    else:
+        want, got = outs
+        assert got.shape == want.shape and got.shape[-1] == 20
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   **_tol(torch.bfloat16))
+
+
 def test_wrappers_check_their_inputs(cuda):
     (flat, meta), = _levels(cuda, torch.float32, 1, 160, 64, 1, seed=4)
     rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]], device=cuda)
@@ -249,23 +316,41 @@ def _grad_case(dev, b, canvas, c, stride, n_per_image, seed):
     return flat, meta, rois, gout, row0, x0, wy, wx
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("c", [512, 200])
-def test_window_grad_kernel_matches_plain(cuda, c):
+def test_window_grad_kernel_matches_plain(cuda, c, dtype):
+    """K3, float32 by default and in the pyramid dtype when asked."""
     b = 3
     flat, meta, _, gout, row0, x0, wy, wx = _grad_case(cuda, b, 320, c, 16,
                                                        300, seed=11)
     rows, wmax = meta.flat.shape[:2]
     args = (gout, row0, x0, wy, wx, b, rows, wmax)
     n = roi_pool.window_grad.launches
-    got = roi_pool.window_grad(*args)
+    got = (roi_pool.window_grad(*args) if dtype == torch.float32
+           else roi_pool.window_grad(*args, dtype))
     torch.cuda.synchronize()
     assert roi_pool.window_grad.launches == n + 1
     want = roi_pool.window_grad_ref(*args)
-    assert got.dtype == torch.float32 and got.shape == (b * rows, wmax, c)
-    torch.testing.assert_close(got, want, **_tol(torch.float32))
-    torch.testing.assert_close(got.bfloat16().float(),
-                               want.bfloat16().float(),
-                               **_tol(torch.bfloat16))
+    assert got.dtype == dtype and got.shape == (b * rows, wmax, c)
+    _assert_grad_close(got, want)
+
+
+def test_window_grad_with_no_views_writes_zeros(cuda):
+    """K3 with zero views in every image: the kernel still writes the
+    whole gradient, zeros, over whatever the allocator handed it."""
+    b, rows, wmax, c = 2, 40, 24, 64
+    junk = torch.full((b * rows * wmax * c,), float("nan"), device=cuda)
+    del junk   # the next allocation of this size reuses NaN-filled memory
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    w = (torch.empty((0, 7, 10), device=cuda),
+         torch.empty((0, 7, 16), device=cuda))
+    n = roi_pool.window_grad.launches
+    got = roi_pool.window_grad(torch.empty((0, 7, 7, c), device=cuda), empty,
+                               empty, *w, b, rows, wmax)
+    torch.cuda.synchronize()
+    assert roi_pool.window_grad.launches == n + 1
+    assert got.shape == (b * rows, wmax, c) and not got.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -282,9 +367,59 @@ def test_window_rmw_grad_kernel_matches_plain(cuda, dtype):
     got = roi_pool.window_rmw_grad(*args)
     torch.cuda.synchronize()
     assert roi_pool.window_rmw_grad.launches == n + 1
-    want = roi_pool.window_rmw_grad_ref(*args)
-    assert got.dtype == want.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    want = roi_pool.window_rmw_grad_ref(*args[:-1], torch.float32)
+    assert got.dtype == dtype
+    _assert_grad_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_window_rmw_grad_at_odd_tile_edges(cuda, dtype):
+    """K4 where the buffer does not split into whole 16 x 16 tiles (rows
+    and Wmax not multiples of 16), with windows at every column offset
+    (x0 not 8-aligned), on the last rows and columns, and C = 70: not a
+    multiple of the 32-channel slice, nor of 4 (cotangent rows copied value
+    by value) or 8 (the bf16 tile written value by value)."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    n, rows, wmax, c = 400, 53, 37, 70
+    row0 = torch.randint(0, rows - 9, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    x0 = torch.randint(0, wmax - 15, (n,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    row0[:4] = rows - 10
+    x0[:4] = wmax - 16
+    args = (torch.randn((n, 7, 7, c), generator=gen, device=cuda), row0, x0,
+            torch.rand((n, 7, 10), generator=gen, device=cuda),
+            torch.rand((n, 7, 16), generator=gen, device=cuda),
+            (rows, wmax, c))
+    got = roi_pool.window_rmw_grad(*args, dtype)
+    torch.cuda.synchronize()
+    want = roi_pool.window_rmw_grad_ref(*args, torch.float32)
+    assert got.shape == (rows, wmax, c)
+    assert want[-1].abs().sum() > 0 and want[:, -1].abs().sum() > 0
+    _assert_grad_close(got, want)
+
+
+def test_grad_kernels_repeat_bit_for_bit(cuda):
+    """K3 and K4 sum each cell over the views in index order, with no
+    atomics: two calls on the same inputs give equal results, bit for bit,
+    on thousands of overlapping windows."""
+    b = 4
+    _, meta, _, gout, row0, x0, wy, wx = _grad_case(cuda, b, 320, 256, 16,
+                                                    500, seed=42)
+    rows, wmax = meta.flat.shape[:2]
+    for dtype in (torch.float32, torch.bfloat16):
+        k3 = [roi_pool.window_grad(gout, row0, x0, wy, wx, b, rows, wmax,
+                                   dtype) for _ in range(2)]
+        img = torch.arange(b, dtype=torch.int32,
+                           device=cuda).repeat_interleave(500)
+        absolute = (row0 + img * rows).contiguous()
+        k4 = [roi_pool.window_rmw_grad(gout, absolute, x0, wy, wx,
+                                       (b * rows, wmax, 256), dtype)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(*k3) and torch.equal(*k4)
+        assert torch.equal(k3[0], k4[0])   # one body: K4 is K3 at one image
 
 
 def test_grad_wrappers_check_their_inputs(cuda):
@@ -309,9 +444,11 @@ def test_grad_wrappers_check_their_inputs(cuda):
 
 
 def test_window_pool_multi_backward_matches_autograd_of_plain(cuda):
-    """The trainable K1's backward, each level on another route (K3, the
-    per-image placement, K4 by the routing constants at these sizes),
-    against autograd through the plain forward."""
+    """The trainable K1's backward with the routing constants set so the
+    reference would take a different route per level (K3 for c5, the
+    per-image placement for c4, K4 for c3): on the card c4 goes to K3 and
+    the placement GEMMs never run. Against autograd through the plain
+    forward."""
     b, canvas, c, n_per = 2, 320, 64, 100
     pyrs = _levels(cuda, torch.float32, b, canvas, c, 3, seed=14)
     flats = [f.detach().requires_grad_() for f, _ in pyrs]
@@ -329,13 +466,15 @@ def test_window_pool_multi_backward_matches_autograd_of_plain(cuda):
         roi_pool._GRAD_VMEM_BUDGET = sizes[2] * c * 4
         roi_pool._PLACE_PER_IMAGE_MAX_CELLS = sizes[1]
         launches = (roi_pool.window_grad.launches,
-                    roi_pool.window_rmw_grad.launches)
+                    roi_pool.window_rmw_grad.launches,
+                    roi_pool.place_windows_per_image.calls)
         out = roi_pool.batched_pyramid_pool_multi(flats, metas, rois, img,
                                                   trainable=True)
         got = torch.autograd.grad((out * gout).sum(), flats)
         assert (roi_pool.window_grad.launches,
-                roi_pool.window_rmw_grad.launches) == (launches[0] + 1,
-                                                       launches[1] + 1)
+                roi_pool.window_rmw_grad.launches,
+                roi_pool.place_windows_per_image.calls) == (
+                    launches[0] + 2, launches[1] + 1, launches[2])
     finally:
         roi_pool._GRAD_VMEM_BUDGET = budget
         roi_pool._PLACE_PER_IMAGE_MAX_CELLS = cells
@@ -346,7 +485,7 @@ def test_window_pool_multi_backward_matches_autograd_of_plain(cuda):
         x0s, wys, wxs)
     want = torch.autograd.grad((plain * gout).sum(), flats)
     for g_, w_ in zip(got, want):
-        torch.testing.assert_close(g_, w_, **_tol(torch.float32))
+        _assert_grad_close(g_, w_)
 
 
 def test_tiny_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
@@ -399,6 +538,53 @@ def test_tiny_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
                                    msg=name)
 
 
+def test_tiny_bf16_train_step_repeats_bit_for_bit(cuda):
+    """Two Trainer.steps from one state (parameters, momentum, step count,
+    generator) on one batch, at the tiny preset in bf16 with dropout on:
+    equal loss, gradients and updated parameters, bit for bit. cuDNN is
+    set to its deterministic algorithms here: its default backward
+    algorithms may sum in a run-dependent order (they are library code,
+    not the port's)."""
+    cfg = preset("tiny")
+    assert cfg.model.dtype == "bfloat16"
+    rng = np.random.default_rng(17)
+    b, p, g = 2, cfg.data.max_proposals, cfg.data.max_gt_per_image
+    gt = np.concatenate([rng.uniform(0, 30, (b, g, 2)),
+                         rng.uniform(38, 60, (b, g, 2))], -1)
+    near = gt[:, rng.integers(0, g, p)] + rng.normal(0, 2, (b, p, 4))
+    batch = Batch(rng.integers(0, 256, (b, 60, 64, 3), dtype=np.uint8),
+                  np.asarray([[60, 64], [50, 41]], np.float32),
+                  near.astype(np.float32), np.ones((b, p), bool),
+                  gt.astype(np.float32),
+                  rng.integers(1, 5, (b, g)).astype(np.int32),
+                  np.arange(g)[None].repeat(b, 0) < 5)
+    trainer = Trainer(cfg, device=cuda)
+    state = trainer.init_state(0)
+    state, _ = trainer.step(state, batch)      # lr > 0 and momentum from here
+    saved = snapshot_train_state(trainer, state)
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            state = restore_train_state(trainer, saved)
+            k3 = roi_pool.window_grad.launches
+            _, metrics = trainer.step(state, batch)
+            assert roi_pool.window_grad.launches > k3
+            runs.append((metrics["loss"].clone(),
+                         {n: (p_.detach().clone(), p_.grad.clone())
+                          for n, p_ in trainer.model.named_parameters()
+                          if p_.grad is not None}))
+    finally:
+        torch.backends.cudnn.deterministic = previous
+    (loss_a, a), (loss_b, b_) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert a.keys() == b_.keys() and a
+    for name in a:
+        assert torch.equal(a[name][1], b_[name][1]), f"gradient of {name}"
+        assert torch.equal(a[name][0], b_[name][0]), name
+
+
 # ------------------------------------------------- K1/K2 int8 epilogue ---
 
 def _quant_cases(dev, dtype, c, seed):
@@ -429,11 +615,12 @@ def _quant_cases(dev, dtype, c, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [512, 200, 32, 72])
+@pytest.mark.parametrize("c", [512, 200, 32, 72, 1024])
 def test_quant_epilogue_matches_plain(cuda, dtype, c):
     """K1 and K2 with the epilogue: bit for bit against quant_view_ref of
     the same kernel's pooled output; codes within 1 and scales to the pooled
-    tolerance against the fully plain version."""
+    tolerance against the fully plain version. C = 1024 is wider than a
+    pool block's epilogue: the pool, then the epilogue kernel."""
     k1, k2, bias = _quant_cases(cuda, dtype, c, seed=21)
     rtol = 1e-5 if dtype == torch.float32 else 1e-2
     for kern, ref, args in ((roi_pool.window_pool_multi,
@@ -480,12 +667,16 @@ def test_quant_wrappers_check_their_inputs(cuda):
         roi_pool.window_pool_multi([flat], *geo, quant_bias=bias[:32])
     with pytest.raises(ValueError):
         roi_pool.window_pool_multi([flat], *geo, quant_bias=bias.cpu())
-    wide = torch.zeros((flat.shape[0], flat.shape[1], 520),
-                       dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="at most 512"):
-        roi_pool.window_pool_multi(
-            [wide], *geo, quant_bias=torch.zeros(520, dtype=torch.bfloat16,
-                                                 device=cuda))
+    # wider than a pool block's epilogue: taken, in two launches
+    wide = torch.randn((flat.shape[0], flat.shape[1], 520),
+                       device=cuda).bfloat16()
+    wide_bias = torch.zeros(520, dtype=torch.bfloat16, device=cuda)
+    q, s = roi_pool.window_pool_multi([wide], *geo, quant_bias=wide_bias)
+    torch.cuda.synchronize()
+    assert q.shape == (1, 7, 7, 520) and s.shape == (1,)
+    want_q, want_s = roi_pool.quant_view_ref(
+        roi_pool.window_pool_multi([wide], *geo), wide_bias)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
     with pytest.raises(ValueError, match="eval-only"):
         roi_pool.batched_pyramid_pool_multi(
             [flat], [meta], rois, torch.zeros(1, dtype=torch.int32,
@@ -493,13 +684,15 @@ def test_quant_wrappers_check_their_inputs(cuda):
             trainable=True, quant_bias=bias)
 
 
-@pytest.mark.parametrize("ranks", [(0, 0), (16, 8)], ids=["int8", "int8_svd"])
+@pytest.mark.parametrize("ranks", [(0, 0), (16, 8), (12, 6)],
+                         ids=["int8", "int8_svd", "int8_svd_odd_ranks"])
 def test_tiny_int8_slice_on_gpu_matches_cpu(cuda, ranks):
     """The int8 (and int8 + truncated-SVD) slice at the tiny preset in
     float32: the GPU (quant kernels, torch._int_mm) against the CPU (plain
     versions) from one float tree transformed at load. Probabilities atol
     2e-3: a pooled sum that differs in its last bit can flip one int8 code
-    at a rounding tie."""
+    at a rounding tie. Ranks (12, 6) are no multiples of 8: Int8Linear pads
+    the factored layers' K for torch._int_mm."""
     from multipathnet_tpu_torch.eval.detect import Detector
     from multipathnet_tpu_torch.models import convert
     from multipathnet_tpu_torch.models.multipath import init_params_

@@ -6,10 +6,13 @@ kernels in interpret mode), jitted where the reference runs jitted.
 
 The int32 GEMM is exact on both sides and the quantizers are the same
 formulas, so quantization, the epilogue on identical pooled input and the
-int8 head on identical int8 input are held bit for bit. So is bf16
-pooling, with and without the epilogue: both sides round W2 = wy (x) wx to
-bf16 and contract in float32, and the float32 sums, taken in another
-order, agree to within a rounding of bf16. Float32 pooling with the
+int8 head on identical int8 input are held bit for bit. bf16 pooling, with
+and without the epilogue, is held to one bf16 step in a bounded share of
+values (_assert_bf16_pool_close): both sides round W2 = wy (x) wx to bf16
+and contract in float32 in their own order, then round once to bf16, and
+now and then a bin's two float32 sums round to different bf16 values (0-13
+of 200,704 values at 16 ROIs per image, in one or two bins; none at the
+6-ROI inputs). Float32 pooling with the
 epilogue is not held bit for bit: a pooled value one ULP apart flips a code
 at a rounding tie (the share of such codes is bounded below)."""
 
@@ -75,6 +78,27 @@ def _kernel(rng, k, n, spread=True):
         w = w * 10 ** rng.uniform(-2, 2, n)
     w[:, 1] = 0.0
     return w.astype(np.float32)
+
+
+# the share of bf16 pooled values allowed to differ from the reference's:
+# seen up to 6.5e-5 (13 of 200,704, test_pool_rois_bf16_at_16_rois_...)
+BF16_POOL_SHARE = 1e-4
+
+
+def _assert_bf16_pool_close(got, want, share=BF16_POOL_SHARE):
+    """bf16 pooled values: at most `share` of them differ from the
+    reference's, each by at most one bf16 step at the larger of the two
+    magnitudes or, where a bin's sum cancels to a small value, 1/256 of
+    the largest pooled magnitude. Returns the number that differ."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    step = torch.maximum(torch.ldexp(torch.ones_like(got), e - 8),
+                         want.abs().max() / 256)
+    n = int((diff > 0).sum())
+    assert bool((diff <= step).all()), float(diff.max())
+    assert n <= share * got.numel(), (n, got.numel())
+    return n
 
 
 # ------------------------------------------------------------ ops/quant ---
@@ -235,15 +259,17 @@ def _int8_pooled(rng, model_cfg, b=2, r=5):
     return q, s
 
 
-@pytest.mark.parametrize("ranks", [(0, 0), (16, 8)], ids=["int8",
-                                                           "int8_svd"])
+@pytest.mark.parametrize("ranks", [(0, 0), (16, 8), (12, 6)],
+                         ids=["int8", "int8_svd", "int8_svd_odd_ranks"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_int8_head_matches_reference(dtype, ranks):
     """The same int8 pooled codes and scales through the reference's int8
     head and the port's: bit-equal scores and deltas (the int32 GEMM is
     exact on both sides). Then the port's own quantizing route (float
     pooled, pooled_scale=None) against the pre-quantized route fed
-    quant_view_ref of the same pooled tensor: equal too."""
+    quant_view_ref of the same pooled tensor: equal too. Ranks (12, 6) are
+    no multiples of 8: Int8Linear pads the factored layers' K with zero
+    weight columns and the input with zero codes, exactly."""
     jdt, tdt = DTYPES[dtype]
     mcfg = preset("tiny").model
     rng = np.random.default_rng(4)
@@ -338,7 +364,7 @@ def pooled_pair():
         pq, ps = jax.jit(lambda p, ft, rr, bi: qmodel.apply(
             p, ft, rr, (64, 64), bi, method=JNet.pool_rois_quantized))(
                 qparams, feats, rois, bias)
-        out[dtype] = (feats, pooled, pq, ps)
+        out[dtype] = (feats, pooled, pq, ps, qmodel, qparams)
     return rois, bias, out
 
 
@@ -347,7 +373,7 @@ def test_quant_view_ref_matches_reference_epilogue(pooled_pair, dtype):
     """The reference's own pooled values (pool_rois) through the port's
     quant_view_ref equal its pool_rois_quantized bit for bit."""
     _, bias, out = pooled_pair
-    _, pooled, pq, ps = out[dtype]
+    _, pooled, pq, ps = out[dtype][:4]
     b, f, r, g, _, c = pooled.shape
     tdt = DTYPES[dtype][1]
     q, s = roi_pool.quant_view_ref(_t(pooled).reshape(-1, g, g, c),
@@ -376,11 +402,13 @@ def test_pool_rois_quantized_matches_reference(pooled_pair, dtype):
     kernels differ from their plain version in 7.7e-7 (K1) and 3.7e-7 (K2)
     of the codes at the main path's shapes.
 
-    bfloat16: codes and scales bit for bit. The port rounds W2 = wy (x) wx
-    to bf16 before one float32 contraction, as the reference's kernels do;
-    with float32 weights 2,891 of the 75,264 codes differed, by up to 2."""
+    bfloat16: the port rounds W2 = wy (x) wx to bf16 before one float32
+    contraction, as the reference's kernels do (with float32 weights 2,891
+    of the 75,264 codes differed, by up to 2). Codes differ by at most 1 in
+    at most BF16_POOL_SHARE of them, and scales (amax / 127 of values that
+    may differ by one bf16 step) to rtol 2^-7; none differs here."""
     rois, bias, out = pooled_pair
-    feats, _, pq, ps = out[dtype]
+    feats, _, pq, ps = out[dtype][:4]
     model = _port_pool_model(dtype)
     q, s = model.pool_rois_quantized(
         {k: _t(v) for k, v in feats.items()}, torch.from_numpy(rois),
@@ -388,8 +416,10 @@ def test_pool_rois_quantized_matches_reference(pooled_pair, dtype):
     assert q.dtype == torch.int8 and q.shape == pq.shape
     assert s.shape == ps.shape == (2, 4, 6, 1)
     if dtype == "bfloat16":
-        np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
-        np.testing.assert_array_equal(s.numpy(), np.asarray(ps))
+        diff = np.abs(q.numpy().astype(np.int32) - np.asarray(pq, np.int32))
+        assert diff.max() <= 1 and diff.mean() <= BF16_POOL_SHARE
+        np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=2 ** -7,
+                                   atol=0)
         return
     np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=1e-6, atol=0)
     diff = np.abs(q.numpy().astype(np.int32) - np.asarray(pq, np.int32))
@@ -397,16 +427,38 @@ def test_pool_rois_quantized_matches_reference(pooled_pair, dtype):
 
 
 def test_pool_rois_bf16_matches_reference_bit_for_bit(pooled_pair):
-    """bf16 pool_rois (plain versions) equal the reference's jitted
-    pool_rois, Pallas kernels in interpret mode, in every one of the 75,264
-    pooled values: the W2 rounding of roi_pallas.py:534 and :975. With
-    float32 weights 18,307 of them differed, by up to 0.0625."""
+    """bf16 pool_rois (plain versions) against the reference's jitted
+    pool_rois, Pallas kernels in interpret mode, on the reference's own
+    features: the W2 rounding of roi_pallas.py:534 and :975 (with float32
+    weights 18,307 of the 75,264 values differed, by up to 0.0625). Held
+    to _assert_bf16_pool_close; at these inputs all 75,264 are equal, bit
+    for bit."""
     rois, _, out = pooled_pair
-    feats, pooled, _, _ = out["bfloat16"]
+    feats, pooled = out["bfloat16"][:2]
     model = _port_pool_model("bfloat16")
     got = model.pool_rois({k: _t(v) for k, v in feats.items()},
                           torch.from_numpy(rois), (64, 64))
     want = _t(pooled)
     assert got.dtype == want.dtype == torch.bfloat16
     assert got.shape == want.shape and want.numel() == 75264
-    assert torch.equal(got, want)
+    assert _assert_bf16_pool_close(got, want) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_pool_rois_bf16_at_16_rois_within_one_step(pooled_pair, seed):
+    """The reference's own bf16 features, 16 ROIs per image (200,704 pooled
+    values): here a few values differ (13 and 4, by up to 0.03125, one bf16
+    step at their magnitude, in two bins each), each within
+    _assert_bf16_pool_close."""
+    _, _, out = pooled_pair
+    feats, _, _, _, qmodel, qparams = out["bfloat16"]
+    rng = np.random.default_rng(10 + seed)
+    rois = rng.uniform(2, 34, (2, 16, 4)).astype(np.float32)
+    rois[..., 2:] += rng.uniform(6, 28, (2, 16, 2)).astype(np.float32)
+    want = _t(jax.jit(lambda p, ft, rr: qmodel.apply(
+        p, ft, rr, (64, 64), method=JNet.pool_rois))(qparams, feats, rois))
+    got = _port_pool_model("bfloat16").pool_rois(
+        {k: _t(v) for k, v in feats.items()}, torch.from_numpy(rois),
+        (64, 64))
+    assert got.shape == want.shape and want.numel() == 200704
+    assert _assert_bf16_pool_close(got, want) == {0: 13, 2: 4}[seed]

@@ -63,6 +63,27 @@ def test_window_grad_plain_matches_pallas():
     torch.testing.assert_close(trk.window_grad(*args), got, rtol=0, atol=0)
 
 
+def test_window_grad_writes_the_requested_dtype():
+    """K3 returns float32 by default, as pallas_window_grad does, and the
+    pyramid dtype when its caller asks (WindowPoolMulti's backward): the
+    float32 sum rounded once. No views at all gives zeros."""
+    rng = np.random.default_rng(7)
+    batch, v, rows, width, c = 2, 6, 30, 48, 8
+    row0, x0 = _windows(rng, batch * v, rows, width)
+    args = (_t(rng.normal(size=(batch * v, 7, 7, c)).astype(np.float32)),
+            _t(row0), _t(x0),
+            _t(rng.uniform(size=(batch * v, 7, 10)).astype(np.float32)),
+            _t(rng.uniform(size=(batch * v, 7, 16)).astype(np.float32)),
+            batch, rows, width)
+    f32 = trk.window_grad(*args)
+    bf16 = trk.window_grad(*args, torch.bfloat16)
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.to(torch.bfloat16)) and f32.abs().sum() > 0
+    empty = trk.window_grad(args[0][:0], args[1][:0], args[2][:0],
+                            args[3][:0], args[4][:0], batch, rows, width)
+    assert empty.shape == (batch * rows, width, c) and not empty.any()
+
+
 def test_window_rmw_grad_plain_matches_pallas():
     """K4: 11 views (padded to the tile), overlapping windows, absolute
     rows, float32 buffer."""

@@ -393,3 +393,27 @@ def test_one_train_step_matches_reference(monkeypatch):
     for name, want in _tree_leaves(jstate.params):
         np.testing.assert_allclose(got_params[name], want, atol=1e-6,
                                    rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_repeats_from_a_snapshot(dtype):
+    """snapshot_train_state / restore_train_state: two steps from one saved
+    state (parameters, momentum, count, generator; dropout on) give equal
+    loss and parameters, bit for bit, and differ from the saved ones."""
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=dtype))
+    batch = _batch(np.random.default_rng(8), cfg)
+    trainer = tloop.Trainer(cfg, device="cpu")
+    state, _ = trainer.step(trainer.init_state(0), batch)
+    saved = tloop.snapshot_train_state(trainer, state)
+    runs = []
+    for _ in range(2):
+        state = tloop.restore_train_state(trainer, saved)
+        state, metrics = trainer.step(state, batch)
+        runs.append((float(metrics["loss"]), state.step,
+                     {n: p.detach().clone()
+                      for n, p in trainer.model.named_parameters()}))
+    (loss_a, step_a, a), (loss_b, step_b, b) = runs
+    assert loss_a == loss_b and step_a == step_b == saved["step"] + 1
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    assert any(not torch.equal(a[n], saved["params"][n]) for n in a)
