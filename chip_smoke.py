@@ -95,8 +95,33 @@ Phases, each of which raises on failure (nothing is caught):
      and int8 windows: the kernel against its plain version (rtol/atol
      1e-2, a bf16 output), each timed against it; then the tool's `bench`
      for each dtype as the path `probe` (launches counted from 0).
+ 13. dataset to AP (`dataset_eval`): synthetic.generate writes a COCO split
+     under build/ (32 PNG images of 600^2, 80 categories, up to 4 objects
+     and 1000 proposals per image, seed 0); Tester runs
+     `multipath_vgg16_batched` on it (batch 8, 640^2, weights as in phase
+     4, score_threshold 0). After a one-batch warm-up, Tester.test timed
+     end to end (decode, padding, copy, detect, conversion, evaluation:
+     split img/s) with the launches counted; then collect_detections
+     and the serial loop below timed in turns, eval_batches alone, the evaluator alone and the device's busy
+     share over collect_detections under the profiler. Every metric
+     finite, K1/K2 launched, the detections > 0 and equal, bit for bit, to
+     a serial loop of detect_batch on synchronously copied eval_batches.
+ 14. training to AP (`train_eval`), (a)-(c) under cudnn.deterministic:
+     (a) the reference's golden overfit at `tiny` (8 images of 64^2, 5
+     classes, batch 2, 30 epochs through epoch_on_device) for init seeds
+     0-4, AP50 before and after each; the median must reach AP50 > 0.5, a
+     rise of more than 0.3 and a last loss under 0.75 x the first, every
+     loss finite; (b) cli.train on a synthetic `tiny` split (6 steps, a
+     checkpoint every 2), --resume to 9, and cli.eval --json on the
+     checkpoints equal to an in-process Tester; (c) 2 steps, a checkpoint,
+     a fresh Trainer restored from it and 1 step against 3 steps straight:
+     loss, parameters, momentum and generator state equal bit for bit;
+     (d) `multipath_vgg16_train` at full width on phase 13's split through
+     epoch_on_device: 6 steps (ms/step, img/s beside phase 7's), losses
+     finite, K1/K3/K4 launched, one more step profiled.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11 and 12, each counted from 0, and their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13 and 14, each counted from 0, and
+their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -109,22 +134,37 @@ int8 numbers beside the bf16 ones. The last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import time
 
 import numpy as np
 import torch
 
+from multipathnet_tpu_torch.cli import common
+from multipathnet_tpu_torch.cli import eval as eval_cli
+from multipathnet_tpu_torch.cli import train as train_cli
 from multipathnet_tpu_torch.core.config import preset
+from multipathnet_tpu_torch.data import synthetic
+from multipathnet_tpu_torch.data.coco import CocoLoader
+from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
+from multipathnet_tpu_torch.data.proposals import ProposalStore
+from multipathnet_tpu_torch.eval.coco_eval import CocoEvaluator
 from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
+from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
+                                                groundtruth_to_coco)
 from multipathnet_tpu_torch.models import convert, layers
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
+from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
                                                restore_train_state,
                                                snapshot_train_state)
@@ -487,11 +527,11 @@ def seeded_normal_(model, seed: int, std: float = 0.02):
     return sum(p.numel() for p in model.parameters())
 
 
-def profile_once(tag: str, what: str, fn, top: int = 12):
+def profile_once(tag: str, what: str, fn, top: int = 12) -> float:
     """fn() once under torch.profiler: device time by kernel (the top ones
     and every pool kernel) and by op, and the device's busy share of the
-    wall time. User annotations (Optimizer.step's range) are not
-    kernels."""
+    wall time, which it returns. User annotations (Optimizer.step's range)
+    are not kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -519,6 +559,7 @@ def profile_once(tag: str, what: str, fn, top: int = 12):
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[{tag}]   op {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:80]}")
+    return busy_ms / wall_ms
 
 
 def main_path():
@@ -595,7 +636,7 @@ def main_path():
         f"product, models/layers.py): head {bias['head']:.3f} ms over "
         f"{bias['head_calls']} layers, trunk {bias['trunk']:.3f} ms over "
         f"{bias['trunk_calls']} layers")
-    return launches, ips
+    return launches, ips, b * iters / dt0
 
 
 def bias_pass_ms(run):
@@ -991,7 +1032,7 @@ def train_path():
     profile_once("train", "one step",
                  lambda: trainer.step(state, batch), top=24)
     repeat_steps(trainer, state, batch)
-    return launches
+    return launches, 1e3 * dt / iters, b * iters / dt
 
 
 def repeat_steps(trainer, state, batch, iters: int = 5) -> None:
@@ -1407,6 +1448,321 @@ def probe_path():
     return stats, launches
 
 
+# ------------------------------------------------------------ phase 13 ---
+
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def fresh_dir(name: str) -> str:
+    """An empty directory build/chip_smoke/<name> (build/ is ignored by
+    git)."""
+    path = os.path.join(BUILD, "chip_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def disk_split():
+    """Phase 13's split: synthetic.generate's COCO layout on disk, 32 PNG
+    images of 600^2, 80 categories (81 classes with the background, the
+    published width of the VGG-16 presets), up to 4 objects and 1000
+    proposals per image, seed 0. -> (loader, proposals)."""
+    t0 = time.perf_counter()
+    fx = synthetic.generate(fresh_dir("split"), num_images=32,
+                            image_size=600, num_classes=80, max_objects=4,
+                            proposals_per_image=1000, seed=0)
+    loader = CocoLoader(fx["annotations"], fx["images"])
+    props = ProposalStore.load(fx["proposals"])
+    n_gt = sum(len(loader.annotations(i)["boxes"])
+               for i in range(len(loader)))
+    log(f"[dataset_eval] split: {len(loader)} PNG images of 600^2, "
+        f"{loader.num_classes - 1} categories, {n_gt} objects, "
+        f"{len(props.boxes)} proposals, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return loader, props
+
+
+def serial_detections(tester, model, cfg):
+    """The loop phase 13 holds the Tester to: detect_batch on each
+    eval_batches batch, copied to the card synchronously from pageable
+    memory, each batch converted before the next is read."""
+    dets = []
+    for idxs, batch in tester.pipeline.eval_batches():
+        out = detect_batch(model, cfg, *(torch.as_tensor(x, device="cuda")
+                                         for x in batch[:4]))
+        ids = [tester.loader.image_id(i) for i in idxs]
+        dets += detections_to_coco(
+            {k: v.cpu().numpy()[:len(ids)] for k, v in out.items()}, ids,
+            tester.loader.label_to_cat)
+    return dets
+
+
+def dataset_eval_path(loader, props):
+    """Phase 13: Tester on `multipath_vgg16_batched` over the split on
+    disk. Returns (launches, split img/s)."""
+    cfg = preset("multipath_vgg16_batched")
+    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval,
+                                               score_threshold=0.0))
+    shape = (loader.num_classes, cfg.model.num_classes,
+             cfg.data.max_proposals, cfg.data.image_size)
+    require(shape == (81, 81, 1000, (640, 640)),
+            f"unexpected dataset_eval shape {shape}")
+    model = build_model(cfg.model, device="cuda")
+    seeded_normal_(model, 0)
+    tester = Tester(model, cfg, loader, props, device="cuda", batch_size=8)
+    n = len(loader)
+    t0 = time.perf_counter()
+    tester.collect_detections(max_images=8)
+    log(f"[dataset_eval] warm-up, one batch: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = tester.test()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[dataset_eval] Tester.test over {n} images from disk (decode, "
+        f"padding, copy, detect, conversion, evaluation): {dt:.3f} s = "
+        f"{n / dt:.2f} img/s")
+    log(f"[dataset_eval] kernel launches in Tester.test: {launches}")
+    require(launches["window_pool_multi"] > 0 and launches["resident_pool"]
+            > 0 and launches["window_pool_multi_quant"] == 0
+            and launches["resident_pool_quant"] == 0,
+            f"a kernel of the path never launched, or a quant one did: "
+            f"{launches}")
+    require(all(np.isfinite(v) for v in metrics.values()),
+            f"non-finite metric: {metrics}")
+
+    # the Tester against the serial loop, in turns (Tester, serial, serial,
+    # Tester): what its conversion one batch behind costs or buys
+    runs = {"tester": [], "serial": []}
+    for which in ("tester", "serial", "serial", "tester"):
+        t0 = time.perf_counter()
+        if which == "tester":
+            dets = tester.collect_detections()
+        else:
+            serial = serial_detections(tester, model, cfg)
+        runs[which].append(time.perf_counter() - t0)
+    require(len(dets) > 0 and dets == serial,
+            f"the Tester's {len(dets)} detections differ from the serial "
+            f"loop's {len(serial)}")
+    collect_s = float(np.mean(runs["tester"]))
+    log(f"[dataset_eval] split in turns: collect_detections "
+        f"{' / '.join(f'{t:.4f}' for t in runs['tester'])} s, the serial "
+        f"loop (synchronous copies from pageable memory) "
+        f"{' / '.join(f'{t:.4f}' for t in runs['serial'])} s")
+    t0 = time.perf_counter()
+    for _ in tester.pipeline.eval_batches():
+        pass
+    host_s = time.perf_counter() - t0
+    gts = groundtruth_to_coco(loader)
+    t0 = time.perf_counter()
+    again = CocoEvaluator().evaluate(gts, dets)
+    eval_s = time.perf_counter() - t0
+    require(again == metrics, "the evaluator on the collected detections "
+            "differs from Tester.test")
+    log(f"[dataset_eval] collect_detections {collect_s:.3f} s "
+        f"({n / collect_s:.2f} img/s); {len(dets)} detections, equal to the "
+        f"serial loop's bit for bit; eval_batches alone (decode, padding, "
+        f"stacking; two decode threads) {host_s:.3f} s; the evaluator "
+        f"{eval_s:.3f} s over {len(gts)} objects")
+    busy = profile_once("dataset_eval", "collect_detections over the split",
+                        tester.collect_detections, top=8)
+    log(f"[dataset_eval] device busy over the split: {100 * busy:.1f}%")
+    log("[dataset_eval] metrics: " + json.dumps(metrics))
+    return launches, n / dt
+
+
+# ------------------------------------------------------------ phase 14 ---
+
+def overfit_tiny():
+    """(a) The reference's golden check (its tests/test_e2e.py on the
+    overfit_tiny fixture) on the card: 8 synthetic images of 64^2, `tiny`
+    with 5 classes, batch 2, 30 epochs through epoch_on_device, for init
+    seeds 0-4; the median run must reach AP50 > 0.5, rise by more than 0.3
+    and end its loss under 0.75 x its first (tests/test_torch_eval.py says
+    why the median)."""
+    fx = synthetic.generate(fresh_dir("overfit"), num_images=8,
+                            image_size=64, num_classes=4,
+                            proposals_per_image=24, seed=5)
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=5))
+    loader = CocoLoader(fx["annotations"], fx["images"])
+    props = ProposalStore.load(fx["proposals"])
+    trainer = Trainer(cfg, device="cuda")
+    pipe = DetectionPipeline(loader, props, cfg.data, batch_size=2, seed=0)
+
+    def ap50():
+        return Tester(trainer.model, cfg, loader, props, device="cuda",
+                      batch_size=2).test()["AP50"]
+
+    runs = []
+    for seed in range(5):
+        t0 = time.perf_counter()
+        state = trainer.init_state(seed)
+        before = ap50()
+        losses = []
+        for ep in range(30):
+            for batch in pipe.epoch_on_device(ep, trainer.stream_batch):
+                state, m = trainer.step(state, batch)
+                losses.append(m["loss"])
+        after = ap50()
+        losses = torch.stack(losses).tolist()
+        require(np.all(np.isfinite(losses)), f"non-finite loss, seed {seed}")
+        runs.append((after, after - before, losses[-1] / losses[0]))
+        log(f"[train_eval] overfit seed {seed}: AP50 {before:.4f} -> "
+            f"{after:.4f}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"{len(losses)} steps, {time.perf_counter() - t0:.1f} s")
+    ap, rise, ratio = np.median(np.asarray(runs), axis=0)
+    log(f"[train_eval] overfit median: AP50 {ap:.4f}, rise {rise:.4f}, "
+        f"last/first loss {ratio:.4f}")
+    require(ap > 0.5 and rise > 0.3 and ratio < 0.75,
+            f"the tiny overfit missed the bar: {runs}")
+
+
+def cli_round_trip():
+    """(b) cli.train on a synthetic `tiny` split (6 steps, a checkpoint
+    every 2), --resume to 9, then cli.eval --json on the checkpoints:
+    its metrics must equal an in-process Tester's on the restored
+    parameters. Returns the split (loader, proposals)."""
+    work = fresh_dir("cli")
+    ds, run = os.path.join(work, "ds"), os.path.join(work, "run")
+    args = ["--preset", "tiny", "--synthetic", "--dataset-root", ds,
+            "--device", "cuda"]
+    train_args = ["--no-final-eval", "--set", f"train.checkpoint_dir={run}",
+                  "--set", "train.checkpoint_every=2",
+                  "--set", "train.log_every=2"]
+    ckpt = Checkpointer(os.path.join(run, "ckpt"))
+    train_cli.main([*args, "--steps", "6", *train_args])
+    require(ckpt.all_steps() == [2, 4, 6], f"checkpoints {ckpt.all_steps()}")
+    train_cli.main([*args, "--steps", "9", "--resume", *train_args])
+    require(ckpt.all_steps() == [6, 8, 9],
+            f"checkpoints after --resume {ckpt.all_steps()}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eval_cli.main([*args, "--checkpoint-dir", run, "--json"])
+    got = json.loads(out.getvalue().strip().splitlines()[-1])
+    cfg = preset("tiny")
+    loader = CocoLoader(os.path.join(ds, "annotations",
+                                     "instances_synthetic.json"),
+                        os.path.join(ds, "synthetic"))
+    props = ProposalStore.load(os.path.join(ds, "proposals_synthetic.npz"))
+    trainer, state = common.restore_float_state(cfg, run, device="cuda")
+    want = Tester(trainer.model, cfg, loader, props, device="cuda").test()
+    want = {k: round(v, 5) for k, v in want.items()}
+    log(f"[train_eval] cli.eval at step {state.step}: {json.dumps(got)}")
+    require(state.step == 9 and got == want,
+            f"cli.eval {got} differs from the in-process Tester {want}")
+    return loader, props
+
+
+def exact_resume(loader, props):
+    """(c) Two steps, a checkpoint, a fresh Trainer restored from it and one
+    step, against three steps straight: loss, parameters, momentum and the
+    generator's state equal bit for bit."""
+    cfg = preset("tiny")
+    batches = list(DetectionPipeline(loader, props, cfg.data,
+                                     batch_size=2).epoch(0))[:3]
+    straight = Trainer(cfg, device="cuda")
+    state = straight.init_state(0)
+    ckpt = Checkpointer(fresh_dir("resume"))
+    for b in batches[:2]:
+        state, _ = straight.step(state, b)
+    ckpt.save(straight, state)
+    state, want = straight.step(state, batches[2])
+    resumed = Trainer(cfg, device="cuda")
+    restored = ckpt.restore_latest(resumed, resumed.init_state(1))
+    restored, got = resumed.step(restored, batches[2])
+    params = dict(straight.model.named_parameters())
+    moved = [n for n, p in resumed.model.named_parameters()
+             if not torch.equal(p, params[n])]
+    sa = state.optimizer.sgd.state_dict()["state"]
+    sb = restored.optimizer.sgd.state_dict()["state"]
+    momentum = [k for k in sa if not torch.equal(
+        sa[k]["momentum_buffer"], sb[k]["momentum_buffer"])]
+    gen_eq = torch.equal(state.generator.get_state(),
+                         restored.generator.get_state())
+    loss_eq = torch.equal(got["loss"], want["loss"])
+    log(f"[train_eval] resume 2 + 1 against 3 steps: loss "
+        f"{'equal' if loss_eq else 'differs'}, {len(moved)} parameters and "
+        f"{len(momentum)} momentum buffers differ, generator state "
+        f"{'equal' if gen_eq else 'differs'}")
+    require(loss_eq and not moved and not momentum and gen_eq
+            and restored.step == state.step == 3, "resume is not exact")
+
+
+def train_from_disk(loader, props, resident_ms, resident_ips):
+    """(d) Trainer on `multipath_vgg16_train` at full width over phase 13's
+    split through epoch_on_device: 6 steps (the first apart), then one
+    profiled. Returns this part's launches."""
+    cfg = preset("multipath_vgg16_train")
+    require(loader.num_classes == cfg.model.num_classes,
+            f"{loader.num_classes} classes on disk, "
+            f"{cfg.model.num_classes} in the preset")
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(0)
+    seeded_normal_(trainer.model, 0)
+    pipe = DetectionPipeline(loader, props, cfg.data,
+                             batch_size=cfg.train.batch_size, seed=0)
+
+    def batches():
+        epoch = 0
+        while True:
+            yield from pipe.epoch_on_device(epoch, trainer.stream_batch)
+            epoch += 1
+
+    it = batches()
+    before = read_launches()
+    t0 = time.perf_counter()
+    state, metrics = trainer.step(state, next(it))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    history = [metrics]
+    iters, b = 5, cfg.train.batch_size
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.step(state, next(it))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    now = read_launches()
+    launches = {k: now[k] - before[k] for k in now}
+    losses = [float(h["loss"]) for h in history]
+    log(f"[train_eval] multipath_vgg16_train from disk: first step "
+        f"{first_s:.2f} s; {iters} steps x {b} images in {dt:.3f} s = "
+        f"{1e3 * dt / iters:.2f} ms/step, {b * iters / dt:.2f} img/s "
+        f"(phase 7, one resident batch, this process and card: "
+        f"{resident_ms:.2f} ms/step, {resident_ips:.2f} img/s); losses "
+        + ", ".join(f"{v:.4g}" for v in losses))
+    log(f"[train_eval] kernel launches in the {iters + 1} steps: {launches}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    for name in ("window_pool_multi", "window_grad", "window_rmw_grad"):
+        require(launches[name] > 0, f"{name} never launched in training "
+                f"from disk")
+    busy = profile_once("train_eval", "one step from disk (its batch "
+                        "fetched in the window)",
+                        lambda: trainer.step(state, next(it)), top=12)
+    log(f"[train_eval] device busy in one step from disk: {100 * busy:.1f}%")
+    it.close()
+
+
+def train_eval_path(loader, props, resident_ms, resident_ips):
+    """Phase 14: (a)-(c) at `tiny` under cudnn.deterministic (each run
+    repeats bit for bit), (d) at full width under the default settings, as
+    phase 7 runs. Returns the phase's launches."""
+    reset_launches()
+    torch.backends.cudnn.deterministic = True
+    try:
+        overfit_tiny()
+        tiny_loader, tiny_props = cli_round_trip()
+        exact_resume(tiny_loader, tiny_props)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    train_from_disk(loader, props, resident_ms, resident_ips)
+    return read_launches()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1432,12 +1788,12 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stats = check_and_time_kernels(gen)
     torch.cuda.empty_cache()
-    eval_launches, bf16_ips = main_path()
+    eval_launches, bf16_ips, nms_ips = main_path()
     torch.cuda.empty_cache()
     grad_stats, k1_train = check_and_time_grad_kernels(gen)
     stats.update(grad_stats)
     torch.cuda.empty_cache()
-    train_launches = train_path()
+    train_launches, resident_ms, resident_ips = train_path()
     torch.cuda.empty_cache()
     stats.update(check_and_time_quant_kernels(gen))
     torch.cuda.empty_cache()
@@ -1452,6 +1808,15 @@ def main() -> None:
     stats["window_pool"], pool_api_launches = pool_api_path(gen)
     torch.cuda.empty_cache()
     stats["window_read_probe"], probe_launches = probe_path()
+    torch.cuda.empty_cache()
+    split = disk_split()
+    dataset_eval_launches, split_ips = dataset_eval_path(*split)
+    torch.cuda.empty_cache()
+    train_eval_launches = train_eval_path(*split, resident_ms, resident_ips)
+    log(f"[dataset_eval] split img/s from disk {split_ips:.2f}; one "
+        f"resident batch repeated, this process and card: {nms_ips:.2f} "
+        f"with score_threshold 0 (phase 5), {bf16_ips:.2f} with 0.05 "
+        f"(phase 4)")
 
     # launches: each path's run, counted from 0, and their sum; K1's
     # train_max_abs_err*: its forward at the train path's groups; the quant
@@ -1460,7 +1825,9 @@ def main() -> None:
     # P's max_abs_err: its bf16 windows' (its output is bf16 either way)
     paths = {"eval": eval_launches, "train": train_launches,
              "int8": int8_launches, "int8_svd": svd_launches,
-             "pool_api": pool_api_launches, "probe": probe_launches}
+             "pool_api": pool_api_launches, "probe": probe_launches,
+             "dataset_eval": dataset_eval_launches,
+             "train_eval": train_eval_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

@@ -19,7 +19,6 @@ already in that form passes through.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from multipathnet_tpu_torch.core.config import Config, ModelConfig
@@ -118,7 +117,9 @@ def serving_params(params, cfg: ModelConfig, svd_report: dict | None = None):
 
 
 class Detector:
-    """User-facing wrapper: numpy in, numpy out, on one device.
+    """User-facing wrapper: numpy or tensors in, numpy out, on one device.
+    A tensor already on the detector's device with the dtype the path
+    reads is used as it is, with no round trip through the host.
 
     `params`, a flax-layout tree (numpy or torch leaves; models/convert.py),
     goes through `serving_params` for cfg.model and into `model`, which must
@@ -137,10 +138,8 @@ class Detector:
         self.cfg = cfg
 
     def __call__(self, images_u8, src_hws, proposals, prop_mask) -> dict:
-        dev = self.device
-
         def put(x, dtype):
-            return torch.as_tensor(np.asarray(x), dtype=dtype).to(dev)
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
 
         out = detect_batch(self.model, self.cfg,
                            put(images_u8, torch.uint8),

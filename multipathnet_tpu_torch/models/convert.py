@@ -90,8 +90,10 @@ def load_flax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 def flax_from_state_dict(state_dict, host: bool = True) -> dict:
     """The inverse of state_dict_from_flax: {name: tensor} -> {"params":
     nested dict of numpy arrays (float32, or int8 codes)}, kernels back in
-    HWIO / (in, out) layout. host=False keeps the leaves as tensors on
-    their device."""
+    HWIO / (in, out) layout. The arrays are copies, so a later step that
+    updates the model in place leaves them as they were. host=False keeps
+    the leaves as tensors on their device (views where no layout change
+    or cast was needed)."""
     tree = {}
     for name, t in state_dict.items():
         t = as_tensor(t.cpu() if host else t)
@@ -102,5 +104,5 @@ def flax_from_state_dict(state_dict, host: bool = True) -> dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[_FLAX_NAMES.get(leaf, leaf)] = (
-            np.ascontiguousarray(t.numpy()) if host else t.contiguous())
+            np.array(t.numpy(), order="C") if host else t.contiguous())
     return {"params": tree}

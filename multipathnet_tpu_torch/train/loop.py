@@ -17,12 +17,12 @@ data parallelism is ROADMAP A17.
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from multipathnet_tpu_torch.core.config import Config
-from multipathnet_tpu_torch.core.device import resolve_device
+from multipathnet_tpu_torch.core.device import HostToDevice, resolve_device
 from multipathnet_tpu_torch.data import sampler as sampler_lib
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models.multipath import (MultiPathNet,
@@ -30,7 +30,9 @@ from multipathnet_tpu_torch.models.multipath import (MultiPathNet,
                                                      init_params_)
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.train.losses import detection_loss
-from multipathnet_tpu_torch.train.schedule import Optimizer, make_optimizer
+from multipathnet_tpu_torch.train.schedule import (Optimizer,
+                                                   make_lr_schedule,
+                                                   make_optimizer)
 
 
 class Batch(NamedTuple):
@@ -43,10 +45,13 @@ class Batch(NamedTuple):
     gt_boxes: torch.Tensor    # (B, G, 4) f32, original image coords
     gt_classes: torch.Tensor  # (B, G) int32
     gt_mask: torch.Tensor     # (B, G) bool
+    gt_masks: Any = None      # (B, G, M, M) f32 instance masks, for the
+    #                           proposal net's training (ROADMAP A15)
 
 
+# each field's dtype on the device
 _BATCH_DTYPES = Batch(torch.uint8, torch.float32, torch.float32, torch.bool,
-                      torch.float32, torch.int32, torch.bool)
+                     torch.float32, torch.int32, torch.bool, torch.float32)
 
 
 class TrainState(NamedTuple):
@@ -154,6 +159,8 @@ class Trainer:
         for name, p in self.model.named_parameters():
             p.requires_grad_(name not in self.frozen)
         self._step = make_train_step(self.model, cfg)
+        self.lr_schedule = make_lr_schedule(cfg.train)
+        self._copy = HostToDevice(self.device)
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Draws the parameters (models.multipath.init_params_) and builds
@@ -168,9 +175,17 @@ class Trainer:
                           torch.Generator(self.device).manual_seed(seed + 1))
 
     def put_batch(self, batch) -> Batch:
-        """numpy arrays or tensors -> a Batch on the trainer's device."""
-        return Batch(*(torch.as_tensor(x, dtype=dt, device=self.device)
+        """numpy arrays or tensors -> a Batch on the trainer's device,
+        copied synchronously (a batch already there is used as it is)."""
+        return Batch(*(None if x is None
+                       else torch.as_tensor(x, dtype=dt, device=self.device)
                        for x, dt in zip(batch, _BATCH_DTYPES)))
+
+    def stream_batch(self, batch) -> Batch:
+        """A host batch -> a Batch on the trainer's device, copied ahead of
+        its use (core/device.HostToDevice: on the card from pinned memory on
+        a side stream): the `put` of DetectionPipeline.epoch_on_device."""
+        return Batch(*self._copy(batch, _BATCH_DTYPES))
 
     def step(self, state: TrainState, batch):
         """One optimizer step; returns (new state, metrics of 0-d

@@ -316,6 +316,91 @@ def test_bf16_train_step_matches_reference(monkeypatch):
                                    rtol=0, err_msg=name)
 
 
+def test_bf16_gradients_no_further_from_float32_than_reference(
+        monkeypatch):
+    """The bf16 step's gradients differ between the two sides (above); here
+    each side's are held against the float32 gradient of the same weights
+    and sample (the reference's, which the port's float32 step equals to
+    1e-4, tests/test_torch_train.py). For every trainable tensor the port's
+    relative RMS error from float32 is at most 1.1 x the reference's plus
+    1e-3 (seen at most 1.02 x; the skip bias's 0.04 against the
+    reference's 0.14): the port's bf16 backward loses no more than the
+    reference's does, so a bf16 run that ends apart from the reference's is
+    rounding, not a port loss of precision."""
+    def configure(make_preset, dtype):
+        cfg = make_preset("tiny")
+        return cfg.replace(
+            model=dataclasses.replace(cfg.model, train_roi_impl="pallas",
+                                      dtype=dtype),
+            data=dataclasses.replace(cfg.data, hflip_prob=0.0),
+            train=dataclasses.replace(cfg.train, warmup_steps=0,
+                                      freeze_backbone_stages=2))
+
+    rng = np.random.default_rng(6)
+    batch = _train_batch(rng, configure(preset, "bfloat16"))
+    jcfg = configure(jpreset, "float32")
+    shapes = jax.eval_shape(jbuild(jcfg.model).init, jax.random.key(0),
+                            jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 1, 4)))
+
+    def leaf(path, s):
+        if "kernel" in jax.tree_util.keystr(path):
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rng.normal(size=s.shape) * np.sqrt(2.0 / fan_in)
+                    ).astype(np.float32)
+        return (rng.normal(size=s.shape) * 0.1).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    canvases, scales = jtf.batch_resize_to_canvas(
+        batch.images, jcfg.data.image_size, batch.src_hws)
+    d, m = jcfg.data, jcfg.model
+    sample = jsampler.sample_batch(
+        jax.random.key(9), batch.proposals * np.asarray(scales)[:, None, None],
+        batch.prop_mask, batch.gt_boxes * np.asarray(scales)[:, None, None],
+        batch.gt_classes, batch.gt_mask, rois_per_image=d.rois_per_image,
+        fg_fraction=d.fg_fraction, fg_iou_threshold=d.fg_iou_threshold,
+        bg_iou_range=d.bg_iou_range, bbox_reg_means=m.bbox_reg_means,
+        bbox_reg_stds=m.bbox_reg_stds)
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+    loss_kw = dict(integral_thresholds=m.integral_thresholds,
+                   num_classes=m.num_classes,
+                   class_specific_bbox=m.class_specific_bbox,
+                   integral_agg=m.integral_loss_agg)
+
+    def reference_grads(dtype):
+        jmodel = jbuild(configure(jpreset, dtype).model, freeze_stages=2)
+
+        def loss_fn(p):
+            scores, deltas = jmodel.apply(p, canvases, sample.rois,
+                                          train=True)
+            return jlosses.detection_loss(scores, deltas, sample,
+                                          **loss_kw)[0]
+
+        return dict(_leaves(jax.jit(jax.grad(loss_fn))(params)))
+
+    want32, ref16 = reference_grads("float32"), reference_grads("bfloat16")
+    tsample = tsampler.RoiSample(*(torch.from_numpy(np.array(x))
+                                   for x in sample))
+    monkeypatch.setattr(tsampler, "sample_batch", lambda *a, **k: tsample)
+    trainer = tloop.Trainer(configure(preset, "bfloat16"), device="cpu")
+    state = trainer.init_state(0)
+    convert.load_flax_params(trainer.model, params)
+    trainer.model.head.dropout_rate = 0.0
+    trainer.step(state, batch)
+    port16 = dict(_leaves(convert.flax_from_state_dict(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in trainer.model.named_parameters()})))
+    checked = 0
+    for name, want in want32.items():
+        if not np.abs(want).any():      # frozen
+            continue
+        norm = np.linalg.norm(want)
+        port = np.linalg.norm(port16[name] - want) / norm
+        ref = np.linalg.norm(ref16[name] - want) / norm
+        assert port <= 1.1 * ref + 1e-3, (name, port, ref)
+        checked += 1
+    assert checked == 26
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["pool", "int8"])
 def test_bf16_pool_at_channels_not_a_multiple_of_8(quantized):
     """skip_reduce_dim = 20: the port pads the reference's own bf16

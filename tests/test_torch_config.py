@@ -49,14 +49,18 @@ print("IMPORTED", sorted(m for m in sys.modules
 sys.exit(1 if bad else 0)
 """
 
-# modules the subprocess must have imported, the training and serving
-# paths' included
+# modules the subprocess must have imported: the training, serving and
+# dataset-to-AP paths' included
 _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "tools.probe_int8_window_dma",
                 "core.device", "models.layers", "models.heads",
                 "models.convert", "models.multipath", "data.sampler",
                 "train.losses", "train.schedule", "train.loop",
-                "eval.detect", "eval.serving")
+                "eval.detect", "eval.serving", "core.padding", "data.rle",
+                "data.proposals", "data.coco", "data.voc", "data.synthetic",
+                "data.pipeline", "eval.coco_eval", "eval.voc_eval",
+                "eval.tester", "train.checkpoint", "utils.metrics",
+                "cli.common", "cli.eval", "cli.train")
 
 
 def test_port_never_imports_jax():

@@ -110,6 +110,20 @@ def test_detect_batch_matches_reference(slice_pair):
     assert got["classes"].dtype == np.int32
 
 
+def test_detector_takes_numpy_and_tensors_alike(slice_pair):
+    """Detector returns the same detections for numpy inputs and for
+    tensors already on its device (used as they are)."""
+    _, (tmodel, tcfg) = slice_pair
+    det = tdetect.Detector(tmodel, tcfg, "cpu")
+    inputs = _inputs()
+    want = det(*inputs)
+    got = det(*(torch.from_numpy(x) for x in inputs))
+    assert set(got) == set(want)
+    for key in want:
+        assert isinstance(got[key], np.ndarray)
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 def test_model_forward_matches_reference(slice_pair):
     """The reference contract {images, rois} -> (scores, deltas)."""
     (jmodel, params, _), (tmodel, _) = slice_pair

@@ -1,7 +1,9 @@
 """The CUDA pool kernels (forward K1/K2 with and without their int8
 epilogue, K5, backward K3/K4 and the single-level backward through K4) and
 the window-read probe P against their plain PyTorch versions, on the card;
-K3, K4 and a whole bf16 train step repeated bit for bit.
+K3, K4 and a whole bf16 train step repeated bit for bit; the pipeline's
+prefetching copies against synchronous ones, and Detector on a batch
+already on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
@@ -583,6 +585,90 @@ def test_tiny_bf16_train_step_repeats_bit_for_bit(cuda):
     for name in a:
         assert torch.equal(a[name][1], b_[name][1]), f"gradient of {name}"
         assert torch.equal(a[name][0], b_[name][0]), name
+
+
+# ------------------------------------------- prefetch and device batches ---
+
+def _tiny_split(root, n=8):
+    from multipathnet_tpu_torch.data import synthetic
+    from multipathnet_tpu_torch.data.coco import CocoLoader
+    from multipathnet_tpu_torch.data.proposals import ProposalStore
+
+    fx = synthetic.generate(str(root), num_images=n, image_size=64,
+                            proposals_per_image=24, seed=2)
+    return (CocoLoader(fx["annotations"], fx["images"]),
+            ProposalStore.load(fx["proposals"]))
+
+
+@pytest.mark.parametrize("delay", ["copy", "read"])
+def test_epoch_on_device_equals_synchronous_copies(cuda, tmp_path, delay):
+    """A whole epoch through epoch_on_device (pinned memory, a side
+    stream, two batches ahead) equals synchronous put_batch copies of
+    epoch(), bit for bit, with each half of the stream discipline put under
+    load. "copy": a long device sleep is queued on the copy stream before
+    each copy and each batch is read at once on the consumer stream, so a
+    consumer that did not wait for the copy's event would read the memory
+    before the copy lands. "read": the sleep is queued on the consumer
+    stream before each read and the batch is dropped at once, so without
+    record_stream the caching allocator would hand the memory to a later
+    copy on the side stream while the read is still queued."""
+    from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
+
+    cfg = preset("tiny")
+    trainer = Trainer(cfg, device=cuda)
+    pipe = DetectionPipeline(*_tiny_split(tmp_path, n=16), cfg.data,
+                             batch_size=2, seed=3)
+
+    def put(batch):
+        if delay == "copy":
+            with torch.cuda.stream(trainer._copy.stream):
+                torch.cuda._sleep(20_000_000)
+        return trainer.stream_batch(batch)
+
+    got = []
+    for batch in pipe.epoch_on_device(0, put):
+        assert all(t.is_cuda for t in batch if t is not None)
+        if delay == "read":
+            torch.cuda._sleep(20_000_000)
+        got.append([None if t is None else t.clone() for t in batch])
+        del batch
+    want = [trainer.put_batch(b) for b in pipe.epoch(0)]
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        for name, gt, wt in zip(w._fields, g, w):
+            if wt is None:
+                assert gt is None, name
+            else:
+                assert gt.dtype == wt.dtype and torch.equal(gt, wt), name
+
+
+def test_detector_takes_a_device_batch_without_host_copy(cuda, tmp_path,
+                                                         monkeypatch):
+    """Detector.__call__ hands tensors already on the card to detect_batch
+    as they are (the images' data_ptr reaches it), with the same output as
+    for the numpy batch."""
+    from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
+    from multipathnet_tpu_torch.eval import detect
+
+    cfg = preset("tiny")
+    model = build_model(cfg.model, device=cuda)
+    det = detect.Detector(model, cfg)
+    pipe = DetectionPipeline(*_tiny_split(tmp_path), cfg.data, batch_size=2)
+    _, host = next(pipe.eval_batches())
+    want = det(*host[:4])
+    dev = [torch.as_tensor(x, device=cuda) for x in host[:4]]
+    seen = []
+    real = detect.detect_batch
+
+    def spy(model, cfg, images, *rest):
+        seen.append(images.data_ptr())
+        return real(model, cfg, images, *rest)
+
+    monkeypatch.setattr(detect, "detect_batch", spy)
+    got = det(*dev)
+    assert seen == [dev[0].data_ptr()]
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 # ------------------------------------------------- K1/K2 int8 epilogue ---

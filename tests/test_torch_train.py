@@ -417,3 +417,27 @@ def test_train_step_repeats_from_a_snapshot(dtype):
     assert loss_a == loss_b and step_a == step_b == saved["step"] + 1
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert any(not torch.equal(a[n], saved["params"][n]) for n in a)
+
+
+def test_train_steps_follow_reference_in_lockstep(tmp_path):
+    """Two epochs (8 steps) of the `tiny` overfit fixture in float32 from
+    the port's init, flips, ROI sampling and dropout on: the reference's
+    train step (its Pallas route in interpret mode), fed the same batches
+    and weights and the port's own draws of each step (tests/
+    overfit_seeds.lockstep), follows the port's run. Every metric of every
+    step within rtol 1e-5 (seen 3.5e-7), every parameter at the end within
+    atol 1e-5 (seen 6e-8): momentum, weight decay and the draws' use agree
+    over many steps, not only the first."""
+    import overfit_seeds
+
+    fx = overfit_seeds.fixture(str(tmp_path))
+    (run,) = overfit_seeds.lockstep(fx, [1], dtype="float32", epochs=2,
+                                    evaluate=False)
+    assert len(run["metrics"]) == 8
+    for i, (got, want) in enumerate(run["metrics"]):
+        assert set(got) == set(want)
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{name}, step {i}")
+    assert run["drift"] < 1e-5, run["drift"]
+    assert min(m["num_fg"] for m, _ in run["metrics"]) > 0
