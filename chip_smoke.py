@@ -119,9 +119,37 @@ Phases, each of which raises on failure (nothing is caught):
      (d) `multipath_vgg16_train` at full width on phase 13's split through
      epoch_on_device: 6 steps (ms/step, img/s beside phase 7's), losses
      finite, K1/K3/K4 launched, one more step profiled.
+ 15. the reference's ResNet and AlexNet models (`resnet`): (a) Detector on
+     `multipath_resnet18_integral` at 8 x 1000 proposals (bench.py's
+     generator), 640^2, every parameter normal * 0.02 and then the trunk,
+     BN statistics included (variances from a positive draw), from a
+     seeded torchvision-layout state dict through import_weights: first
+     call, 10 timed batches (img/s), peak memory, one profiled batch
+     (device ms, busy share) and the frozen-BN passes timed alone; K1/K2
+     must have launched, detections finite with the right shapes; (b) the
+     same for `sharpmask_multipath_e2e`'s ResNet-50 detector and that
+     preset with ResNet-101, 3 timed batches each; (c) Trainer on
+     `multipath_resnet18_integral` at full width (batch 8, 640^2, 64 ROIs
+     per image, stages 1-2 frozen), 1 + 5 steps (ms/step), losses finite,
+     K1/K3/K4 launched, every BN buffer and frozen parameter bit-unchanged,
+     one profiled step, two steps from one state equal under
+     cudnn.deterministic; (d) Detector on the bf16 preset with the AlexNet
+     trunk, one batch: finite detections and c3/c4/c5 of the right shapes.
+ 16. `multipath_vgg16_reference` (`reference_exact`: max pooling, caffe_bgr,
+     the exact route in plain ops): every weight from a seeded state dict
+     in the reference's torch contract (features.N, reduce, fc6.{i},
+     fc7.{i}, classifier.{k}, bbox) through import_weights; Detector at 8 x
+     1000 proposals, 640^2: first call, 3 timed batches (ms/batch), peak
+     memory, one profiled batch, no window kernel launched; then on one
+     image's raw maps and 64 ROIs the max pooling of each view x level
+     group on the card equal to the CPU's bit for bit, the whole pool with
+     its bf16 1x1 reduces and level sums within four bf16 steps (at the
+     largest magnitude) of the CPU's, and the
+     windowed route equal to the exact one, bit for bit, on 512 views up to
+     28 px (bins within one base cell) at every level.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13 and 14, each counted from 0, and
-their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15 and 16, each counted from 0,
+and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -159,9 +187,12 @@ from multipathnet_tpu_torch.eval.coco_eval import CocoEvaluator
 from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
 from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
                                                 groundtruth_to_coco)
-from multipathnet_tpu_torch.models import convert, layers
+from multipathnet_tpu_torch.data import transforms
+from multipathnet_tpu_torch.models import convert, import_weights, layers
 from multipathnet_tpu_torch.models.multipath import build_model
-from multipathnet_tpu_torch.ops import _build, roi_pool, roi_pyramid
+from multipathnet_tpu_torch.ops import _build
+from multipathnet_tpu_torch.ops import roi as roi_ops
+from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
@@ -548,6 +579,7 @@ def profile_once(tag: str, what: str, fn, top: int = 12) -> float:
                       and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    profile_once.device_ms = busy_ms
     log(f"[{tag}] {what}: wall {wall_ms:.2f} ms, device kernels "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy)")
     for i, e in enumerate(kernels):
@@ -1763,6 +1795,461 @@ def train_eval_path(loader, props, resident_ms, resident_ips):
     return read_launches()
 
 
+# ------------------------------------------------------------ phase 15 ---
+
+RESNET_STAGES = {"resnet18": (2, 2, 2), "resnet50": (3, 4, 6),
+                 "resnet101": (3, 4, 23)}
+
+
+def torchvision_resnet_state(name: str, seed: int) -> dict:
+    """A torchvision-layout ResNet trunk (conv1, bn1, layer1-3; basic
+    blocks for resnet18, bottlenecks otherwise) as numpy arrays from a
+    seed: convolutions He-normal, BN weight U(0.2, 0.6), bias N(0, 0.1),
+    running mean N(0, 0.1), running variance from a positive draw
+    U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def conv(key, cout, cin, k):
+        out[f"{key}.weight"] = (rng.standard_normal((cout, cin, k, k),
+                                                    dtype=np.float32)
+                                * np.float32(np.sqrt(2.0 / (cin * k * k))))
+
+    def bn(key, c):
+        out[f"{key}.weight"] = rng.uniform(0.2, 0.6, c).astype(np.float32)
+        out[f"{key}.bias"] = (rng.standard_normal(c, dtype=np.float32)
+                              * np.float32(0.1))
+        out[f"{key}.running_mean"] = (rng.standard_normal(c, dtype=np.float32)
+                                      * np.float32(0.1))
+        out[f"{key}.running_var"] = rng.uniform(0.5, 2.0, c).astype(
+            np.float32)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    basic = name == "resnet18"
+    cin, width = 64, 64
+    for layer, n in enumerate(RESNET_STAGES[name], start=1):
+        cout = width if basic else 4 * width
+        for blk in range(n):
+            src = f"layer{layer}.{blk}"
+            stride = 2 if layer > 1 and blk == 0 else 1
+            if basic:
+                convs = ((width, cin, 3), (width, width, 3))
+            else:
+                convs = ((width, cin, 1), (width, width, 3), (cout, width, 1))
+            for k, (o, i, ks) in enumerate(convs, start=1):
+                conv(f"{src}.conv{k}", o, i, ks)
+                bn(f"{src}.bn{k}", o)
+            if blk == 0 and (cin != cout or stride != 1):
+                conv(f"{src}.downsample.0", cout, cin, 1)
+                bn(f"{src}.downsample.1", cout)
+            cin = cout
+        width *= 2
+    return out
+
+
+def resnet_model(cfg, seed: int = 0, param_dtype=None, model=None):
+    """The model for cfg (a ResNet trunk) on the card: every parameter
+    normal * 0.02 (seeded_normal_), then the trunk, BN statistics included,
+    from a seeded torchvision-layout state dict through the port's
+    import_weights. Returns (model, parameter count)."""
+    model = model or build_model(cfg.model, device="cuda",
+                                 param_dtype=param_dtype)
+    n_params = seeded_normal_(model, seed)
+    state = torchvision_resnet_state(cfg.model.backbone, seed)
+    mapper = getattr(import_weights,
+                     f"{cfg.model.backbone}_params_from_state_dict")
+    import_weights.install_params(model, mapper(state))
+    return model, n_params
+
+
+def bn_pass_ms(run):
+    """The frozen-BN passes of one run(): every FrozenBatchNorm input
+    recorded by shape, then each BN timed alone (its float32 input in
+    channels_last, its bf16 output) on random data. -> (ms, count)."""
+    seen = []
+    forward = layers.FrozenBatchNorm.forward
+
+    def record(self, x, dtype):
+        seen.append((self, tuple(x.shape), dtype))
+        return forward(self, x, dtype)
+
+    layers.FrozenBatchNorm.forward = record
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        layers.FrozenBatchNorm.forward = forward
+    total = 0.0
+    with torch.no_grad():
+        for mod, shape, dtype in seen:
+            x = torch.randn(shape, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            total += cuda_ms(lambda: mod(x, dtype), 5)
+            del x
+    return total, len(seen)
+
+
+def check_detections(tag, out, b=8, d=100):
+    for key, shape in (("boxes", (b, d, 4)), ("scores", (b, d)),
+                       ("classes", (b, d)), ("valid", (b, d))):
+        require(out[key].shape == shape, f"[{tag}] {key} shape "
+                f"{out[key].shape}")
+    require(np.isfinite(out["boxes"]).all()
+            and np.isfinite(out["scores"]).all(),
+            f"[{tag}] non-finite detections")
+
+
+def resnet_serve(cfg, tag: str, iters: int, profile: bool = False):
+    """Detector at 8 x 1000 proposals, 640^2, on cfg's ResNet model:
+    first call, `iters` timed batches (img/s), peak device memory, finite
+    detections of the right shapes; with `profile`, one profiled batch
+    (device ms, busy share) and the BN passes timed. Returns a dict of the
+    numbers."""
+    b, p = 8, cfg.data.max_proposals
+    canvas = cfg.data.image_size[0]
+    require((b, p, canvas) == (8, 1000, 640),
+            f"unexpected {tag} shape {(b, p, canvas)}")
+    t0 = time.perf_counter()
+    model, n_params = resnet_model(cfg)
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.model.backbone}: {n_params / 1e6:.1f}M params "
+        f"({cfg.model.dtype}), trunk from a torchvision-layout state dict "
+        f"through import_weights, on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    det = Detector(model, cfg, "cuda")
+    inputs = make_inputs(b, p, canvas)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = det(*inputs)
+    first_s = time.perf_counter() - t0
+    check_detections(tag, out)
+    dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
+    detect_batch(model, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        detect_batch(model, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = {"ips": b * iters / dt, "ms": 1e3 * dt / iters, "first_s": first_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[{tag}] first call {first_s:.2f} s; steady: {iters} batches x {b} "
+        f"images in {dt:.3f} s = {res['ips']:.2f} img/s ({res['ms']:.2f} "
+        f"ms/batch); peak device memory {res['peak_gib']:.2f} GiB")
+    if profile:
+        res["busy"] = profile_once(
+            tag, "one batch", lambda: detect_batch(model, cfg, *dev_inputs))
+        res["device_ms"] = profile_once.device_ms
+        res["bn_ms"], res["bn_calls"] = bn_pass_ms(
+            lambda: detect_batch(model, cfg, *dev_inputs))
+        log(f"[{tag}] frozen-BN passes per batch (float32 in, one rounding "
+            f"out, models/layers.FrozenBatchNorm): {res['bn_ms']:.3f} ms "
+            f"over {res['bn_calls']} BN layers")
+    del model, det
+    return res
+
+
+def resnet_train(cfg):
+    """(c) Trainer on multipath_resnet18_integral at full width: 1 + 5
+    steps, ms/step, finite losses, K1/K3/K4 launched in them; BN buffers
+    and frozen stages bit-unchanged; a profiled step; two steps from one
+    state equal under cudnn.deterministic. Returns ({"ms", "busy",
+    "device_ms"}, the 6 steps' launches)."""
+    m, d, t = cfg.model, cfg.data, cfg.train
+    shape = (m.backbone, t.batch_size, d.image_size, d.max_proposals,
+             d.rois_per_image, t.freeze_backbone_stages, m.dtype)
+    require(shape == ("resnet18", 8, (640, 640), 1000, 64, 2, "bfloat16"),
+            f"unexpected ResNet train shape {shape}")
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(0)
+    resnet_model(cfg, model=trainer.model)
+    require(all(p.dtype == torch.float32
+                for p in trainer.model.parameters()),
+            "training parameters must be float32")
+    frozen = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()
+              if n in trainer.frozen}
+    buffers = {n: b.clone() for n, b in trainer.model.named_buffers()}
+    require(frozen and all(n.startswith(("backbone.stem",
+                                         "backbone.stage2_"))
+                           for n in frozen) and buffers,
+            f"frozen set {sorted(frozen)[:4]}..., {len(buffers)} buffers")
+    batch = trainer.put_batch(train_batch(cfg))
+    start = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses = [float(metrics["loss"])]
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.step(state, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    launches = {k: v - start[k] for k, v in read_launches().items()}
+    log(f"[resnet_train] first step {first_s:.2f} s; {iters} steps "
+        f"{ms:.2f} ms/step, {8 * 1e3 / ms:.2f} img/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[resnet_train] kernel launches in {iters + 1} steps: {launches}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    for name in ("window_pool_multi", "window_grad", "window_rmw_grad"):
+        require(launches[name] > 0, f"{name} never launched in ResNet "
+                f"training: {launches}")
+    params = dict(trainer.model.named_parameters())
+    for n, before in frozen.items():
+        require(torch.equal(params[n], before), f"frozen {n} moved")
+    for n, b in trainer.model.named_buffers():
+        require(torch.equal(b, buffers[n]), f"BN buffer {n} moved")
+    log(f"[resnet_train] {len(frozen)} frozen tensors and {len(buffers)} BN "
+        f"buffers bit-unchanged after {iters + 1} steps")
+    busy = profile_once("resnet_train", "one step",
+                        lambda: trainer.step(state, batch), top=16)
+    dev_ms = profile_once.device_ms
+    saved = snapshot_train_state(trainer, state)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            st = restore_train_state(trainer, saved)
+            _, mt = trainer.step(st, batch)
+            runs.append((mt["loss"].clone(),
+                         {n: p.detach().clone() for n, p in params.items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    moved = [n for n in runs[0][1]
+             if not torch.equal(runs[0][1][n], runs[1][1][n])]
+    equal = bool(torch.equal(runs[0][0], runs[1][0])) and not moved
+    log(f"[resnet_train] two steps from one state, cudnn.deterministic: "
+        f"{'equal' if equal else 'NOT equal'} ({len(moved)} parameters "
+        f"differ)")
+    require(equal, "two ResNet steps from one state differ")
+    restore_train_state(trainer, saved)
+    return {"ms": ms, "busy": busy, "device_ms": dev_ms}, launches
+
+
+def resnet_path():
+    """Phase 15 (`resnet`), launches counted from 0 over the whole phase:
+    (a) ResNet-18 serving, (b) ResNet-50/101 serving, (c) ResNet-18
+    training, (d) AlexNet through Detector."""
+    reset_launches()
+    cfg18 = preset("multipath_resnet18_integral")
+    a = resnet_serve(cfg18, "resnet18", 10, profile=True)
+    serve = read_launches()
+    log(f"[resnet18] kernel launches in (a): {serve}")
+    require(serve["window_pool_multi"] > 0 and serve["resident_pool"] > 0,
+            f"ResNet-18 serving never reached K1/K2: {serve}")
+    torch.cuda.empty_cache()
+    cfg50 = preset("sharpmask_multipath_e2e")
+    require(cfg50.model.backbone == "resnet50", cfg50.model.backbone)
+    b50 = resnet_serve(cfg50, "resnet50", 3)
+    torch.cuda.empty_cache()
+    cfg101 = cfg50.replace(model=dataclasses.replace(cfg50.model,
+                                                     backbone="resnet101"))
+    b101 = resnet_serve(cfg101, "resnet101", 3)
+    torch.cuda.empty_cache()
+    train_res, _ = resnet_train(cfg18)
+    torch.cuda.empty_cache()
+    cfga = preset("multipath_vgg16_batched")
+    cfga = cfga.replace(model=dataclasses.replace(cfga.model,
+                                                  backbone="alexnet"))
+    model = build_model(cfga.model, device="cuda")
+    seeded_normal_(model, 0)
+    hw = cfga.data.image_size[0]
+    out = Detector(model, cfga, "cuda")(*make_inputs(
+        8, cfga.data.max_proposals, hw))
+    check_detections("alexnet", out)
+    with torch.no_grad():
+        x = torch.randn(8, hw, hw, 3, device="cuda")
+        feats = model.backbone(x)
+    for lv, stride in LEVELS:
+        c = model.backbone.feature_channels[lv]
+        require(tuple(feats[lv].shape) == (8, hw // stride, hw // stride, c)
+                and bool(torch.isfinite(feats[lv]).all()),
+                f"alexnet {lv} {tuple(feats[lv].shape)}")
+    log(f"[alexnet] one Detector batch at 8 x {cfga.data.max_proposals}, "
+        f"{hw}^2: "
+        f"{int(out['valid'].sum())} detections, finite; c3/c4/c5 "
+        f"{[tuple(feats[lv].shape) for lv, _ in LEVELS]}")
+    del model
+    launches = read_launches()
+    log(f"[resnet] serving img/s at 8 x 1000 proposals, 640^2 "
+        f"(ResNet-18 {a['ips']:.2f}, ResNet-50 {b50['ips']:.2f}, "
+        f"ResNet-101 {b101['ips']:.2f}); peak GiB {a['peak_gib']:.2f} / "
+        f"{b50['peak_gib']:.2f} / {b101['peak_gib']:.2f}; ResNet-18 "
+        f"{a['device_ms']:.2f} device ms a batch, {100 * a['busy']:.1f}% "
+        f"busy, BN passes {a['bn_ms']:.3f} ms; train {train_res['ms']:.2f} "
+        f"ms/step, {train_res['device_ms']:.2f} device ms, "
+        f"{100 * train_res['busy']:.1f}% busy")
+    log(f"[resnet] kernel launches over phase 15: {launches}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 16 ---
+
+def reference_contract_state(cfg, seed: int) -> dict:
+    """A seeded state dict in the reference's torch contract for cfg
+    (features.N of VGG-16, reduce, fc6.{i}, fc7.{i}, classifier.{k},
+    bbox), numpy float32: convolutions He-normal with conv1_1 scaled by
+    1/128 for 0-255 pixels, fully connected layers normal * sqrt(1 /
+    fan_in), biases N(0, 0.01)."""
+    m = cfg.model
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen).mul_(std).numpy()
+
+    state, cin = {}, 3
+    chans = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+    for i, (idx, c) in enumerate(zip(import_weights.VGG16_TORCH_INDICES,
+                                     chans)):
+        std = np.sqrt(2.0 / (9 * cin)) / (128.0 if i == 0 else 1.0)
+        state[f"features.{idx}.weight"] = normal((c, cin, 3, 3), std)
+        state[f"features.{idx}.bias"] = normal(c, 0.01)
+        cin = c
+    skip = sum({"c3": 256, "c4": 512, "c5": 512}[lv] for lv in m.skip_levels)
+    d, g, f = m.skip_reduce_dim, m.roi_output_size, len(m.foveal_scales)
+    state["reduce.weight"] = normal((d, skip, 1, 1), np.sqrt(2.0 / skip))
+    state["reduce.bias"] = normal(d, 0.01)
+    for i in range(f):
+        state[f"fc6.{i}.weight"] = normal((m.fc_dim, g * g * d),
+                                          np.sqrt(1.0 / (g * g * d)))
+        state[f"fc6.{i}.bias"] = normal(m.fc_dim, 0.01)
+        state[f"fc7.{i}.weight"] = normal((m.fc_dim, m.fc_dim),
+                                          np.sqrt(1.0 / m.fc_dim))
+        state[f"fc7.{i}.bias"] = normal(m.fc_dim, 0.01)
+    for k in range(len(m.integral_thresholds)):
+        state[f"classifier.{k}.weight"] = normal((m.num_classes,
+                                                  f * m.fc_dim),
+                                                 np.sqrt(1.0 / m.fc_dim))
+        state[f"classifier.{k}.bias"] = normal(m.num_classes, 0.01)
+    state["bbox.weight"] = normal((4 * m.num_classes, f * m.fc_dim), 1e-3)
+    state["bbox.bias"] = normal(4 * m.num_classes, 0.01)
+    return state
+
+
+def reference_exact_path():
+    """Phase 16 (`reference_exact`): multipath_vgg16_reference through
+    Detector at 8 x 1000 proposals, 640^2, weights from the reference's
+    torch contract through import_weights; then the max route held to the
+    CPU. Returns (launches, ms per batch)."""
+    cfg = preset("multipath_vgg16_reference")
+    m = cfg.model
+    proposals, hw = cfg.data.max_proposals, cfg.data.image_size[0]
+    require((m.roi_mode, m.preprocess, m.roi_impl, m.backbone) ==
+            ("max", "caffe_bgr", "direct", "vgg16"),
+            f"unexpected reference preset {m}")
+    t0 = time.perf_counter()
+    state = reference_contract_state(cfg, 0)
+    imported = {
+        **import_weights.vgg16_params_from_state_dict(state),
+        **import_weights.multipath_head_params_from_state_dict(
+            state, skip_channels={"c3": 256, "c4": 512, "c5": 512},
+            roi_output_size=m.roi_output_size)}
+    del state
+    model = build_model(m, device="cuda")
+    import_weights.install_params(model, imported)
+    require(set(imported) == set(model.state_dict()),
+            "the contract did not cover the model")
+    del imported
+    torch.cuda.synchronize()
+    log(f"[reference_exact] multipath_vgg16_reference ({m.dtype}, roi_mode "
+        f"max, caffe_bgr, roi_impl direct): every weight from a seeded "
+        f"torch-contract state dict through import_weights in "
+        f"{time.perf_counter() - t0:.1f}s")
+    reset_launches()
+    det = Detector(model, cfg, "cuda")
+    inputs = make_inputs(8, proposals, hw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = det(*inputs)
+    first_s = time.perf_counter() - t0
+    check_detections("reference_exact", out)
+    dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        detect_batch(model, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    log(f"[reference_exact] 8 x {proposals} proposals, {hw}^2: first call "
+        f"{first_s:.2f} s, {ms:.2f} ms/batch ({8e3 / ms:.2f} img/s) over "
+        f"{iters} batches; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{int(out['valid'].sum())} detections")
+    profile_once("reference_exact", "one batch",
+                 lambda: detect_batch(model, cfg, *dev_inputs))
+    launches = read_launches()
+    require(not any(launches.values()),
+            f"the exact max route launched a window kernel: {launches}")
+
+    # the route held to the CPU: one image's raw maps, 64 ROIs, every level
+    images, hws, boxes, _ = inputs
+    with torch.no_grad():
+        canvas, scale = transforms.batch_resize_to_canvas(
+            dev_inputs[0][:1], (hw, hw), dev_inputs[1][:1], "caffe_bgr")
+        feats = model.features(canvas)
+    rois = (torch.from_numpy(boxes[:1, :64]).cuda() * scale[:, None, None])
+    strides = model.backbone.feature_strides
+    scales = {lv: 1.0 / strides[lv] for lv in m.skip_levels}
+    for factors, levels in model._view_level_plan():
+        args = dict(scales=scales, foveal_factors=factors,
+                    image_hw=(hw, hw), output_size=m.roi_output_size)
+        got = roi_ops.multilevel_foveal_roi_features(
+            {lv: feats[lv][0] for lv in levels}, rois[0], **args)
+        want = roi_ops.multilevel_foveal_roi_features(
+            {lv: feats[lv][0].cpu() for lv in levels}, rois[0].cpu(), **args)
+        require(torch.equal(got.cpu(), want),
+                f"the exact max route on the card differs from the CPU "
+                f"({factors}, {levels})")
+    with torch.no_grad():
+        got = model.pool_rois(feats, rois, (hw, hw)).float().cpu()
+        reduces = [getattr(model, f"reduce_{lv}") for lv in m.skip_levels]
+        for mod in reduces:  # the same model, its 1x1 reduces on the CPU
+            mod.cpu()
+        want = model.pool_rois({lv: f.cpu() for lv, f in feats.items()},
+                               rois.cpu(), (hw, hw)).float()
+        for mod in reduces:
+            mod.cuda()
+    # the three levels' 1x1 reduces round their float32 sums (summed in
+    # another order by cuDNN and oneDNN) to bf16, and the two level sums
+    # round again: four bf16 steps at the largest magnitude bound them
+    step = 2.0 ** (float(torch.floor(torch.log2(want.abs().max()))) - 7)
+    share = float((got != want).float().mean())
+    diff = float((got - want).abs().max())
+    log(f"[reference_exact] 64 ROIs of one image, every level: the max "
+        f"pooling equal to the CPU's bit for bit; after the bf16 1x1 "
+        f"reduces (cuDNN against oneDNN) and the level sums "
+        f"{100 * share:.3f}% of values differ, largest {diff:.4g} ("
+        f"{diff / step:.1f} bf16 steps at the largest magnitude, at most 4 "
+        f"allowed)")
+    require(diff <= 4 * step,
+            "the reduced max route is more than four bf16 steps off the CPU")
+    # windowed == exact where every bin spans at most one base cell
+    rng = np.random.default_rng(1)
+    xy = rng.uniform(0, hw - 40, (512, 2))
+    wh = rng.uniform(2, 28, (512, 2))
+    small = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32)).cuda()
+    for lv in m.skip_levels:
+        pyr = roi_pyramid.build_pyramid(feats[lv][0], scales[lv],
+                                        mode="max")
+        exact = roi_ops.roi_pool_max(feats[lv][0], small,
+                                     spatial_scale=scales[lv]).float()
+        windowed = roi_pyramid.pyramid_roi_align(pyr, small)
+        require(torch.equal(exact, windowed),
+                f"windowed and exact max routes differ at {lv}")
+    log("[reference_exact] windowed route equal to the exact one, bit for "
+        "bit, on 512 views up to 28 px at c3/c4/c5")
+    del model, det, feats
+    return launches, ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1817,6 +2304,10 @@ def main() -> None:
         f"resident batch repeated, this process and card: {nms_ips:.2f} "
         f"with score_threshold 0 (phase 5), {bf16_ips:.2f} with 0.05 "
         f"(phase 4)")
+    torch.cuda.empty_cache()
+    resnet_launches = resnet_path()
+    torch.cuda.empty_cache()
+    reference_launches, _ = reference_exact_path()
 
     # launches: each path's run, counted from 0, and their sum; K1's
     # train_max_abs_err*: its forward at the train path's groups; the quant
@@ -1827,7 +2318,9 @@ def main() -> None:
              "int8": int8_launches, "int8_svd": svd_launches,
              "pool_api": pool_api_launches, "probe": probe_launches,
              "dataset_eval": dataset_eval_launches,
-             "train_eval": train_eval_launches}
+             "train_eval": train_eval_launches,
+             "resnet": resnet_launches,
+             "reference_exact": reference_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

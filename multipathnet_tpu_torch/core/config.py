@@ -5,9 +5,9 @@ multipathnet_tpu/core/__init__.py, which imports core/mesh.py and with it
 jax. So the port carries this copy, and tests/test_torch_config.py holds it
 field for field equal to the reference for every preset.
 
-Options the port does not run yet keep their fields here; the model raises
-NotImplementedError where it reads them (models/multipath.py,
-models/backbones/__init__.py, data/transforms.py).
+Every model option of the reference now runs in the port; the CLI
+options that do not yet raise NotImplementedError where they are read
+(cli/train.py, utils/metrics.py).
 """
 
 from __future__ import annotations

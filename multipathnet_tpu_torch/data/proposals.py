@@ -94,14 +94,68 @@ class ProposalStore:
         return store
 
     @classmethod
-    def from_t7(cls, path: str, **kwargs) -> "ProposalStore":
-        """Reference-era Torch7 proposal files need the reference's t7
-        reader (data/t7.py), which the port does not carry yet (ROADMAP
-        A12d); convert them with the JAX package meanwhile."""
-        raise NotImplementedError(
-            "ProposalStore.from_t7 waits for the port of data/t7.py "
-            "(ROADMAP A12d); load the .t7 with multipathnet_tpu's "
-            "ProposalStore.from_t7 and save() it as .npz")
+    def from_t7(cls, path: str, image_ids=None, one_based: bool = True,
+                long_size: int = 8) -> "ProposalStore":
+        """Ingest a reference-era Torch7 proposal file (data/t7.py).
+
+        Accepted layouts: {boxes = {tensor (Pi, 4) per image, 1..I},
+        scores = {...}?, image_ids|ids|indexes = {...}?}, or one (I, Pi, 4)
+        tensor. Field aliases: boxes|bboxes|proposals; scores|objn|score.
+        Box corners convert from Lua 1-based inclusive to 0-based
+        half-open (x1 - 1, y1 - 1, x2, y2) unless one_based=False.
+        image_ids, when given, overrides any ids in the file; numeric ids
+        in the file are used, names are not (they cannot be resolved to
+        ids here), and without either the ids are 0..I-1."""
+        from multipathnet_tpu_torch.data import t7
+
+        obj = t7.load(path, long_size=long_size)
+        if isinstance(obj, t7.T7Object):
+            obj = obj.fields
+        if isinstance(obj, np.ndarray):
+            obj = {"boxes": obj}
+        if not isinstance(obj, dict):
+            raise ValueError(f"unsupported .t7 payload {type(obj)}")
+
+        def pick(*names):
+            for n in names:
+                if n in obj:
+                    return obj[n]
+            return None
+
+        raw = pick("boxes", "bboxes", "proposals")
+        if raw is None:
+            raise ValueError(f".t7 has no boxes field (keys={list(obj)})")
+        if isinstance(raw, dict):
+            per_image = [np.asarray(b, np.float32).reshape(-1, 4)
+                         for b in t7.as_list(raw)]
+        else:
+            arr = np.asarray(raw, np.float32)
+            if arr.ndim != 3 or arr.shape[-1] != 4:
+                raise ValueError(f"boxes tensor of shape {arr.shape}; "
+                                 "expected (I, P, 4)")
+            per_image = list(arr)
+        if one_based:
+            per_image = [b - np.array([1, 1, 0, 0], np.float32)
+                         for b in per_image]
+
+        raw_scores = pick("scores", "objn", "score")
+        if raw_scores is None:
+            per_scores = [np.zeros(len(b), np.float32) for b in per_image]
+        elif isinstance(raw_scores, dict):
+            per_scores = [np.asarray(s, np.float32).reshape(-1)
+                          for s in t7.as_list(raw_scores)]
+        else:
+            per_scores = list(np.asarray(raw_scores, np.float32))
+
+        if image_ids is None:
+            ids = pick("image_ids", "ids", "indexes")
+            if ids is not None:
+                ids = t7.as_list(ids) if isinstance(ids, dict) else ids
+            if ids is not None and not isinstance(next(iter(ids), 0), str):
+                image_ids = np.asarray(ids, np.int64)
+            else:
+                image_ids = np.arange(len(per_image), dtype=np.int64)
+        return cls.from_lists(per_image, per_scores, image_ids)
 
     @classmethod
     def from_lists(cls, per_image_boxes, per_image_scores, image_ids):

@@ -14,15 +14,21 @@ import torch
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
+# Caffe-origin trunks (the reference's converted VGG/ResNet .t7s): pixels in
+# 0-255, BGR channel order, per-channel mean-pixel subtraction, no std.
+# The Fast R-CNN-era PIXEL_MEANS, in BGR order.
+CAFFE_BGR_MEAN = (102.9801, 115.9465, 122.7717)
 
 
 def normalize(image_u8: torch.Tensor, preprocess: str = "rgb_unit"
               ) -> torch.Tensor:
     """(..., 3) uint8 RGB -> float32 normalized: [0, 1] RGB with ImageNet
-    mean/std ("rgb_unit")."""
+    mean/std ("rgb_unit"), or BGR in 0-255 minus CAFFE_BGR_MEAN in
+    float32, with no scale ("caffe_bgr")."""
     if preprocess == "caffe_bgr":
-        raise NotImplementedError(
-            "preprocess='caffe_bgr' is not ported yet (ROADMAP A14)")
+        x = image_u8.to(torch.float32).flip(-1)  # RGB -> BGR
+        return x - torch.tensor(CAFFE_BGR_MEAN, dtype=torch.float32,
+                                device=x.device)
     if preprocess != "rgb_unit":
         raise ValueError(f"unknown preprocess {preprocess!r}")
     x = image_u8.to(torch.float32) / 255.0

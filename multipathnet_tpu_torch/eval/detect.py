@@ -4,11 +4,13 @@ Port of multipathnet_tpu/eval/detect.py: resize + normalize, trunk, ROI
 pooling through the window kernels, the heads, the mean of the K integral
 softmaxes, delta decode and clip, then class-aware NMS — all on the model's
 device, with only the fixed-size detection set copied back to the host.
-The ROI pooling streams fixed windows, so all P proposals go through in one
-pass (no chunking). An int8 head (head_quant="int8") always takes the
+The align route streams fixed windows, so all P proposals go through in
+one pass (no chunking); roi_mode="max" pools in plain ops
+(models/multipath.py). An int8 head (head_quant="int8") always takes the
 quantized pool route: the head's skip bias, ReLU and per-view int8
 quantization run in the pool kernels' epilogue, as the reference's
-roi_impl="pallas" route does (the port has only the kernel route).
+roi_impl="pallas" route does (the port has only the kernel route for
+align).
 
 `Detector` takes its weights as a flax-layout tree and transforms them at
 load for a serving config, as the reference's Detector does

@@ -9,6 +9,12 @@ head/cls_bbox — because the port names its modules after the flax tree.
 fc6's input rows stay in the reference's (G, G, C) channel-last flatten
 order, which is the order MultiPathHead flattens in.
 
+Frozen BatchNorm (the ResNet trunks) carries across in both collections:
+the flax `params` leaf `scale` is the BN module's `weight` (`bias` is
+`bias`), and the `batch_stats` collection's `mean`/`var` are its
+`running_mean`/`running_var` buffers. A collection other than `params`
+and `batch_stats` raises rather than being dropped.
+
 The serving layouts carry across too. The reference's Int8Dense {kernel_i8
 (K, N) int8, kernel_scale (N,), bias} is Int8Linear's {weight_i8 (N, K),
 weight_scale, bias}; a low-rank factor fc6_f{i}_u {kernel (K, t)} is a
@@ -29,8 +35,13 @@ import torch
 
 # flax leaf name -> state-dict name; kernels transpose, the rest do not
 _LEAF_NAMES = {"kernel": "weight", "kernel_i8": "weight_i8",
-               "kernel_scale": "weight_scale"}
-_FLAX_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
+               "kernel_scale": "weight_scale", "scale": "weight"}
+_FLAX_NAMES = {"weight": "kernel", "weight_i8": "kernel_i8",
+               "weight_scale": "kernel_scale"}
+# the batch_stats collection: flax leaf name -> BN buffer name
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_FLAX_STATS = {v: k for k, v in _STAT_NAMES.items()}
+COLLECTIONS = ("params", "batch_stats")
 
 
 def _leaves(tree, prefix=()):
@@ -62,10 +73,19 @@ def _flip(t: torch.Tensor, to_torch: bool) -> torch.Tensor:
 
 
 def state_dict_from_flax(params) -> dict:
-    """flax params ({"params": {...}} or the inner dict), numpy or torch
-    leaves -> {torch state-dict name: tensor} (float32, or int8 codes)."""
+    """flax variables ({"params": {...}, "batch_stats": {...}?}) or the
+    inner params dict, numpy or torch leaves -> {torch state-dict name:
+    tensor} (float32, or int8 codes). Raises ValueError on a collection
+    other than params and batch_stats."""
     if "params" in params:
+        unknown = sorted(set(params) - set(COLLECTIONS))
+        if unknown:
+            raise ValueError(f"unknown flax collection(s) {unknown}; the "
+                             f"port carries {list(COLLECTIONS)}")
+        stats = params.get("batch_stats", {})
         params = params["params"]
+    else:
+        stats = {}
     out = {}
     for path, value in _leaves(params):
         t = as_tensor(value)
@@ -76,6 +96,12 @@ def state_dict_from_flax(params) -> dict:
             except ValueError as e:
                 raise ValueError(f"{e} at {path}") from None
         out[".".join([*mods, _LEAF_NAMES.get(leaf, leaf)])] = t.contiguous()
+    for path, value in _leaves(stats):
+        *mods, leaf = path
+        if leaf not in _STAT_NAMES:
+            raise ValueError(f"unknown batch_stats leaf at {path}")
+        out[".".join([*mods, _STAT_NAMES[leaf]])] = \
+            as_tensor(value).contiguous()
     return out
 
 
@@ -90,19 +116,26 @@ def load_flax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 def flax_from_state_dict(state_dict, host: bool = True) -> dict:
     """The inverse of state_dict_from_flax: {name: tensor} -> {"params":
     nested dict of numpy arrays (float32, or int8 codes)}, kernels back in
-    HWIO / (in, out) layout. The arrays are copies, so a later step that
+    HWIO / (in, out) layout, and, where the model has frozen BatchNorm,
+    "batch_stats" with its running statistics (a BN module's 1-D `weight`
+    is its flax `scale`). The arrays are copies, so a later step that
     updates the model in place leaves them as they were. host=False keeps
     the leaves as tensors on their device (views where no layout change
     or cast was needed)."""
-    tree = {}
+    tree, stats = {}, {}
     for name, t in state_dict.items():
         t = as_tensor(t.cpu() if host else t)
         *mods, leaf = name.split(".")
-        if leaf in ("weight", "weight_i8"):
-            t = _flip(t, to_torch=False)
         node = tree
+        if leaf in _FLAX_STATS:
+            node, leaf = stats, _FLAX_STATS[leaf]
+        elif leaf == "weight" and t.dim() == 1:
+            leaf = "scale"
+        elif leaf in _FLAX_NAMES:
+            if leaf != "weight_scale":
+                t = _flip(t, to_torch=False)
+            leaf = _FLAX_NAMES[leaf]
         for m in mods:
             node = node.setdefault(m, {})
-        node[_FLAX_NAMES.get(leaf, leaf)] = (
-            np.array(t.numpy(), order="C") if host else t.contiguous())
-    return {"params": tree}
+        node[leaf] = np.array(t.numpy(), order="C") if host else t.contiguous()
+    return {"params": tree, **({"batch_stats": stats} if stats else {})}

@@ -1,6 +1,6 @@
-"""MultiPathNet assembly — port of multipathnet_tpu/models/multipath.py on
-its align path: trunk, per-level 1x1 skip reduction, foveal views pooled
-through the CUDA window kernels, and the head.
+"""MultiPathNet assembly — port of multipathnet_tpu/models/multipath.py:
+trunk, per-level 1x1 skip reduction, foveal views pooled through the CUDA
+window kernels, and the head; and the reference-exact max route.
 
 Pooling follows the reference's view x level plan. In the "reference"
 topology, group 1 (the 1x view over every skip level) goes to K1
@@ -17,6 +17,21 @@ reference's 4 MB VMEM budget has no counterpart here).
 Parameters are stored in `param_dtype` (float32 for training, as flax keeps
 them) and cast to the compute dtype `cfg.dtype` at each call; an eval model
 stores them in the compute dtype.
+
+roi_mode="max" (the `multipath_vgg16_reference` preset) is the
+reference's order: `features` returns the RAW trunk maps, each view x
+level plan group is max-pooled with inn.ROIPooling semantics and its levels
+concatenated, then each level's 1x1 reduce runs on its slice of the pooled
+channels in the compute dtype and the levels are summed in level order
+(`_pool_rois_max`). In max mode only, `cfg.roi_impl` (`train_roi_impl` in
+training) picks the route as the reference does: "direct" is the exact
+route (ops/roi.py, bit-equal to the reference's oracle at every scale),
+"pyramid"/"pallas"/"auto" the windowed one (max pyramids and window
+masks, ops/roi_pyramid.py; exact for views whose bins span at most one
+base cell). Training always takes the exact route. Both are plain
+PyTorch: the reference computes them in XLA, outside any Pallas kernel.
+In align mode the roi_impl fields are not read: the port has one align
+route, the window kernels.
 
 Serving (`head_quant="int8"`, `fc6_rank`/`fc7_rank`) builds the int8 and
 factored head (models/heads.py); its weights come from the load-time
@@ -37,30 +52,36 @@ from multipathnet_tpu_torch.models import layers
 from multipathnet_tpu_torch.models.backbones import get_backbone
 from multipathnet_tpu_torch.models.heads import MultiPathHead
 from multipathnet_tpu_torch.ops import boxes as box_ops
+from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_MAX_ROUTES = {"direct": "exact", "pyramid": "windowed", "pallas": "windowed",
+               "auto": "windowed"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model options the port does not run
-    yet, naming the ROADMAP item that ports each."""
-    if cfg.roi_mode != "align":
-        raise NotImplementedError(
-            f"roi_mode={cfg.roi_mode!r} is not ported yet (ROADMAP A14)")
-    if cfg.preprocess != "rgb_unit":
-        raise NotImplementedError(
-            f"preprocess={cfg.preprocess!r} is not ported yet (ROADMAP A14)")
+    """Raise ValueError for options the model does not know."""
+    if cfg.roi_mode not in ("align", "max"):
+        raise ValueError(f"roi_mode must be align|max, got {cfg.roi_mode!r}")
+    if cfg.preprocess not in ("rgb_unit", "caffe_bgr"):
+        raise ValueError(f"unknown preprocess {cfg.preprocess!r}")
+    if cfg.roi_mode == "max":
+        for impl in (cfg.roi_impl, cfg.train_roi_impl):
+            if impl not in _MAX_ROUTES:
+                raise ValueError(f"unknown roi_impl {impl!r}; have "
+                                 f"{sorted(_MAX_ROUTES)}")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                          f"got {cfg.dtype!r}")
 
 
 class MultiPathNet(nn.Module):
-    """MultiPath detector. `cfg.roi_impl` and `cfg.train_roi_impl` are not
-    read: the port has one ROI route, the window kernels (their plain
-    versions on CPU). `freeze_stages` stops the gradient after trunk stage
-    N; it leaves the parameters as they are, so checkpoints interchange."""
+    """MultiPath detector. In align mode the ROI route is the window
+    kernels (their plain versions on CPU); in max mode `cfg.roi_impl`
+    picks the exact or the windowed max route (module docstring).
+    `freeze_stages` stops the gradient after trunk stage N; it leaves the
+    parameters as they are, so checkpoints interchange."""
 
     def __init__(self, cfg: ModelConfig, device=None, freeze_stages: int = 0,
                  param_dtype=None):
@@ -94,8 +115,12 @@ class MultiPathNet(nn.Module):
 
     def features(self, images: torch.Tensor) -> dict:
         """images (B, H, W, 3) normalized float -> {level: (B, Hl, Wl, C)}
-        NHWC, each 1x1-reduced to skip_reduce_dim channels."""
+        NHWC, each 1x1-reduced to skip_reduce_dim channels; in max mode the
+        raw trunk maps (max pooling is not linear, so the reduction cannot
+        run before it)."""
         feats = self.backbone(images)
+        if self.cfg.roi_mode == "max":
+            return {lv: feats[lv] for lv in self.cfg.skip_levels}
         out = {}
         for lv in self.cfg.skip_levels:
             x = feats[lv].permute(0, 3, 1, 2)  # NCHW view of the NHWC tap
@@ -123,6 +148,14 @@ class MultiPathNet(nn.Module):
         through the differentiable K1. With `quant_bias` (the head's skip
         bias in its dtype; eval only) the kernels' int8 epilogue runs:
         returns (int8 (B, F, R, G, G, C), float32 scales (B, F, R, 1))."""
+        if self.cfg.roi_mode == "max":
+            if quant_bias is not None:
+                raise ValueError("the int8 pool epilogue needs the align "
+                                 "route; roi_mode='max' pools in plain ops")
+            impl = self.cfg.train_roi_impl if train else self.cfg.roi_impl
+            return self._pool_rois_max(
+                feats, rois, image_hw,
+                exact=train or _MAX_ROUTES[impl] == "exact")
         b, r = rois.shape[:2]
         g = self.cfg.roi_output_size
         s = self.cfg.roi_samples_per_bin
@@ -170,6 +203,48 @@ class MultiPathNet(nn.Module):
             return torch.cat(outs, dim=1), torch.cat(scales, dim=1)
         return torch.cat(outs, dim=1)
 
+    def _pool_rois_max(self, feats: dict, rois: torch.Tensor, image_hw,
+                       exact: bool) -> torch.Tensor:
+        """roi_mode="max": each plan group's views max-pooled on the raw
+        maps of its levels, image by image, levels concatenated; then each
+        level's 1x1 reduce on its slice of the channels, in the compute
+        dtype, summed in level order -> (B, F, R, G, G, skip_reduce_dim).
+        exact=True is ops/roi.py's route, else the windowed one over max
+        pyramids."""
+        b, r = rois.shape[:2]
+        g = self.cfg.roi_output_size
+        strides = self.backbone.feature_strides
+        scales = {lv: 1.0 / strides[lv] for lv in self.cfg.skip_levels}
+        outs = []
+        for factors, levels in self._view_level_plan():
+            per_image = []
+            for i in range(b):
+                kw = dict(foveal_factors=factors, image_hw=image_hw,
+                          output_size=g)
+                if exact:
+                    per_image.append(roi_ops.multilevel_foveal_roi_features(
+                        {lv: feats[lv][i] for lv in levels}, rois[i],
+                        scales=scales, **kw))
+                    continue
+                pyramids = {lv: roi_pyramid.build_pyramid(
+                    feats[lv][i], scales[lv], output_size=g, mode="max")
+                    for lv in levels}
+                per_image.append(
+                    roi_pyramid.multilevel_foveal_pyramid_features(
+                        pyramids, rois[i], **kw))
+            pooled = torch.stack(per_image)   # (B, f, R, G, G, sum C_l)
+            nf = len(factors)
+            out, lo = None, 0
+            for lv in levels:
+                c_l = feats[lv].shape[-1]
+                part = pooled[..., lo:lo + c_l].reshape(b * nf * r, g, g, c_l)
+                lo += c_l
+                red = layers.conv(getattr(self, f"reduce_{lv}"),
+                                  part.permute(0, 3, 1, 2), self.dtype)
+                out = red if out is None else out + red
+            outs.append(out.permute(0, 2, 3, 1).reshape(b, nf, r, g, g, -1))
+        return torch.cat(outs, dim=1)
+
     def pool_rois_quantized(self, feats: dict, rois: torch.Tensor, image_hw,
                             skip_bias: torch.Tensor):
         """Eval pooling with the int8 head's input stage in the kernels'
@@ -214,11 +289,19 @@ def build_model(cfg: ModelConfig, freeze_stages: int = 0, param_dtype=None,
 def init_params_(model: MultiPathNet, generator: torch.Generator):
     """flax's initializers, drawn from `generator`: conv and dense kernels
     LeCun-normal (normal truncated at 2 sigma, rescaled to variance
-    1 / fan_in), biases and the skip bias zero, and the bbox rows of
-    cls_bbox normal * 1e-3 (the reference's mixed_init)."""
+    1 / fan_in), biases and the skip bias zero, the bbox rows of cls_bbox
+    normal * 1e-3 (the reference's mixed_init); frozen BN scale 1, running
+    mean 0 and variance 1."""
+    for mod in model.modules():
+        if isinstance(mod, layers.FrozenBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             p.zero_()
+            continue
+        if p.dim() == 1:  # a BN scale, set above
             continue
         std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
         nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,

@@ -1,11 +1,18 @@
-"""Stacked 2x average pyramids — port of the avg-mode half of
-multipathnet_tpu/ops/roi_pyramid.py.
+"""Stacked 2x pyramids — port of multipathnet_tpu/ops/roi_pyramid.py.
 
-Each (ROI, foveal) view picks the pyramid scale where its G bins span
-(0.5, 1] cell, so all of its bilinear samples fall in one fixed
-WINDOW x WINDOW_X window (ops/roi_pool.py). Each level's scales are stacked
-along rows in ONE (sum_rows, Wmax, C) buffer with per-scale row offsets, so
-scale selection is an offset add.
+Average pyramids feed the align route: each (ROI, foveal) view picks the
+pyramid scale where its G bins span (0.5, 1] cell, so all of its bilinear
+samples fall in one fixed WINDOW x WINDOW_X window (ops/roi_pool.py). Each
+level's scales are stacked along rows in ONE (sum_rows, Wmax, C) buffer
+with per-scale row offsets, so scale selection is an offset add.
+
+Max pyramids (2x max pooling, padding _NEG) feed the windowed max route of
+roi_mode="max" (`pyramid_roi_align`, the reference's mode="exact_max"): the
+reference's floor/ceil ROIPooling rule applied at the selected scale's
+cells inside the same window, as two masked maxes (rows into bins, columns
+into bins). It equals ops/roi.roi_pool_max bit for bit for views whose bins
+span at most one base cell; at coarser scales the bin edges snap to 2^l
+base cells.
 """
 
 from __future__ import annotations
@@ -14,6 +21,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from multipathnet_tpu_torch.ops import boxes as box_ops
+from multipathnet_tpu_torch.ops.roi import fma32, inv
 
 
 def window_sizes(output_size: int) -> tuple:
@@ -42,18 +52,25 @@ def num_scales_for(h: int, w: int, output_size: int = 7) -> int:
     return max(1, int(math.ceil(math.log2(max(span, 1.0)))) + 1)
 
 
+# Padding value of max pyramids: large-negative finite (representable in
+# bf16 too). A masked max never selects it for a non-empty bin.
+_NEG = -3.0e38
+
+
 def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
                         num_scales: int | None = None,
-                        output_size: int = 7):
+                        output_size: int = 7, mode: str = "avg"):
     """feats (B, H, W, C) -> (flat_batch (B*rows, Wmax, C), meta Pyramid).
 
-    Average mode: 2x area pooling that divides by the count of valid cells
-    (an odd dimension's last cell pools alone), zero padding. meta
-    describes ONE image's pyramid; its flat is image 0's rows (a view).
-    Sums run in the feature dtype, as in the reference. The slice
-    assignments into zero buffers are differentiable: the pyramid's
-    gradient flows back to feats.
+    mode="avg": 2x area pooling that divides by the count of valid cells
+    (an odd dimension's last cell pools alone), zero padding. Sums run in
+    the feature dtype, as in the reference. mode="max": 2x max pooling,
+    _NEG padding. meta describes ONE image's pyramid; its flat is image
+    0's rows (a view). The slice assignments into the buffers are
+    differentiable: the pyramid's gradient flows back to feats.
     """
+    if mode not in ("avg", "max"):
+        raise ValueError(f"mode must be avg|max, got {mode!r}")
     b, h, w, c = feats.shape
     if num_scales is None:
         num_scales = num_scales_for(h, w, output_size)
@@ -69,7 +86,8 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
     offsets = [sum(rows[:i]) for i in range(num_scales)]
     total = sum(rows)
 
-    flat = feats.new_zeros((b, total, wmax, c))
+    pad = 0.0 if mode == "avg" else _NEG
+    flat = feats.new_full((b, total, wmax, c), pad)
     cur = feats
     for s in range(num_scales):
         ch, cw = heights[s], widths[s]
@@ -77,8 +95,11 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
         if s + 1 == num_scales:
             break
         ph, pw = ch + ch % 2, cw + cw % 2
-        nxt = feats.new_zeros((b, ph, pw, c))
+        nxt = feats.new_full((b, ph, pw, c), pad)
         nxt[:, :ch, :cw] = cur
+        if mode == "max":
+            cur = nxt.reshape(b, ph // 2, 2, pw // 2, 2, c).amax(dim=(2, 4))
+            continue
         cnt = feats.new_zeros((ph, pw, 1))
         cnt[:ch, :cw] = 1.0
         pooled = nxt.reshape(b, ph // 2, 2, pw // 2, 2, c).sum(dim=(2, 4))
@@ -95,8 +116,110 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
 
 def build_pyramid(feat: torch.Tensor, spatial_scale: float,
                   num_scales: int | None = None,
-                  output_size: int = 7) -> Pyramid:
-    """feat (H, W, C) -> one image's stacked avg pyramid."""
+                  output_size: int = 7, mode: str = "avg") -> Pyramid:
+    """feat (H, W, C) -> one image's stacked pyramid."""
     flat, meta = build_pyramid_batch(feat[None], spatial_scale, num_scales,
-                                     output_size)
+                                     output_size, mode)
     return meta._replace(flat=flat)
+
+
+def _exact_max_views(pyr: Pyramid, rois: torch.Tensor, g: int):
+    """The windowed max route's geometry, the reference's _one_roi_max for
+    every view at once: rois (N, 4) image coords -> (window rows (N,
+    win_y), window columns (N, win_x), row masks (N, G, win_y), column
+    masks (N, G, win_x), empty bins (N, G, G)), all in float32 arithmetic
+    at the view's pyramid scale."""
+    f32 = torch.float32
+    dev = rois.device
+    rg = inv(g)  # as XLA compiles the reference (ops/roi.py)
+    b = rois.to(f32) * pyr.base_scale
+    bw = torch.clamp(b[:, 2] - b[:, 0], min=1e-6)
+    bh = torch.clamp(b[:, 3] - b[:, 1], min=1e-6)
+    span = torch.maximum(bw, bh) * rg
+    lvl = torch.clamp(torch.ceil(torch.log2(torch.clamp(span, min=1.0))).to(
+        torch.int32), 0, pyr.num_scales - 1).long()
+    cell = torch.exp2(lvl.to(f32))
+    x1 = torch.floor(b[:, 0] / cell)
+    y1 = torch.floor(b[:, 1] / cell)
+    x2 = torch.ceil(b[:, 2] / cell)
+    y2 = torch.ceil(b[:, 3] / cell)
+    roi_h = torch.clamp(y2 - y1, min=1.0)[:, None]
+    roi_w = torch.clamp(x2 - x1, min=1.0)[:, None]
+    heights = pyr.heights.to(dev)[lvl]
+    widths = pyr.widths.to(dev)[lvl]
+    hl = heights.to(f32)[:, None]
+    wl = widths.to(f32)[:, None]
+    bins = torch.arange(g, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    ys = torch.minimum(torch.maximum(
+        torch.floor(fma32(bins * roi_h, rg, y1[:, None])), zero), hl)
+    ye = torch.minimum(torch.maximum(
+        torch.ceil(fma32((bins + 1) * roi_h, rg, y1[:, None])), zero), hl)
+    xs = torch.minimum(torch.maximum(
+        torch.floor(fma32(bins * roi_w, rg, x1[:, None])), zero), wl)
+    xe = torch.minimum(torch.maximum(
+        torch.ceil(fma32((bins + 1) * roi_w, rg, x1[:, None])), zero), wl)
+
+    win_y, win_x = window_sizes(g)
+    y0 = torch.minimum(torch.clamp(y1.to(torch.int32), min=0),
+                       torch.clamp(heights - win_y, min=0))
+    x0 = torch.minimum(torch.clamp(x1.to(torch.int32), min=0),
+                       torch.clamp(widths - win_x, min=0))
+    cy = y0[:, None] + torch.arange(win_y, dtype=torch.int32, device=dev)
+    cx = x0[:, None] + torch.arange(win_x, dtype=torch.int32, device=dev)
+    my = ((cy.to(f32)[:, None, :] >= ys[:, :, None])
+          & (cy.to(f32)[:, None, :] < ye[:, :, None]))
+    mx = ((cx.to(f32)[:, None, :] >= xs[:, :, None])
+          & (cx.to(f32)[:, None, :] < xe[:, :, None]))
+    rows = pyr.row_offsets.to(dev).long()[lvl][:, None] + cy.long()
+    empty = (ye <= ys)[:, :, None] | (xe <= xs)[:, None, :]
+    return rows, cx.long(), my, mx, empty
+
+
+def pyramid_roi_align(pyr: Pyramid, rois: torch.Tensor, *,
+                      output_size: int = 7,
+                      max_elements: int = 1 << 27) -> torch.Tensor:
+    """The reference's pyramid_roi_align(mode="exact_max"): rois (N, 4)
+    image coords -> (N, G, G, C) float32 from a max pyramid (the align
+    views go through the window kernels, ops/roi_pool.py). Each view's
+    window is read in float32 and reduced rows-into-bins, then
+    columns-into-bins; empty bins and values at the padding give 0. Views
+    are taken in chunks so the masked windows stay within
+    `max_elements`."""
+    g = output_size
+    c = pyr.flat.shape[-1]
+    win_y, win_x = window_sizes(g)
+    n = rois.shape[0]
+    if n == 0:
+        return pyr.flat.new_zeros((0, g, g, c), dtype=torch.float32)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=pyr.flat.device)
+    per = max(1, max_elements // (g * win_y * win_x * c))
+    out = []
+    for r0 in range(0, n, per):
+        rows, cols, my, mx, empty = _exact_max_views(pyr, rois[r0:r0 + per],
+                                                     g)
+        win = pyr.flat[rows[:, :, None], cols[:, None, :]].float()
+        t = torch.where(my[:, :, :, None, None], win[:, None],
+                        neg).amax(dim=2)                   # (n, G, win_x, C)
+        v = torch.where(mx[:, None, :, :, None], t[:, :, None],
+                        neg).amax(dim=3)                   # (n, G, G, C)
+        out.append(torch.where(empty[..., None] | (v <= _NEG / 2),
+                               torch.zeros_like(v), v))
+    return torch.cat(out)
+
+
+def multilevel_foveal_pyramid_features(
+        pyramids: dict, rois: torch.Tensor, *,
+        foveal_factors=(1.0, 1.5, 2.0, 4.0), image_hw=None,
+        output_size: int = 7) -> torch.Tensor:
+    """ops.roi.multilevel_foveal_roi_features through the max pyramids
+    ({level: Pyramid}): (F, R, G, G, sum_l C_l) float32, the levels'
+    channels concatenated (the reference's combine="concat")."""
+    out_per_f = []
+    for f in foveal_factors:
+        r = (box_ops.expand(rois, f, image_hw[0], image_hw[1])
+             if image_hw is not None else box_ops.expand(rois, f))
+        pooled = [pyramid_roi_align(pyr, r, output_size=output_size)
+                  for pyr in pyramids.values()]
+        out_per_f.append(torch.cat(pooled, dim=-1))
+    return torch.stack(out_per_f, dim=0)

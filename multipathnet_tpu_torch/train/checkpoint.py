@@ -3,11 +3,12 @@ torch.save in place of orbax.
 
 A checkpoint holds what a train step reads and changes, as
 train/loop.snapshot_train_state does: every float32 parameter of the model
-(frozen ones included), the SGD momentum buffers and the optimizer's count,
-the step and the state of the step's generator, so `restore_latest` resumes
-exactly. Files are <directory>/step_<N>.pt. `save` copies the state to host
-memory at once (the train loop goes on changing the parameters) and writes
-it on a background thread, to a temporary file first and then into place by
+(frozen ones included) and every buffer (frozen BN statistics), the SGD
+momentum buffers and the optimizer's count, the step and the state of the
+step's generator, so `restore_latest` resumes exactly. Files are
+<directory>/step_<N>.pt. `save` copies the state to host memory at once
+(the train loop goes on changing the parameters) and writes it on a
+background thread, to a temporary file first and then into place by
 os.replace, so a run killed mid-write leaves no torn checkpoint; `wait`
 joins the write. The port does not read the reference's orbax checkpoints
 (ROADMAP §C).
@@ -65,6 +66,7 @@ class Checkpointer:
         payload = _to_host({
             "step": state.step,
             "params": dict(trainer.model.named_parameters()),
+            "buffers": dict(trainer.model.named_buffers()),
             "sgd": state.optimizer.sgd.state_dict(),
             "count": state.optimizer.count,
             "generator": state.generator.get_state(),

@@ -10,8 +10,9 @@ torch.Generator. Parameters are float32; the model computes in
 `cfg.model.dtype`. Backbone stages 1..freeze_backbone_stages are frozen
 as in the reference: the trunk detaches after them (stop_gradient), and
 their parameters are left out of the optimizer, so they get neither an
-update nor weight decay. The reference's mesh has no counterpart here:
-data parallelism is ROADMAP A17.
+update nor weight decay. Frozen BatchNorm's running statistics are
+buffers, never parameters, so no step moves them either. The reference's
+mesh has no counterpart here: data parallelism is ROADMAP A17.
 """
 
 from __future__ import annotations
@@ -194,12 +195,14 @@ class Trainer:
 
 
 def snapshot_train_state(trainer: Trainer, state: TrainState) -> dict:
-    """A copy of what a step reads and changes: the parameters, the
-    optimizer's momentum buffers and count, the step and the generator's
-    state. restore_train_state puts it back, so a step can be repeated
-    from one state."""
+    """A copy of what a step reads and changes: the parameters and buffers
+    (frozen BN statistics), the optimizer's momentum buffers and count,
+    the step and the generator's state. restore_train_state puts it back,
+    so a step can be repeated from one state."""
     return {"params": {n: p.detach().clone()
                        for n, p in trainer.model.named_parameters()},
+            "buffers": {n: b.detach().clone()
+                        for n, b in trainer.model.named_buffers()},
             "sgd": copy.deepcopy(state.optimizer.sgd.state_dict()),
             "count": state.optimizer.count, "step": state.step,
             "optimizer": state.optimizer,
@@ -212,6 +215,8 @@ def restore_train_state(trainer: Trainer, saved: dict) -> TrainState:
     snapshot's optimizer and generator; returns the state to step from."""
     for n, p in trainer.model.named_parameters():
         p.copy_(saved["params"][n])
+    for n, b in trainer.model.named_buffers():
+        b.copy_(saved["buffers"][n])
     opt = saved["optimizer"]
     opt.sgd.load_state_dict(copy.deepcopy(saved["sgd"]))
     opt.count = saved["count"]

@@ -60,7 +60,9 @@ _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "data.proposals", "data.coco", "data.voc", "data.synthetic",
                 "data.pipeline", "eval.coco_eval", "eval.voc_eval",
                 "eval.tester", "train.checkpoint", "utils.metrics",
-                "cli.common", "cli.eval", "cli.train")
+                "cli.common", "cli.eval", "cli.train", "data.t7",
+                "models.backbones.resnet", "models.import_weights",
+                "models.t7_import", "ops.roi")
 
 
 def test_port_never_imports_jax():

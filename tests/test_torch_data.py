@@ -132,11 +132,6 @@ def test_proposal_files_read_across_packages(tmp_path):
                     img)
 
 
-def test_proposal_store_from_t7_names_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprop.ProposalStore.from_t7("proposals.t7")
-
-
 def test_synthetic_coco_files_match_reference(coco_pair):
     """One seed writes the same annotations JSON, the same proposals and
     the same images (decoded) from both packages."""

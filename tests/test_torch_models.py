@@ -104,19 +104,26 @@ def test_convert_layouts():
     np.testing.assert_array_equal(sd["head.fc6_f0.weight"].numpy(), k2.T)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("roi_mode", "max", "A14"),
-    ("preprocess", "caffe_bgr", "A14"),
-    ("backbone", "resnet50", "A13"),
-    ("backbone", "alexnet", "A13"),
+@pytest.mark.parametrize("field,value", [
+    ("roi_mode", "max"),
+    ("preprocess", "caffe_bgr"),
+    ("backbone", "resnet50"),
+    ("backbone", "alexnet"),
 ])
-def test_unported_options_raise(field, value, item):
+def test_reference_options_build(field, value):
+    """The options that raised until the reference's models were ported
+    build now (the whole slice's parity is tests/
+    test_torch_reference_models.py); an unknown roi_mode still raises."""
     cfg = dataclasses.replace(preset("tiny").model, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        MultiPathNet(cfg, device="meta")
+    MultiPathNet(cfg, device="meta")
+    with pytest.raises(ValueError, match="roi_mode"):
+        MultiPathNet(dataclasses.replace(cfg, roi_mode="bilinear"),
+                     device="meta")
 
 
 def test_backbone_registry():
     assert isinstance(get_backbone("tinynet", torch.float32), TinyNet)
+    for name in ("resnet18", "resnet50", "resnet101", "alexnet"):
+        get_backbone(name, torch.float32, device="meta")
     with pytest.raises(KeyError):
         get_backbone("vgg19", torch.float32)
