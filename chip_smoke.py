@@ -147,9 +147,35 @@ Phases, each of which raises on failure (nothing is caught):
      largest magnitude) of the CPU's, and the
      windowed route equal to the exact one, bit for bit, on 512 views up to
      28 px (bins within one base cell) at every level.
+ 17. config 5 (`sharpmask`: `sharpmask_multipath_e2e`, SharpMask proposals
+     into the ResNet-50 detector), launches counted over the phase: (a) a
+     ProposalTrainer's SharpMaskNet at full width (ResNet-50 trunk from
+     phase 15's seeded torchvision-layout state dict, the rest normal *
+     0.02; neck c5, 40 x 40 x 12 = 19,200 anchors an image) generates the
+     top 1000 proposals of 8 images of 640^2 with the cascade and 28 x 28
+     masks, and phase 15's ResNet-50 Detector runs on them: ms a batch for
+     generation with and without masks, detection, end to end (img/s),
+     peak memory, one profiled batch (busy share); K1/K2 must launch; (b)
+     the eval ("pyramid") and training ("direct") mask decodes of 64 ROIs
+     held to tests/test_torch_sharpmask.py's bar; (c) the proposal train
+     step at full width on a synthetic batch with mask targets: 5 steps
+     after a first (ms/step), every loss finite, a profiled step, two
+     steps from one state equal under cudnn.deterministic; (d) the `tiny`
+     proposal overfit of the reference's tests/test_sharpmask.py for init
+     seeds 0-4, its bar held on the median; (e) cli.train --proposal-net,
+     cli.export_proposals --with-masks, cli.eval on the exported file and
+     cli.demo --proposal-source sharpmask, at `tiny`.
+ 18. serving over HTTP (`serve`): a float `multipath_vgg16_int8`
+     checkpoint (weights normal * 0.02), cli.export_serving --quant int8,
+     cli.serve --warmup in a process of its own on localhost: 20 requests
+     of one 640^2 image with 1000 proposals and 2 of 8 images (latency
+     p50/p90/p99, the server's JSON decode and detection ms), the
+     server's kernel launches over them from /healthz (the int8 K1/K2
+     must launch), the detections equal to a Detector on the bundle
+     called in this process, and an oversized image answered 400.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15 and 16, each counted from 0,
-and their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18, each
+counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -175,8 +201,9 @@ import time
 import numpy as np
 import torch
 
-from multipathnet_tpu_torch.cli import common
+from multipathnet_tpu_torch.cli import common, demo, export_proposals
 from multipathnet_tpu_torch.cli import eval as eval_cli
+from multipathnet_tpu_torch.cli import export_serving
 from multipathnet_tpu_torch.cli import train as train_cli
 from multipathnet_tpu_torch.core.config import preset
 from multipathnet_tpu_torch.data import synthetic
@@ -190,6 +217,7 @@ from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert, import_weights, layers
 from multipathnet_tpu_torch.models.multipath import build_model
+from multipathnet_tpu_torch.models.sharpmask import generate_proposals
 from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
@@ -199,6 +227,7 @@ from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
                                                restore_train_state,
                                                snapshot_train_state)
+from multipathnet_tpu_torch.train.proposal import ProposalTrainer
 
 # every model path pools in bf16, which runs the tensor-core body; the
 # float32 body (csrc/roi_window_pool.cu) is checked in phases 3, 6, 8, 11
@@ -1067,7 +1096,8 @@ def train_path():
     return launches, 1e3 * dt / iters, b * iters / dt
 
 
-def repeat_steps(trainer, state, batch, iters: int = 5) -> None:
+def repeat_steps(trainer, state, batch, iters: int = 5,
+                 tag: str = "train") -> None:
     """Two steps from one saved state (parameters, momentum, step count,
     generator) on one batch, under the default settings and under
     cudnn.deterministic: whether loss, every gradient and every parameter
@@ -1108,7 +1138,7 @@ def repeat_steps(trainer, state, batch, iters: int = 5) -> None:
         finally:
             torch.backends.cudnn.deterministic = False
         equal = loss_eq and not grads and not moved
-        log(f"[train] two steps from one state, {setting}: "
+        log(f"[{tag}] two steps from one state, {setting}: "
             f"{'equal' if equal else 'NOT equal'} (loss "
             f"{'equal' if loss_eq else 'differs'}; {len(grads)} of "
             f"{len(params)} gradients and {len(moved)} parameters differ"
@@ -2250,6 +2280,502 @@ def reference_exact_path():
     return launches, ms
 
 
+# ------------------------------------------------------------ phase 17 ---
+
+def sharpmask_trainer(cfg, seed: int = 0):
+    """ProposalTrainer for cfg on the card (float32 parameters, cfg's
+    compute dtype, canvas-relative anchors, its neck level) with phase
+    15's weights: every parameter normal * 0.02, then the trunk, BN
+    statistics included, from a seeded torchvision-layout state dict.
+    Returns (trainer, state)."""
+    trainer = ProposalTrainer(cfg, device="cuda")
+    state = trainer.init_state(seed)
+    resnet_model(cfg, seed, model=trainer.model)
+    return trainer, state
+
+
+def timed_ms(fn, iters: int) -> float:
+    """Host wall ms per call of fn over `iters` calls, after one warm-up,
+    synchronized at both ends."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def sharpmask_e2e(cfg, trainer):
+    """(a) Config 5 end to end at full width: generate_proposals (top 1000,
+    the cascade, 28 x 28 masks) on 8 images of 640^2 feeding the ResNet-50
+    detector at 1000 proposals per image, all on the card: ms a batch for
+    generation with and without masks, detection and end to end (img/s),
+    peak memory, one profiled end-to-end batch; K1/K2 must launch. Returns
+    (the numbers, the images on the card)."""
+    b, p, hw = cfg.train.batch_size, cfg.data.max_proposals, \
+        cfg.data.image_size[0]
+    images, src_hws, _, _ = make_inputs(b, p, hw, seed=3)
+    x_u8 = torch.as_tensor(images, device="cuda")
+    hws = torch.as_tensor(src_hws, device="cuda")
+    prop_mask = torch.ones(b, p, dtype=torch.bool, device="cuda")
+    model = trainer.model.eval()
+    det_model, n_det = resnet_model(cfg, seed=1)
+
+    def generate(masks=True):
+        return generate_proposals(model, transforms.normalize(x_u8),
+                                  top_k=p, with_masks=masks)
+
+    def detect(props):
+        return detect_batch(det_model, cfg, x_u8, hws, props["boxes"],
+                            prop_mask)
+
+    def e2e():
+        return detect(generate())
+
+    with torch.no_grad():
+        n_anchors = model.dense(transforms.normalize(x_u8[:1]))[1].shape[1]
+    require(n_anchors == (hw // 16) ** 2 * 12,
+            f"{n_anchors} anchors per image")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    props = generate()
+    torch.cuda.synchronize()
+    first_gen = time.perf_counter() - t0
+    for key, shape in (("boxes", (b, p, 4)), ("scores", (b, p)),
+                       ("masks", (b, p, 28, 28))):
+        v = props[key]
+        require(tuple(v.shape) == shape and bool(torch.isfinite(v).all()),
+                f"[sharpmask] {key} {tuple(v.shape)}")
+    bx = props["boxes"]
+    require(bool((bx >= 0).all() and (bx <= hw).all()
+                 and (props["scores"] >= 0).all()
+                 and (props["scores"] <= 1).all()
+                 and (props["masks"] >= 0).all()
+                 and (props["masks"] <= 1).all()), "[sharpmask] ranges")
+    reset_launches()
+    out = {k: v.cpu().numpy() for k, v in e2e().items()}
+    check_detections("sharpmask", out)
+    iters = 3
+    gen_ms = timed_ms(generate, iters)
+    gen_nomask_ms = timed_ms(lambda: generate(False), iters)
+    det_ms = timed_ms(lambda: detect(props), iters)
+    e2e_ms = timed_ms(e2e, iters)
+    launches = read_launches()
+    res = {"gen_ms": gen_ms, "gen_nomask_ms": gen_nomask_ms,
+           "det_ms": det_ms, "e2e_ms": e2e_ms, "ips": 1e3 * b / e2e_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_gen_s": first_gen}
+    log(f"[sharpmask] config 5 at {b} x {p} proposals, {hw}^2 "
+        f"({cfg.model.backbone}, {cfg.model.dtype}; {n_anchors} anchors "
+        f"an image; detector {n_det / 1e6:.1f}M params): first generation "
+        f"{first_gen:.2f} s; generation {gen_ms:.2f} ms/batch with 28 x 28 "
+        f"masks, {gen_nomask_ms:.2f} without; detection {det_ms:.2f} "
+        f"ms/batch; end to end {e2e_ms:.2f} ms/batch = {res['ips']:.2f} "
+        f"img/s over {iters} batches; peak device memory "
+        f"{res['peak_gib']:.2f} GiB; {int(out['valid'].sum())} detections")
+    log(f"[sharpmask] kernel launches in the end-to-end runs: {launches}")
+    require(launches["window_pool_multi"] > 0
+            and launches["resident_pool"] > 0,
+            f"config 5's detector never reached K1/K2: {launches}")
+    res["busy"] = profile_once("sharpmask", "one end-to-end batch", e2e,
+                               top=16)
+    res["device_ms"] = profile_once.device_ms
+    del det_model, props
+    return res, x_u8
+
+
+def decode_routes(model, x_u8, hw):
+    """(b) The eval ("pyramid") and training ("direct") mask decodes of
+    64 ROIs on the card (2 images x 24 ROIs of 40-100 px, inside level 0
+    of the 28 x 28 pyramid at stride 4, and 8 of 300-600 px), held to
+    tests/test_torch_sharpmask.py's bar: level-0 logits within 5e-2, their
+    mean difference below 1e-2; the large ones correlated above 0.6; the
+    mean probability difference below 0.02."""
+    rng = np.random.default_rng(4)
+    w = np.concatenate([rng.uniform(40, 100, (2, 24)),
+                        rng.uniform(300, 600, (2, 8))], 1)
+    xy = rng.uniform(0, 1, (2, 32, 2)) * (hw - w[..., None])
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + w[..., None]], -1).astype(np.float32)).cuda()
+    with torch.no_grad():
+        feats = model.dense(transforms.normalize(x_u8[:2]))[3]
+        outs = {impl: model.decode_masks(feats, rois, (hw, hw), impl=impl)
+                for impl in ("direct", "pyramid")}
+    d0 = (outs["pyramid"][:, :24] - outs["direct"][:, :24]).abs()
+    corr = float(np.corrcoef(
+        outs["pyramid"][:, 24:].flatten().cpu().numpy(),
+        outs["direct"][:, 24:].flatten().cpu().numpy())[0, 1])
+    dprob = float((torch.sigmoid(outs["pyramid"])
+                   - torch.sigmoid(outs["direct"])).abs().mean())
+    log(f"[sharpmask] decode routes, 64 ROIs: level 0 max |pyramid - "
+        f"direct| {float(d0.max()):.4g} (mean {float(d0.mean()):.4g}; logits "
+        f"up to {float(outs['direct'].abs().max()):.3g}), large ROIs "
+        f"correlation {corr:.4f}, mean probability difference {dprob:.4g}")
+    require(float(d0.max()) <= 5e-2 and float(d0.mean()) < 1e-2
+            and corr > 0.6 and dprob < 0.02,
+            "the pyramid mask decode is off the direct one")
+
+
+def sharpmask_train(cfg, trainer, state):
+    """(c) ProposalTrainer at full width on a synthetic batch (phase 7's
+    generator at this preset's shapes: 8 images at 640^2, 5-20 GT per
+    image padded to 100, random 28 x 28 mask targets): 5 steps after a
+    first one (ms/step), every loss finite, one profiled step, then two
+    steps from one state (equal required under cudnn.deterministic)."""
+    rng = np.random.default_rng(5)
+    batch = train_batch(cfg, seed=5)
+    g = cfg.data.max_gt_per_image
+    batch = trainer.put_batch(batch._replace(gt_masks=(rng.uniform(
+        size=(cfg.train.batch_size, g, 28, 28)) > 0.5).astype(np.float32)))
+    trainer.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    history, iters = [m], 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = trainer.step(state, batch)
+        history.append(m)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(h["loss"]) for h in history]
+    log(f"[sharpmask] proposal train step at full width: first "
+        f"{first_s:.2f} s, {ms:.2f} ms/step over {iters} steps "
+        f"({1e3 * cfg.train.batch_size / ms:.2f} img/s), peak device memory "
+        f"{peak:.2f} GiB; losses {[round(x, 4) for x in losses]}; last: "
+        + ", ".join(f"{k} {float(v):.4g}" for k, v in m.items()))
+    require(all(np.isfinite(float(v)) for h in history for v in h.values()),
+            "a non-finite proposal loss")
+    busy = profile_once("sharpmask_train", "one step",
+                        lambda: trainer.step(state, batch), top=16)
+    repeat_steps(trainer, state, batch, tag="sharpmask_train")
+    return {"ms": ms, "peak_gib": peak, "busy": busy,
+            "device_ms": profile_once.device_ms}
+
+
+def proposal_quality(model, loader, refine, top_k=32):
+    """tests/test_sharpmask.py's _proposal_quality on the card: (median
+    best IoU over the proposals, share at IoU >= 0.5, oracle (mean best
+    proposal IoU per GT), GT recall at 0.5)."""
+    from multipathnet_tpu_torch.ops.boxes import iou_matrix
+
+    ious, gt_best = [], []
+    for i in range(len(loader)):
+        x = transforms.normalize(torch.from_numpy(loader.load_image(i).astype(
+            np.float32)).cuda())[None]
+        out = generate_proposals(model, x, top_k=top_k, with_masks=False,
+                                 refine=refine)
+        iou = iou_matrix(out["boxes"][0], torch.as_tensor(
+            loader.annotations(i)["boxes"], dtype=torch.float32,
+            device="cuda")).cpu().numpy()
+        ious.append(iou.max(1))
+        gt_best.append(iou.max(0))
+    ious, gt_best = np.concatenate(ious), np.concatenate(gt_best)
+    return (float(np.median(ious)), float((ious >= 0.5).mean()),
+            float(gt_best.mean()), float((gt_best >= 0.5).mean()))
+
+
+def proposal_overfit():
+    """(d) The reference's proposal-quality bar on the card: `tiny` (bf16),
+    30 epochs at lr 5e-3 on synthetic.generate(seed=21), batch 2, for init
+    seeds 0-4; the median of each number over the seeds must reach refined
+    median IoU >= 0.4, >= 30% of boxes at IoU >= 0.5, oracle >= 0.75,
+    recall@0.5 >= 0.9 and a refined median >= the stage-1 median + 0.05."""
+    fx = synthetic.generate(fresh_dir("proposal_overfit"), num_images=8,
+                            image_size=64, num_classes=4,
+                            proposals_per_image=8, seed=21)
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=5),
+                      train=dataclasses.replace(cfg.train, lr=5e-3))
+    loader = CocoLoader(fx["annotations"], fx["images"])
+    pipe = DetectionPipeline(loader, ProposalStore.load(fx["proposals"]),
+                             cfg.data, batch_size=2, seed=0,
+                             with_masks=True, mask_size=28)
+    trainer = ProposalTrainer(cfg, device="cuda")
+    runs = []
+    for seed in range(5):
+        t0 = time.perf_counter()
+        state, losses = trainer.init_state(seed), []
+        for ep in range(30):
+            for batch in pipe.epoch_on_device(ep, trainer.stream_batch):
+                state, m = trainer.step(state, batch)
+                losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+        require(np.all(np.isfinite(losses)), f"non-finite loss, seed {seed}")
+        med1 = proposal_quality(trainer.model, loader, refine=False)[0]
+        med2, f50, oracle, rec = proposal_quality(trainer.model, loader,
+                                                  refine=True)
+        runs.append((med2, f50, oracle, rec, med2 - med1))
+        log(f"[sharpmask] overfit seed {seed}: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; stage 1 median IoU {med1:.4f}, refined "
+            f"{med2:.4f}, at IoU >= 0.5 {f50:.4f}, oracle {oracle:.4f}, "
+            f"recall {rec:.4f}; {time.perf_counter() - t0:.1f} s")
+    med2, f50, oracle, rec, lift = np.median(np.asarray(runs), axis=0)
+    passed = sum(r[0] >= 0.4 and r[1] >= 0.3 and r[2] >= 0.75
+                 and r[3] >= 0.9 and r[4] >= 0.05 for r in runs)
+    log(f"[sharpmask] overfit median over seeds 0-4: refined median IoU "
+        f"{med2:.4f}, at IoU >= 0.5 {f50:.4f}, oracle {oracle:.4f}, recall "
+        f"{rec:.4f}, cascade lift {lift:.4f}; {passed} of 5 seeds reach "
+        f"the bar alone")
+    require(med2 >= 0.4 and f50 >= 0.3 and oracle >= 0.75 and rec >= 0.9
+            and lift >= 0.05, f"the proposal overfit missed the bar: {runs}")
+
+
+def proposal_cli_chain():
+    """(e) The CLI chain at `tiny` on the card: cli.train --proposal-net
+    (6 steps, its proposal-recall eval), cli.export_proposals --with-masks
+    on its checkpoint, cli.eval on the exported .npz, and cli.demo
+    --proposal-source sharpmask writing a PNG."""
+    from PIL import Image
+
+    work = fresh_dir("proposal_cli")
+    ds, run = os.path.join(work, "ds"), os.path.join(work, "run")
+    npz, png = os.path.join(work, "generated.npz"), os.path.join(work,
+                                                                 "demo.png")
+    base = ["--preset", "tiny", "--synthetic", "--dataset-root", ds,
+            "--device", "cuda"]
+    train_cli.main([*base, "--steps", "6", "--proposal-net", "--set",
+                    f"train.checkpoint_dir={run}", "--set", "train.lr=0.005",
+                    "--set", "train.checkpoint_every=3"])
+    require(Checkpointer(os.path.join(run, "ckpt")).all_steps() == [3, 6],
+            "cli.train --proposal-net checkpoints")
+    export_proposals.main([*base, "--proposal-checkpoint-dir", run,
+                           "--output", npz, "--top-k", "32",
+                           "--with-masks"])
+    store = ProposalStore.load(npz)
+    require(len(store) == 16 and store.rles is not None
+            and len(store.rles) == len(store.boxes) == 16 * 32,
+            "the exported proposal file")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eval_cli.main([*base, "--proposals", npz, "--json"])
+    metrics = json.loads(out.getvalue().strip().splitlines()[-1])
+    require(all(np.isfinite(v) for v in metrics.values()),
+            f"cli.eval on the exported proposals: {metrics}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo.main([*base, "--proposal-source", "sharpmask",
+                   "--proposal-checkpoint-dir", run, "--top-proposals", "32",
+                   "--output", png])
+    size = Image.open(png).size
+    require(size == (64, 64), f"demo PNG {size}")
+    log(f"[sharpmask] CLI chain: cli.train --proposal-net 6 steps, "
+        f"export_proposals {len(store)} images x 32 proposals with RLE "
+        f"masks, cli.eval AP50 {metrics['AP50']:.4f} on them, demo PNG "
+        f"{size}")
+
+
+def sharpmask_path():
+    """Phase 17 (`sharpmask`), launches counted from 0 over the whole
+    phase: (a) config 5 end to end, (b) the two mask decodes, (c) the
+    proposal train step at full width, (d) the tiny proposal overfit, (e)
+    the CLI chain. Returns (launches, the numbers of (a) and (c))."""
+    cfg = preset("sharpmask_multipath_e2e")
+    m, d, t = cfg.model, cfg.data, cfg.train
+    shape = (m.backbone, m.dtype, t.batch_size, d.image_size,
+             d.max_proposals, d.max_gt_per_image)
+    require(shape == ("resnet50", "bfloat16", 8, (640, 640), 1000, 100),
+            f"unexpected config 5 shape {shape}")
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, state = sharpmask_trainer(cfg)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    require(trainer.model.neck_level == "c5"
+            and trainer.model.anchor_scales == (76.8, 160.0, 320.0, 512.0),
+            "the proposal net's neck or anchors")
+    log(f"[sharpmask] SharpMaskNet ({m.backbone}, neck c5, anchors "
+        f"{trainer.model.anchor_scales} x aspects (0.5, 1, 2)): "
+        f"{n_params / 1e6:.1f}M float32 params, {m.dtype} compute, on the "
+        f"card in {time.perf_counter() - t0:.1f}s")
+    e2e, x_u8 = sharpmask_e2e(cfg, trainer)
+    torch.cuda.empty_cache()
+    decode_routes(trainer.model, x_u8, d.image_size[0])
+    torch.cuda.empty_cache()
+    train = sharpmask_train(cfg, trainer, state)
+    del trainer, state, x_u8
+    torch.cuda.empty_cache()
+    proposal_overfit()
+    proposal_cli_chain()
+    launches = read_launches()
+    log(f"[sharpmask] kernel launches over phase 17: {launches}")
+    return launches, e2e, train
+
+
+# ------------------------------------------------------------ phase 18 ---
+
+def http_json(url: str, body: bytes | None = None, timeout: float = 300):
+    """-> (status, decoded JSON reply, ms from sending to the parsed
+    reply)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw), 1e3 * (time.perf_counter() - t0)
+
+
+def serve_path():
+    """Phase 18 (`serve`): a float checkpoint of multipath_vgg16_int8
+    (weights normal * 0.02), cli.export_serving --quant int8, cli.serve
+    --warmup in a process of its own on localhost; 20 requests of one
+    640^2 image with 1000 proposals and 2 of 8 images; /healthz before and
+    after (the server's kernel launches in between are the path's); the
+    HTTP detections equal to a Detector on the bundle called in this
+    process on the same padded batches; an oversized image answered 400.
+    Returns (launches, the latency numbers)."""
+    import subprocess
+    import sys
+    import threading
+
+    from multipathnet_tpu_torch.eval.serving import load_detector
+
+    cfg = preset("multipath_vgg16_int8")
+    work = fresh_dir("serve")
+    run, bundle = os.path.join(work, "run"), os.path.join(work, "bundle")
+    float_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                      head_quant="none"))
+    trainer = Trainer(float_cfg, device="cuda")
+    state = trainer.init_state(0)
+    seeded_normal_(trainer.model, 0)
+    ckpt = Checkpointer(os.path.join(run, "ckpt"))
+    ckpt.save(trainer, state)
+    ckpt.wait()
+    del trainer, state
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_serving.main(["--preset", "multipath_vgg16_int8",
+                             "--checkpoint-dir", run, "--out", bundle,
+                             "--quant", "int8", "--device", "cuda"])
+    b, p, hw = cfg.train.batch_size, cfg.data.max_proposals, \
+        cfg.data.image_size[0]
+    images, _, boxes, _ = make_inputs(b, p, hw, seed=6)
+    single = [json.dumps({"images": [images[i % b].tolist()],
+                          "proposals": [boxes[i % b].tolist()]}).encode()
+              for i in range(b)]
+    batch8 = json.dumps({"images": images.tolist(),
+                         "proposals": boxes.tolist()}).encode()
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multipathnet_tpu_torch.cli.serve",
+         "--bundle", bundle, "--port", "0", "--warmup"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stderr=subprocess.PIPE, text=True)
+    errors = []
+    try:
+        for line in proc.stderr:
+            errors.append(line.rstrip())
+            if "listening on" in line:
+                break
+        require("listening on" in errors[-1] if errors else False,
+                f"cli.serve did not start: {errors[-20:]}")
+        threading.Thread(target=lambda: errors.extend(proc.stderr),
+                         daemon=True).start()
+        start_s = time.perf_counter() - t0
+        url = "http://" + errors[-1].split("listening on ")[1].split()[0]
+        status, health, _ = http_json(url + "/healthz")
+        require(status == 200 and health["ok"]
+                and health["head_quant"] == "int8", f"/healthz {health}")
+        before = health["kernel_launches"]
+        lat, dec, det = [], [], []
+        replies = []
+        for i in range(20):
+            status, reply, ms = http_json(url + "/detect", single[i % b])
+            require(status == 200, f"request {i}: {status} {reply}")
+            lat.append(ms)
+            dec.append(reply["decode_ms"])
+            det.append(reply["batch_ms"])
+            if i < b:
+                replies.append(reply["detections"][0])
+        big = []
+        for _ in range(2):
+            status, reply, ms = http_json(url + "/detect", batch8)
+            require(status == 200 and len(reply["detections"]) == b,
+                    f"8-image request: {status}")
+            big.append((ms, reply["decode_ms"], reply["batch_ms"]))
+        big_dets = reply["detections"]
+        status, health, _ = http_json(url + "/healthz")
+        launches = {k: v - before[k]
+                    for k, v in health["kernel_launches"].items()}
+        oversized = json.dumps({"images": [np.zeros(
+            (hw + 8, hw, 3), np.uint8).tolist()], "proposals": [[[0, 0, 8, 8]]]
+        }).encode()
+        status, reply, _ = http_json(url + "/detect", oversized)
+        require(status == 400 and "exceeds serving canvas" in reply["error"],
+                f"an oversized image got {status} {reply}")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    log(f"[serve] cli.serve --warmup up in {start_s:.1f} s; kernel "
+        f"launches in the 22 requests: {launches}")
+    require(launches["window_pool_multi_quant"] > 0
+            and launches["resident_pool_quant"] > 0,
+            f"the served requests never reached the int8 K1/K2: {launches}")
+
+    # the same padded batches through a Detector on the bundle, here, with
+    # the server process's default cuDNN settings
+    detector = load_detector(bundle, device="cuda")
+
+    def direct(lo, hi):
+        n = hi - lo
+        pad = np.zeros((b, hw, hw, 3), np.uint8)
+        pad[:n] = images[lo:hi]
+        hws = np.ones((b, 2), np.float32)
+        hws[:n] = hw
+        props = np.zeros((b, p, 4), np.float32)
+        props[:n] = boxes[lo:hi]
+        mask = np.zeros((b, p), bool)
+        mask[:n] = True
+        res = detector(pad, hws, props, mask)
+        return [{"boxes": res["boxes"][j][res["valid"][j]].round(2).tolist(),
+                 "scores": res["scores"][j][res["valid"][j]].round(
+                     4).tolist(),
+                 "classes": res["classes"][j][res["valid"][j]].astype(
+                     int).tolist()} for j in range(n)]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for i in range(b):
+            require(direct(i, i + 1)[0] == replies[i],
+                    f"HTTP detections of image {i} differ from a direct "
+                    f"Detector")
+        require(direct(0, b) == big_dets,
+                "HTTP detections of the 8-image request differ from a "
+                "direct Detector")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del detector
+    pct = {q: float(np.percentile(lat, q)) for q in (50, 90, 99)}
+    res = {"p50": pct[50], "p90": pct[90], "p99": pct[99],
+           "decode_ms": float(np.median(dec)), "batch_ms": float(np.median(
+               det)), "big_ms": float(np.mean([x[0] for x in big])),
+           "big_decode_ms": float(np.mean([x[1] for x in big])),
+           "big_batch_ms": float(np.mean([x[2] for x in big]))}
+    log(f"[serve] multipath_vgg16_int8 bundle over HTTP, 1 image of "
+        f"{hw}^2 + {p} proposals a request (a {len(single[0]) / 1e6:.1f} MB "
+        f"JSON body), 20 requests: latency p50 {pct[50]:.1f} ms, p90 "
+        f"{pct[90]:.1f}, p99 {pct[99]:.1f} (client send to parsed reply); "
+        f"of it, the server's request read and JSON decode "
+        f"{res['decode_ms']:.1f} ms and detection {res['batch_ms']:.1f} ms "
+        f"(medians); 8-image requests ({len(batch8) / 1e6:.1f} MB) "
+        f"{res['big_ms']:.1f} ms, decode {res['big_decode_ms']:.1f}, "
+        f"detection {res['big_batch_ms']:.1f}; the detections equal a "
+        f"Detector called directly; /healthz answered, an oversized image "
+        f"got 400")
+    return launches, res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2308,6 +2834,19 @@ def main() -> None:
     resnet_launches = resnet_path()
     torch.cuda.empty_cache()
     reference_launches, _ = reference_exact_path()
+    torch.cuda.empty_cache()
+    sharpmask_launches, sm_e2e, sm_train = sharpmask_path()
+    torch.cuda.empty_cache()
+    serve_launches, serve = serve_path()
+    log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
+        f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
+        f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
+        f"detection {sm_e2e['det_ms']:.2f}), {sm_e2e['device_ms']:.2f} device "
+        f"ms, {100 * sm_e2e['busy']:.1f}% busy, peak {sm_e2e['peak_gib']:.2f} "
+        f"GiB; proposal train {sm_train['ms']:.2f} ms/step, "
+        f"{sm_train['device_ms']:.2f} device ms, {100 * sm_train['busy']:.1f}"
+        f"% busy, peak {sm_train['peak_gib']:.2f} GiB; serve p50/p90/p99 "
+        f"{serve['p50']:.1f}/{serve['p90']:.1f}/{serve['p99']:.1f} ms")
 
     # launches: each path's run, counted from 0, and their sum; K1's
     # train_max_abs_err*: its forward at the train path's groups; the quant
@@ -2320,7 +2859,9 @@ def main() -> None:
              "dataset_eval": dataset_eval_launches,
              "train_eval": train_eval_launches,
              "resnet": resnet_launches,
-             "reference_exact": reference_launches}
+             "reference_exact": reference_launches,
+             "sharpmask": sharpmask_launches,
+             "serve": {name: serve_launches.get(name, 0) for name in KERNELS}}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

@@ -169,6 +169,29 @@ def restore_float_state(cfg: Config, checkpoint_dir: str = "",
     return trainer, state
 
 
+def restore_proposal_state(cfg, checkpoint_dir: str = "", strict=True,
+                           device=None):
+    """-> (ProposalTrainer on `device`, state): the random init, or the
+    latest checkpoint under checkpoint_dir. strict: a directory with no
+    checkpoint raises SystemExit; strict=False keeps the random init."""
+    from multipathnet_tpu_torch.train.checkpoint import Checkpointer
+    from multipathnet_tpu_torch.train.proposal import ProposalTrainer
+
+    trainer = ProposalTrainer(cfg, device=device)
+    state = trainer.init_state()
+    if checkpoint_dir:
+        restored = Checkpointer(os.path.join(
+            checkpoint_dir, "ckpt")).restore_latest(trainer, state)
+        if restored is None:
+            if strict:
+                raise SystemExit(f"no checkpoint under {checkpoint_dir}")
+        else:
+            state = restored
+            print(f"proposal net: restored step {state.step}",
+                  file=sys.stderr)
+    return trainer, state
+
+
 def eval_model_for(cfg: Config, trainer):
     """The model to EVALUATE with, and the tree Detector loads into it:
     (trainer.model, None) — the float model serves the weights it holds —

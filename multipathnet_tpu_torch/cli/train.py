@@ -6,6 +6,11 @@ analog, SURVEY.md §2.1, §3.1).
     python -m multipathnet_tpu_torch.cli.train --preset tiny --synthetic \
         --steps 60 [--device cpu]
 
+`--proposal-net` trains the SharpMask proposal network instead
+(train/proposal.py); its checkpoints feed `cli.export_proposals
+--proposal-checkpoint-dir` and `cli.demo --proposal-source sharpmask`, and
+its final eval reports proposal recall@IoU0.5 instead of detection AP.
+
 Checkpoints + config dump + JSONL metrics land in cfg.train.checkpoint_dir
 (set it with `--set train.checkpoint_dir=...`). A fresh run refuses a
 directory that already holds checkpoints; `--resume` restores the latest
@@ -14,9 +19,8 @@ then, as the reference does, restarts the data order at the start of the
 epoch that step falls in, so batches already seen in that epoch are seen
 again. Batches reach the device through
 DetectionPipeline.epoch_on_device (pinned memory, a side CUDA stream), so
-batch N+1's copy overlaps step N. The proposal network (`--proposal-net`,
-ROADMAP A15) and TensorBoard export (`--tensorboard`, ROADMAP A12d) are not
-ported yet and raise.
+batch N+1's copy overlaps step N. TensorBoard export (`--tensorboard`,
+ROADMAP A12d) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,50 @@ import os
 import time
 
 from multipathnet_tpu_torch.cli import common
+
+
+def _proposal_recall(trainer, loader, cfg, top_k: int = 64,
+                     max_images: int = 64) -> dict:
+    """The --proposal-net eval: recall@top_k at IoU 0.5 and the mean best
+    IoU over non-crowd GT. Each image is resized onto the training canvas
+    first (the anchors are calibrated to cfg.data.image_size) and its
+    proposals mapped back to image coordinates."""
+    import numpy as np
+    import torch
+
+    from multipathnet_tpu_torch.core.padding import pad_axis_to
+    from multipathnet_tpu_torch.data.transforms import batch_resize_to_canvas
+    from multipathnet_tpu_torch.models.sharpmask import generate_proposals
+    from multipathnet_tpu_torch.ops.boxes import iou_matrix
+
+    dev = trainer.device
+    sizes = [loader.image_size(i) for i in range(len(loader))]
+    hmax, wmax = (max(s[d] for s in sizes) for d in (0, 1))
+    hits, total, best = 0, 0, []
+    for i in range(min(len(loader), max_images)):
+        img = loader.load_image(i)
+        h, w = img.shape[:2]
+        pad = pad_axis_to(pad_axis_to(img, hmax, 0), wmax, 1)
+        canvas, scale = batch_resize_to_canvas(
+            torch.as_tensor(np.array(pad), device=dev)[None],
+            cfg.data.image_size,
+            torch.tensor([[h, w]], dtype=torch.float32, device=dev))
+        out = generate_proposals(trainer.model, canvas, top_k=top_k,
+                                 with_masks=False)
+        boxes = out["boxes"][0] / scale[0]
+        ann = loader.annotations(i)
+        gt = ann["boxes"][~ann["iscrowd"]]  # crowds are not recall targets
+        if len(gt) == 0:
+            continue
+        iou = iou_matrix(boxes, torch.as_tensor(gt, dtype=torch.float32,
+                                                device=dev))
+        m = iou.amax(0).cpu().numpy()
+        hits += int((m >= 0.5).sum())
+        total += len(gt)
+        best.extend(m.tolist())
+    return {"proposal_recall@0.5": hits / max(total, 1),
+            "mean_best_iou": float(np.mean(best)) if best else 0.0,
+            "top_k": float(top_k)}
 
 
 def main(argv=None) -> None:
@@ -43,12 +91,8 @@ def main(argv=None) -> None:
                         "(not ported yet: raises)")
     p.add_argument("--proposal-net", action="store_true",
                    help="train the SharpMask-style proposal network "
-                        "(not ported yet: raises)")
+                        "(checkpoints feed export_proposals/demo)")
     args = p.parse_args(argv)
-    if args.proposal_net:
-        raise NotImplementedError(
-            "--proposal-net waits for the port of the SharpMask proposal "
-            "network (ROADMAP A15)")
 
     cfg = common.build_config(args)
     if args.steps:
@@ -84,12 +128,18 @@ def main(argv=None) -> None:
     with open(os.path.join(cfg.train.checkpoint_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
 
-    trainer = Trainer(cfg, device=args.device)
+    if args.proposal_net:
+        from multipathnet_tpu_torch.train.proposal import ProposalTrainer
+
+        trainer = ProposalTrainer(cfg, device=args.device)
+    else:
+        trainer = Trainer(cfg, device=args.device)
     print(f"dataset: {len(loader)} images, {loader.num_classes} classes; "
           f"device: {trainer.device}")
     pipe = DetectionPipeline(loader, props, cfg.data,
                              batch_size=cfg.train.batch_size,
-                             seed=cfg.train.seed)
+                             seed=cfg.train.seed,
+                             with_masks=args.proposal_net)
     logger = MetricsLogger(
         os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl"),
         tensorboard_dir=(os.path.join(cfg.train.checkpoint_dir, "tb")
@@ -105,8 +155,11 @@ def main(argv=None) -> None:
             print("no checkpoint found; starting fresh")
 
     def run_eval(tag):
-        m = Tester(trainer.model, cfg, loader, props,
-                   device=trainer.device).test()
+        if args.proposal_net:
+            m = _proposal_recall(trainer, loader, cfg)
+        else:
+            m = Tester(trainer.model, cfg, loader, props,
+                       device=trainer.device).test()
         logger.log(state.step, tag=tag, **m)
         return m
 

@@ -5,9 +5,9 @@ multipathnet_tpu/core/__init__.py, which imports core/mesh.py and with it
 jax. So the port carries this copy, and tests/test_torch_config.py holds it
 field for field equal to the reference for every preset.
 
-Every model option of the reference now runs in the port; the CLI
-options that do not yet raise NotImplementedError where they are read
-(cli/train.py, utils/metrics.py).
+Every model option of the reference runs in the port; the one CLI option
+that does not yet (`cli.train --tensorboard`) raises NotImplementedError
+where it is read (utils/metrics.py).
 """
 
 from __future__ import annotations

@@ -83,11 +83,22 @@ def batch_resize_to_canvas(images_u8: torch.Tensor, canvas_hw,
     """images (B, H, W, 3) uint8 padded raw, src_hws (B, 2) valid (h, w) ->
     (canvases (B, CH, CW, 3) float32 normalized, scales (B,) float32).
     Boxes in source coords map to canvas coords by multiplying by scale."""
-    ch, cw = canvas_hw
     src = src_hws.to(device=images_u8.device, dtype=torch.float32)
     sh, sw = src[:, 0], src[:, 1]
     return _resize(images_u8, canvas_hw, sh, sw,
-                   torch.minimum(ch / sh, cw / sw), preprocess)
+                   canvas_scale(canvas_hw, sh, sw), preprocess)
+
+
+def canvas_scale(canvas_hw, sh: torch.Tensor, sw: torch.Tensor
+                 ) -> torch.Tensor:
+    """min(ch / sh, cw / sw) for float32 source extents, each a true
+    float32 division, as the reference's compiled jnp.minimum(ch / sh,
+    cw / sw) computes it. (`int / tensor` in PyTorch is reciprocal(tensor)
+    * int, two roundings, one float32 ulp above the quotient for some
+    sizes: 48 / 30 gives 1.6000001 where the quotient rounds to 1.6.)"""
+    ch, cw = canvas_hw
+    return torch.minimum(torch.full_like(sh, ch) / sh,
+                         torch.full_like(sw, cw) / sw)
 
 
 def resize_to_canvas(image_u8: torch.Tensor, canvas_hw, src_hw=None,

@@ -286,12 +286,11 @@ def build_model(cfg: ModelConfig, freeze_stages: int = 0, param_dtype=None,
 
 
 @torch.no_grad()
-def init_params_(model: MultiPathNet, generator: torch.Generator):
-    """flax's initializers, drawn from `generator`: conv and dense kernels
-    LeCun-normal (normal truncated at 2 sigma, rescaled to variance
-    1 / fan_in), biases and the skip bias zero, the bbox rows of cls_bbox
-    normal * 1e-3 (the reference's mixed_init); frozen BN scale 1, running
-    mean 0 and variance 1."""
+def flax_init_(model: nn.Module, generator: torch.Generator):
+    """flax's default initializers, drawn from `generator` in parameter
+    order: conv and dense kernels LeCun-normal (normal truncated at 2
+    sigma, rescaled to variance 1 / fan_in), biases zero; frozen BN scale
+    1, running mean 0 and variance 1."""
     for mod in model.modules():
         if isinstance(mod, layers.FrozenBatchNorm):
             mod.weight.fill_(1.0)
@@ -306,6 +305,14 @@ def init_params_(model: MultiPathNet, generator: torch.Generator):
         std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
         nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
+    return model
+
+
+@torch.no_grad()
+def init_params_(model: MultiPathNet, generator: torch.Generator):
+    """flax_init_, then the bbox rows of cls_bbox normal * 1e-3 (the
+    reference's mixed_init); the skip bias is zero."""
+    flax_init_(model, generator)
     bbox = model.head.cls_bbox.weight[model.head.cls_dim:]
     bbox.copy_(torch.randn(bbox.shape, generator=generator,
                            device=bbox.device) * 1e-3)

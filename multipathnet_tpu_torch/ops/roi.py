@@ -1,7 +1,20 @@
-"""Reference-exact ROI max pooling — port of the `exact_max` half of
-multipathnet_tpu/ops/roi.py (`roi_pool_max`, the reference's
-inn.ROIPooling semantics, and `multilevel_foveal_roi_features` in that
-mode). The align half is the window kernels (ops/roi_pool.py).
+"""ROI pooling in plain ops — port of multipathnet_tpu/ops/roi.py: the
+bilinear gather route (`roi_align`, `batched_roi_align`) and the
+reference-exact max route (`roi_pool_max`, the reference's inn.ROIPooling
+semantics, and `multilevel_foveal_roi_features` in that mode). The
+detector's align views go through the window kernels (ops/roi_pool.py);
+`roi_align` is the route of the SharpMask network's training pools
+(models/sharpmask.py, impl="direct"), which the reference computes in XLA.
+
+roi_align samples G*S x G*S bilinear points per ROI (offsets (i + (k +
+0.5) / S) bins from the ROI's corner, clamped to the map) and takes the
+mean or max of each bin's S x S samples. Each sample reads its four
+neighbours through gather_rows, whose backward is a fixed-order scatter
+(ops/scatter.py): the gradient repeats bit for bit from call to call, on
+the CPU at any thread count and on the card (an autograd gather's
+backward is an accumulating index_put_, which sums in no fixed order).
+
+The max route:
 
 Each ROI is split into G x G bins with floor/ceil integer extents, clamped
 to the map; each bin takes the max of the cells it covers, an empty bin
@@ -20,7 +33,8 @@ among them (XLA's rule for a tied max). Two stages of torch.amax would split
 a tie per stage instead, which matters where a map is flat (an image's
 padding reads as one value over many cells), so `roi_pool_max` has its own
 backward: per chunk, the bins' cells gathered again, the ties counted over
-each whole bin, and cotangent / count added into the map's gradient.
+each whole bin, and cotangent / count added into the map's gradient in a
+fixed order (ops/scatter.py), so the gradient repeats at any thread count.
 
 The bin edges keep the reference's arithmetic as XLA compiles it: the bin
 index is an arange in the feature dtype, promoted to float32 against the
@@ -39,6 +53,7 @@ import torch
 import numpy as np
 
 from multipathnet_tpu_torch.ops import boxes as box_ops
+from multipathnet_tpu_torch.ops.scatter import gather_rows, scatter_rows
 
 MAX_ELEMENTS = 1 << 27  # gathered elements per chunk of ROIs
 
@@ -54,6 +69,76 @@ def fma32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
     coordinates here (bin indices times extents in cells), so one rounding
     of the float64 result is the fused multiply-add."""
     return (a.double() * b + c.double()).float()
+
+
+def _bilinear_gather(feat: torch.Tensor, sy: torch.Tensor,
+                     sx: torch.Tensor) -> torch.Tensor:
+    """feat (B, H, W, C); sy (B, R, Py), sx (B, R, Px) continuous feature
+    coordinates -> (B, R, Py, Px, C) bilinear samples, coordinates clamped
+    into the map (torchvision roi_align's border rule). Float32 weights,
+    so a bf16 map gives float32 samples, as in the reference."""
+    b, h, w, c = feat.shape
+    sy = torch.clamp(sy, 0.0, h - 1.0)
+    sx = torch.clamp(sx, 0.0, w - 1.0)
+    y0f, x0f = torch.floor(sy), torch.floor(sx)
+    wy1, wx1 = sy - y0f, sx - x0f
+    y0, x0 = y0f.long(), x0f.long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    flat = feat.reshape(b * h * w, c)
+    base = (torch.arange(b, device=feat.device) * (h * w))[:, None, None,
+                                                           None]
+
+    def take(yi, xi):  # -> (B, R, Py, Px, C)
+        return gather_rows(flat, base + yi[..., :, None] * w
+                           + xi[..., None, :])
+
+    wy1 = wy1[..., :, None, None]
+    wx1 = wx1[..., None, :, None]
+    return (take(y0, x0) * (1 - wy1) * (1 - wx1)
+            + take(y0, x1) * (1 - wy1) * wx1
+            + take(y1, x0) * wy1 * (1 - wx1)
+            + take(y1, x1) * wy1 * wx1)
+
+
+def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor, *,
+                      output_size: int = 7,
+                      spatial_scale: float = 1.0 / 16.0,
+                      samples_per_bin: int = 2,
+                      mode: str = "avg") -> torch.Tensor:
+    """ROI Align over images: feats (B, H, W, C), rois (B, R, 4) image
+    coords -> (B, R, G, G, C), float32 (the reference's vmapped
+    roi_align). mode: "avg" or "max" over each bin's S x S samples."""
+    if mode not in ("avg", "max"):
+        raise ValueError(f"mode must be avg|max, got {mode!r}")
+    g, s = output_size, samples_per_bin
+    dev = rois.device
+    b = rois.float() * spatial_scale
+    x1, y1, x2, y2 = b.unbind(-1)
+    rg = inv(g)  # as XLA compiles the reference: / G -> * float32(1 / G)
+    bin_h = torch.clamp(y2 - y1, min=1e-6) * rg
+    bin_w = torch.clamp(x2 - x1, min=1e-6) * rg
+    k = torch.arange(g * s, device=dev)
+    off = (k // s).float() + ((k % s).float() + 0.5) / s       # (G*S,)
+    # the corner plus offset x bin, one fused multiply-add (B, R, G*S)
+    sy = (off.double() * bin_h[..., None].double()
+          + y1[..., None].double()).float()
+    sx = (off.double() * bin_w[..., None].double()
+          + x1[..., None].double()).float()
+    vals = _bilinear_gather(feats, sy, sx)          # (B, R, G*S, G*S, C)
+    if s == 1:  # one sample per bin: the mean or max of one value
+        return vals
+    nb, r, c = vals.shape[0], vals.shape[1], vals.shape[-1]
+    vals = vals.reshape(nb, r, g, s, g, s, c)
+    if mode == "avg":
+        return vals.mean(dim=(3, 5))
+    return vals.amax(dim=(3, 5))
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, **kw) -> torch.Tensor:
+    """ROI Align on one map: feat (H, W, C), rois (R, 4) -> (R, G, G, C);
+    keywords as batched_roi_align."""
+    return batched_roi_align(feat[None], rois[None], **kw)[0]
 
 
 def bin_edges(rois: torch.Tensor, spatial_scale: float, output_size: int,
@@ -131,8 +216,8 @@ def _binned_max_grad(feat, out, gout, bins: _Bins, per: int):
     split evenly over the bin's cells equal to its max -> (H, W, C) in
     float32."""
     r, g = bins.ys.shape
+    c = feat.shape[-1]
     grad = torch.zeros(feat.shape, dtype=torch.float32, device=feat.device)
-    flat = grad.view(-1, feat.shape[-1])
     for r0 in range(0, r, per):
         sl = slice(r0, r0 + per)
         iy, my = bins.rows(sl)
@@ -144,10 +229,8 @@ def _binned_max_grad(feat, out, gout, bins: _Bins, per: int):
         tie = (vals == out[sl][:, :, None, :, None, :]) & inside[..., None]
         count = tie.sum(dim=(2, 4), keepdim=True)
         share = gout[sl].float()[:, :, None, :, None, :] / count
-        flat.index_put_((cell[..., None].expand(tie.shape),
-                         torch.arange(feat.shape[-1], device=feat.device)
-                         .expand(tie.shape)),
-                        torch.where(tie, share, 0.0), accumulate=True)
+        grad += scatter_rows(cell, torch.where(tie, share, 0.0).reshape(
+            -1, c), bins.h * bins.w).view(feat.shape)
     return grad
 
 

@@ -54,6 +54,7 @@ import torch
 
 from multipathnet_tpu_torch.ops import quant
 from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
+from multipathnet_tpu_torch.ops.scatter import scatter_rows
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the pool kernels' own int8 epilogue gives one block a whole view: the bf16
@@ -423,16 +424,14 @@ def window_cotangent(gout, wy, wx) -> torch.Tensor:
 
 
 def _scatter_windows(gwin, row0, x0, shape) -> torch.Tensor:
-    """index_put_(accumulate=True) of N (10, 16, C) windows at absolute
-    (row0, x0) into float32 zeros of `shape`."""
-    n = gwin.shape[0]
+    """N (10, 16, C) windows at absolute (row0, x0) summed into zeros of
+    `shape` (rows, wmax, C), each cell's windows in view order
+    (ops/scatter.scatter_rows: the same result at any thread count)."""
+    rows, wmax, c = shape
     ys = row0.long()[:, None] + torch.arange(WINDOW, device=gwin.device)
     xs = x0.long()[:, None] + torch.arange(WINDOW_X, device=gwin.device)
-    out = gwin.new_zeros(shape)
-    out.index_put_((ys[:, :, None].expand(n, WINDOW, WINDOW_X),
-                    xs[:, None, :].expand(n, WINDOW, WINDOW_X)), gwin,
-                   accumulate=True)
-    return out
+    cell = ys[:, :, None] * wmax + xs[:, None, :]            # (N, 10, 16)
+    return scatter_rows(cell, gwin.reshape(-1, c), rows * wmax).view(shape)
 
 
 def _image_rows(n, batch, rows, device) -> torch.Tensor:
@@ -459,9 +458,8 @@ def _check_windows(row0, x0, rows, wmax) -> None:
 
 def window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows, wmax
                     ) -> torch.Tensor:
-    """Plain version of K3: window gradients in float32, scattered with
-    index_put_(accumulate=True) into float32 zeros of (batch * rows, wmax,
-    C)."""
+    """Plain version of K3: window gradients in float32, summed in view
+    order into float32 zeros of (batch * rows, wmax, C)."""
     n, c = gout.shape[0], gout.shape[-1]
     row0 = row0_rel.long() + _image_rows(n, batch, rows, gout.device)
     return _scatter_windows(window_cotangent(gout, wy, wx), row0, x0,
@@ -835,3 +833,16 @@ def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
         return out.reshape(n, g, g, c)
     q, s = out
     return q.reshape(n, g, g, c), s.reshape(n)
+
+
+def launch_counts() -> dict:
+    """Every wrapper's kernel launches in this process so far, by kernel
+    (the int8-epilogue instances apart): what a service reports, so a
+    caller can see that its requests went through the kernels."""
+    return {"window_pool_multi": window_pool_multi.launches,
+            "window_pool_multi_quant": window_pool_multi.quant_launches,
+            "resident_pool": resident_pool.launches,
+            "resident_pool_quant": resident_pool.quant_launches,
+            "window_pool": window_pool.launches,
+            "window_grad": window_grad.launches,
+            "window_rmw_grad": window_rmw_grad.launches}

@@ -6,6 +6,15 @@ samples fall in one fixed WINDOW x WINDOW_X window (ops/roi_pool.py). Each
 level's scales are stacked along rows in ONE (sum_rows, Wmax, C) buffer
 with per-scale row offsets, so scale selection is an offset add.
 
+`pyramid_roi_align(mode="avg"|"max")` is the reference's bilinear window
+sampler at any G and S, in plain ops (the reference computes it in XLA;
+SharpMask's 7 x 7 and 28 x 28 eval pools take it, models/sharpmask.py):
+each view's window_sizes(G) window is gathered from its scale and its G*S
+x G*S samples come from two float32 contractions, the bilinear weight rows
+wy (G*S, rows) against the window's rows, then wx (G*S, cols) against its
+columns; then the mean or max of each bin's S x S samples. Views go in
+chunks so the gathered windows stay within `max_elements`.
+
 Max pyramids (2x max pooling, padding _NEG) feed the windowed max route of
 roi_mode="max" (`pyramid_roi_align`, the reference's mode="exact_max"): the
 reference's floor/ceil ROIPooling rule applied at the selected scale's
@@ -123,6 +132,96 @@ def build_pyramid(feat: torch.Tensor, spatial_scale: float,
     return meta._replace(flat=flat)
 
 
+def _sample_weights(coords: torch.Tensor, window: int) -> torch.Tensor:
+    """coords (..., N) local window coordinates -> (..., N, window)
+    bilinear weight rows max(0, 1 - |coord - cell|)."""
+    cells = torch.arange(window, dtype=coords.dtype, device=coords.device)
+    return torch.clamp(1.0 - torch.abs(coords[..., None] - cells), min=0.0)
+
+
+def _align_views(pyr: Pyramid, rois: torch.Tensor, g: int, s: int):
+    """The reference's _one_roi geometry for every view at once: rois (N,
+    4) image coords -> (window rows (N, win_y) into pyr.flat, window
+    columns (N, win_x), wy (N, G*S, win_y), wx (N, G*S, win_x)), float32
+    arithmetic at the view's pyramid scale (bins spanning (0.5, 1] cell).
+    """
+    f32 = torch.float32
+    dev = rois.device
+    rg = inv(g)  # as XLA compiles the reference (ops/roi.py)
+    b = rois.to(f32) * pyr.base_scale
+    x1, y1 = b[:, 0], b[:, 1]
+    bw = torch.clamp(b[:, 2] - x1, min=1e-6)
+    bh = torch.clamp(b[:, 3] - y1, min=1e-6)
+    span = torch.maximum(bw, bh) * rg
+    lvl = torch.clamp(torch.ceil(torch.log2(torch.clamp(span, min=1.0))).to(
+        torch.int32), 0, pyr.num_scales - 1).long()
+    cell = torch.exp2(lvl.to(f32))[:, None]
+    heights = pyr.heights.to(dev)[lvl]
+    widths = pyr.widths.to(dev)[lvl]
+    k = torch.arange(g * s, device=dev)
+    off = (k // s).to(f32) + ((k % s).to(f32) + 0.5) / s     # (G*S,)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    sy = torch.minimum(torch.maximum(
+        fma32(off * bh[:, None], rg, y1[:, None]) / cell, zero),
+        heights.to(f32)[:, None] - 1.0)
+    sx = torch.minimum(torch.maximum(
+        fma32(off * bw[:, None], rg, x1[:, None]) / cell, zero),
+        widths.to(f32)[:, None] - 1.0)
+    win_y, win_x = window_sizes(g)
+    y0 = torch.minimum(torch.clamp(torch.floor(sy[:, 0]).to(torch.int32),
+                                   min=0),
+                       torch.clamp(heights - win_y, min=0))
+    x0 = torch.minimum(torch.clamp(torch.floor(sx[:, 0]).to(torch.int32),
+                                   min=0),
+                       torch.clamp(widths - win_x, min=0))
+    wy = _sample_weights(torch.clamp(sy - y0.to(f32)[:, None], 0.0,
+                                     win_y - 1.0), win_y)
+    wx = _sample_weights(torch.clamp(sx - x0.to(f32)[:, None], 0.0,
+                                     win_x - 1.0), win_x)
+    rows = (pyr.row_offsets.to(dev).long()[lvl] + y0.long())[:, None] + \
+        torch.arange(win_y, device=dev)
+    cols = x0.long()[:, None] + torch.arange(win_x, device=dev)
+    return rows, cols, wy, wx
+
+
+def _align_pool(flat, rows, cols, wy, wx, g, s, mode) -> torch.Tensor:
+    """One chunk of views: windows flat[rows, cols] in float32 -> (n, G,
+    G, C), the two contractions then the S x S mean or max."""
+    win = flat[rows[:, :, None], cols[:, None, :]].float()  # (n, wy, wx, C)
+    t = torch.einsum("niy,nyxc->nixc", wy, win)
+    v = torch.einsum("nixc,njx->nijc", t, wx)              # (n, GS, GS, C)
+    if s == 1:  # one sample per bin: the mean or max of one value
+        return v
+    n, c = v.shape[0], v.shape[-1]
+    v = v.reshape(n, g, s, g, s, c)
+    return v.mean(dim=(2, 4)) if mode == "avg" else v.amax(dim=(2, 4))
+
+
+def batched_pyramid_roi_align(flat: torch.Tensor, meta: Pyramid,
+                              rois: torch.Tensor, *, output_size: int = 7,
+                              samples_per_bin: int = 2, mode: str = "avg",
+                              max_elements: int = 1 << 27) -> torch.Tensor:
+    """The reference's vmap over images of pyramid_roi_align in the
+    bilinear modes: flat, meta from build_pyramid_batch (B images), rois
+    (B, R, 4) image coords -> (B, R, G, G, C) float32."""
+    if mode not in ("avg", "max"):
+        raise ValueError(f"mode must be avg|max, got {mode!r}")
+    nb, r = rois.shape[:2]
+    g, s = output_size, samples_per_bin
+    c = flat.shape[-1]
+    if nb * r == 0:
+        return flat.new_zeros((nb, r, g, g, c), dtype=torch.float32)
+    rows, cols, wy, wx = _align_views(meta, rois.reshape(-1, 4), g, s)
+    rows = rows + (torch.arange(nb, device=rows.device) * meta.flat.shape[0]
+                   ).repeat_interleave(r)[:, None]
+    win_y, win_x = window_sizes(g)
+    per = max(1, max_elements // (win_y * win_x * c + g * s * win_x * c))
+    out = [_align_pool(flat, rows[i:i + per], cols[i:i + per],
+                       wy[i:i + per], wx[i:i + per], g, s, mode)
+           for i in range(0, nb * r, per)]
+    return torch.cat(out).reshape(nb, r, g, g, c)
+
+
 def _exact_max_views(pyr: Pyramid, rois: torch.Tensor, g: int):
     """The windowed max route's geometry, the reference's _one_roi_max for
     every view at once: rois (N, 4) image coords -> (window rows (N,
@@ -177,15 +276,22 @@ def _exact_max_views(pyr: Pyramid, rois: torch.Tensor, g: int):
 
 
 def pyramid_roi_align(pyr: Pyramid, rois: torch.Tensor, *,
-                      output_size: int = 7,
+                      output_size: int = 7, samples_per_bin: int = 2,
+                      mode: str = "exact_max",
                       max_elements: int = 1 << 27) -> torch.Tensor:
-    """The reference's pyramid_roi_align(mode="exact_max"): rois (N, 4)
-    image coords -> (N, G, G, C) float32 from a max pyramid (the align
-    views go through the window kernels, ops/roi_pool.py). Each view's
-    window is read in float32 and reduced rows-into-bins, then
+    """The reference's pyramid_roi_align: rois (N, 4) image coords -> (N,
+    G, G, C) float32. mode="avg"|"max": the bilinear window sampler on an
+    avg pyramid (module docstring). mode="exact_max" (the default here,
+    the route the detector's max mode takes; the reference defaults to
+    "avg"): the reference's ROIPooling rule on a max pyramid, each view's
+    window read in float32 and reduced rows-into-bins, then
     columns-into-bins; empty bins and values at the padding give 0. Views
-    are taken in chunks so the masked windows stay within
-    `max_elements`."""
+    are taken in chunks so the windows stay within `max_elements`."""
+    if mode != "exact_max":
+        return batched_pyramid_roi_align(
+            pyr.flat, pyr, rois[None], output_size=output_size,
+            samples_per_bin=samples_per_bin, mode=mode,
+            max_elements=max_elements)[0]
     g = output_size
     c = pyr.flat.shape[-1]
     win_y, win_x = window_sizes(g)
@@ -211,15 +317,23 @@ def pyramid_roi_align(pyr: Pyramid, rois: torch.Tensor, *,
 def multilevel_foveal_pyramid_features(
         pyramids: dict, rois: torch.Tensor, *,
         foveal_factors=(1.0, 1.5, 2.0, 4.0), image_hw=None,
-        output_size: int = 7) -> torch.Tensor:
-    """ops.roi.multilevel_foveal_roi_features through the max pyramids
-    ({level: Pyramid}): (F, R, G, G, sum_l C_l) float32, the levels'
-    channels concatenated (the reference's combine="concat")."""
+        output_size: int = 7, samples_per_bin: int = 2,
+        mode: str = "exact_max", combine: str = "concat") -> torch.Tensor:
+    """ops.roi.multilevel_foveal_roi_features through pyramids ({level:
+    Pyramid}; max pyramids for mode="exact_max", avg ones for "avg" and
+    "max"): (F, R, G, G, sum_l C_l) float32 with the levels' channels
+    concatenated (combine="concat"), or (F, R, G, G, C) with equal-C
+    levels summed in level order (combine="sum")."""
+    if combine not in ("concat", "sum"):
+        raise ValueError(f"combine must be concat|sum, got {combine!r}")
     out_per_f = []
     for f in foveal_factors:
         r = (box_ops.expand(rois, f, image_hw[0], image_hw[1])
              if image_hw is not None else box_ops.expand(rois, f))
-        pooled = [pyramid_roi_align(pyr, r, output_size=output_size)
+        pooled = [pyramid_roi_align(pyr, r, output_size=output_size,
+                                    samples_per_bin=samples_per_bin,
+                                    mode=mode)
                   for pyr in pyramids.values()]
-        out_per_f.append(torch.cat(pooled, dim=-1))
+        out_per_f.append(sum(pooled) if combine == "sum"
+                         else torch.cat(pooled, dim=-1))
     return torch.stack(out_per_f, dim=0)

@@ -5,8 +5,11 @@ A checkpoint holds what a train step reads and changes, as
 train/loop.snapshot_train_state does: every float32 parameter of the model
 (frozen ones included) and every buffer (frozen BN statistics), the SGD
 momentum buffers and the optimizer's count, the step and the state of the
-step's generator, so `restore_latest` resumes exactly. Files are
-<directory>/step_<N>.pt. `save` copies the state to host memory at once
+step's generator, so `restore_latest` resumes exactly. `trainer` is the
+detector's Trainer or the proposal network's ProposalTrainer
+(train/proposal.py): both keep their parameters in `.model` and their
+step's state in a TrainState. Files are <directory>/step_<N>.pt. `save`
+copies the state to host memory at once
 (the train loop goes on changing the parameters) and writes it on a
 background thread, to a temporary file first and then into place by
 os.replace, so a run killed mid-write leaves no torn checkpoint; `wait`
@@ -23,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from multipathnet_tpu_torch.train.loop import (Trainer, TrainState,
+from multipathnet_tpu_torch.train.loop import (TrainState,
                                                restore_train_state)
 
 _NAME = re.compile(r"step_(\d+)\.pt")
@@ -56,7 +59,7 @@ class Checkpointer:
         return sorted(int(m.group(1)) for m in map(
             _NAME.fullmatch, os.listdir(self.directory)) if m)
 
-    def save(self, trainer: Trainer, state: TrainState) -> None:
+    def save(self, trainer, state: TrainState) -> None:
         """Checkpoint `state` (with the parameters `trainer.model` holds);
         a step already saved is not written again (the periodic and the
         final save can hit the same step)."""
@@ -91,7 +94,7 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore_latest(self, trainer: Trainer,
+    def restore_latest(self, trainer,
                        template: TrainState) -> Optional[TrainState]:
         """Load the latest checkpoint into trainer.model and template's
         optimizer; returns the state to step from, or None if there is no

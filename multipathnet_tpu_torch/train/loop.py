@@ -47,7 +47,7 @@ class Batch(NamedTuple):
     gt_classes: torch.Tensor  # (B, G) int32
     gt_mask: torch.Tensor     # (B, G) bool
     gt_masks: Any = None      # (B, G, M, M) f32 instance masks, for the
-    #                           proposal net's training (ROADMAP A15)
+    #                           proposal net's training (train/proposal.py)
 
 
 # each field's dtype on the device
@@ -140,7 +140,25 @@ def make_train_step(model: MultiPathNet, cfg: Config):
     return train_step
 
 
-class Trainer:
+class BatchFeeder:
+    """Puts host batches on `self.device` (a trainer's, with `self._copy`
+    a core/device.HostToDevice for it)."""
+
+    def put_batch(self, batch) -> Batch:
+        """numpy arrays or tensors -> a Batch on the trainer's device,
+        copied synchronously (a batch already there is used as it is)."""
+        return Batch(*(None if x is None
+                       else torch.as_tensor(x, dtype=dt, device=self.device)
+                       for x, dt in zip(batch, _BATCH_DTYPES)))
+
+    def stream_batch(self, batch) -> Batch:
+        """A host batch -> a Batch on the trainer's device, copied ahead of
+        its use (core/device.HostToDevice: on the card from pinned memory on
+        a side stream): the `put` of DetectionPipeline.epoch_on_device."""
+        return Batch(*self._copy(batch, _BATCH_DTYPES))
+
+
+class Trainer(BatchFeeder):
     """Owns the model (float32 parameters, frozen stages excluded from the
     optimizer) and the train step, on one device: the CUDA card unless the
     caller names another (device="cpu")."""
@@ -175,30 +193,18 @@ class Trainer:
         return TrainState(0, opt,
                           torch.Generator(self.device).manual_seed(seed + 1))
 
-    def put_batch(self, batch) -> Batch:
-        """numpy arrays or tensors -> a Batch on the trainer's device,
-        copied synchronously (a batch already there is used as it is)."""
-        return Batch(*(None if x is None
-                       else torch.as_tensor(x, dtype=dt, device=self.device)
-                       for x, dt in zip(batch, _BATCH_DTYPES)))
-
-    def stream_batch(self, batch) -> Batch:
-        """A host batch -> a Batch on the trainer's device, copied ahead of
-        its use (core/device.HostToDevice: on the card from pinned memory on
-        a side stream): the `put` of DetectionPipeline.epoch_on_device."""
-        return Batch(*self._copy(batch, _BATCH_DTYPES))
-
     def step(self, state: TrainState, batch):
         """One optimizer step; returns (new state, metrics of 0-d
         tensors)."""
         return self._step(state, self.put_batch(batch))
 
 
-def snapshot_train_state(trainer: Trainer, state: TrainState) -> dict:
+def snapshot_train_state(trainer, state: TrainState) -> dict:
     """A copy of what a step reads and changes: the parameters and buffers
     (frozen BN statistics), the optimizer's momentum buffers and count,
     the step and the generator's state. restore_train_state puts it back,
-    so a step can be repeated from one state."""
+    so a step can be repeated from one state. `trainer` is a Trainer or a
+    train/proposal.ProposalTrainer (anything with .model and .device)."""
     return {"params": {n: p.detach().clone()
                        for n, p in trainer.model.named_parameters()},
             "buffers": {n: b.detach().clone()
@@ -210,7 +216,7 @@ def snapshot_train_state(trainer: Trainer, state: TrainState) -> dict:
 
 
 @torch.no_grad()
-def restore_train_state(trainer: Trainer, saved: dict) -> TrainState:
+def restore_train_state(trainer, saved: dict) -> TrainState:
     """Puts a snapshot_train_state back into the trainer's model and the
     snapshot's optimizer and generator; returns the state to step from."""
     for n, p in trainer.model.named_parameters():

@@ -126,13 +126,236 @@ def test_train_cli_refuses_a_used_checkpoint_dir(run1, tmp_path):
     assert Checkpointer(os.path.join(used, "ckpt")).all_steps() == [3, 6]
 
 
-@pytest.mark.parametrize("flag", ["--proposal-net", "--tensorboard"])
+@pytest.mark.parametrize("flag", ["--tensorboard"])
 def test_train_cli_unported_modes_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main([
             "--preset", "tiny", "--synthetic", "--device", "cpu",
             "--dataset-root", str(tmp_path / "ds"), "--steps", "1", flag,
             "--set", f"train.checkpoint_dir={tmp_path / 'run'}"])
+
+
+# ------------------------------------------- config 5: the proposal net ---
+
+@pytest.fixture(scope="module")
+def proposal_run(run1):
+    """`cli.train --proposal-net`: 4 steps at lr 5e-3 on run1's split,
+    checkpoints every 2, the final proposal-recall eval."""
+    work, _ = run1
+    ckpt_dir = str(work / "prop")
+    train_cli.main([
+        "--preset", "tiny", "--synthetic", "--device", "cpu",
+        "--dataset-root", str(work / "ds"), "--steps", "4", "--proposal-net",
+        "--set", f"train.checkpoint_dir={ckpt_dir}", "--set", "train.lr=0.005",
+        "--set", "train.checkpoint_every=2", "--set", "train.log_every=2"])
+    return work, ckpt_dir
+
+
+def test_train_cli_proposal_net(proposal_run):
+    """--proposal-net trains the SharpMask network: losses logged, its
+    checkpoints at 2 and 4, and the final eval is proposal recall, not
+    AP."""
+    _, ckpt_dir = proposal_run
+    rows = [json.loads(line) for line in
+            open(os.path.join(ckpt_dir, "metrics.jsonl"))]
+    logged = [r for r in rows if "loss" in r]
+    assert [r["step"] for r in logged] == [2, 4]
+    assert all("loss_mask" in r and "loss_ref_obj" in r for r in logged)
+    final = [r for r in rows if r.get("tag") == "final"]
+    assert len(final) == 1 and "AP50" not in final[0]
+    assert 0.0 <= final[0]["proposal_recall@0.5"] <= 1.0
+    assert final[0]["top_k"] == 64.0
+    assert Checkpointer(os.path.join(ckpt_dir, "ckpt")).all_steps() == [2, 4]
+
+
+def test_export_proposals_read_by_both_packages(proposal_run, tmp_path,
+                                                capsys):
+    """cli.export_proposals --with-masks on the trained net: the .npz reads
+    the same in the JAX package's ProposalStore and the port's (boxes,
+    scores, ids, RLE masks), its boxes are generate_proposals' on the
+    restored net, and cli.eval runs the detector on it."""
+    import numpy as np
+
+    from multipathnet_tpu.data.proposals import ProposalStore as JStore
+    from multipathnet_tpu_torch.cli import export_proposals
+    from multipathnet_tpu_torch.data.coco import CocoLoader
+    from multipathnet_tpu_torch.data.proposals import ProposalStore
+    from multipathnet_tpu_torch.data.transforms import normalize
+    from multipathnet_tpu_torch.models.sharpmask import generate_proposals
+
+    work, ckpt_dir = proposal_run
+    out = str(tmp_path / "generated.npz")
+    export_proposals.main([
+        "--preset", "tiny", "--synthetic", "--device", "cpu",
+        "--dataset-root", str(work / "ds"), "--proposal-checkpoint-dir",
+        ckpt_dir, "--output", out, "--top-k", "8", "--batch-size", "3",
+        "--with-masks"])
+    got, ref = ProposalStore.load(out), JStore.load(out)
+    loader = CocoLoader(str(work / "ds" / "annotations" /
+                            "instances_synthetic.json"),
+                        str(work / "ds" / "synthetic"))
+    assert len(got) == len(ref) == len(loader) == 16
+    for i in range(len(loader)):
+        iid = loader.image_id(i)
+        (b, s), (jb, js) = got.for_image_id(iid), ref.for_image_id(iid)
+        np.testing.assert_array_equal(b, jb)
+        np.testing.assert_array_equal(s, js)
+        assert b.shape == (8, 4)
+        assert got.rles_for_image_id(iid) == ref.rles_for_image_id(iid)
+    trainer, state = common.restore_proposal_state(
+        preset("tiny"), ckpt_dir, device="cpu")
+    assert state.step == 4
+    want = generate_proposals(trainer.model, normalize(torch.from_numpy(
+        np.array(loader.load_image(5))))[None], top_k=8, with_masks=False)
+    np.testing.assert_array_equal(got.for_image_id(loader.image_id(5))[0],
+                                  want["boxes"][0].numpy())
+    eval_cli.main(["--preset", "tiny", "--synthetic", "--device", "cpu",
+                   "--dataset-root", str(work / "ds"), "--proposals", out,
+                   "--json"])
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"AP", "AP50"} <= set(metrics)
+
+
+def test_export_proposals_refuses_mixed_image_sizes(monkeypatch, tmp_path):
+    """Images go through at their own size: a split with two sizes exits
+    before any proposal is written."""
+    from multipathnet_tpu_torch.cli import export_proposals
+
+    class Mixed:
+        def __len__(self):
+            return 2
+
+        def image_size(self, i):
+            return (64, 64) if i == 0 else (48, 64)
+
+    monkeypatch.setattr(common, "resolve_data", lambda args, cfg: (Mixed(),
+                                                                   None))
+    out = tmp_path / "p.npz"
+    with pytest.raises(SystemExit, match="uniform image sizes"):
+        export_proposals.main(["--preset", "tiny", "--device", "cpu",
+                               "--output", str(out)])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("source", ["file", "sharpmask", "sliding"])
+def test_demo_cli_writes_a_png(run1, proposal_run, source, tmp_path,
+                               capsys):
+    """cli.demo from each proposal source, on run1's detector (and the
+    proposal run's net for sharpmask): a PNG of the image's size."""
+    from PIL import Image
+
+    from multipathnet_tpu_torch.cli import demo
+
+    work, det_dir = run1
+    _, prop_dir = proposal_run
+    out = str(tmp_path / f"{source}.png")
+    demo.main(["--preset", "tiny", "--synthetic", "--device", "cpu",
+               "--dataset-root", str(work / "ds"), "--checkpoint-dir",
+               det_dir, "--index", "3", "--proposal-source", source,
+               "--proposal-checkpoint-dir", prop_dir, "--top-proposals",
+               "16", "--score-threshold", "0", "--output", out])
+    printed = capsys.readouterr().out
+    assert f"wrote {out}" in printed
+    assert ("sharpmask: 16 proposals" in printed) == (source == "sharpmask")
+    img = Image.open(out)
+    assert img.size == (64, 64) and img.mode == "RGB"
+
+
+def test_sliding_window_proposals_match_reference():
+    import numpy as np
+
+    from multipathnet_tpu.cli import demo as jdemo
+    from multipathnet_tpu_torch.cli import demo
+
+    for h, w, n in ((64, 64, 256), (480, 640, 100), (30, 90, 7)):
+        np.testing.assert_array_equal(demo.sliding_window_proposals(h, w, n),
+                                      jdemo.sliding_window_proposals(h, w, n))
+
+
+def test_export_serving_then_serve(run1, tmp_path):
+    """cli.export_serving --quant int8 of run1's checkpoint, then a
+    DetectionService on the bundle: its detections equal an int8 Detector
+    built in process from the same checkpoint."""
+    import numpy as np
+
+    from multipathnet_tpu_torch.cli import export_serving
+    from multipathnet_tpu_torch.cli.serve import DetectionService
+
+    work, ckpt_dir = run1
+    bundle = str(tmp_path / "bundle")
+    export_serving.main(["--preset", "tiny", "--device", "cpu",
+                         "--checkpoint-dir", ckpt_dir, "--out", bundle,
+                         "--set", "model.num_classes=5"])
+    assert sorted(os.listdir(bundle)) == ["config.json", "params.pt"]
+    svc = DetectionService(bundle, device="cpu")
+    assert svc.cfg.model.head_quant == "int8"
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 255, (64, 64, 3)).astype(np.uint8)
+              for _ in range(3)]
+    props = [[[2.0, 2.0, 30.0, 30.0], [10.0, 8.0, 44.0, 40.0],
+              [20.0, 20.0, 60.0, 50.0]]] * 3
+    got = svc(images, props)
+    cfg = svc.cfg
+    trainer, _ = common.restore_float_state(
+        cfg.replace(model=dataclasses.replace(cfg.model, head_quant="none")),
+        ckpt_dir, device="cpu")
+    model, tree = common.eval_model_for(cfg, trainer)
+    assert tree is not None
+    det = Detector(model, cfg, params=tree)
+    p = cfg.data.max_proposals
+    for i in range(3):
+        pb = np.zeros((1, p, 4), np.float32)
+        pb[0, :3] = props[i]
+        out = det(images[i][None], np.asarray([[64, 64]], np.float32), pb,
+                  (np.arange(p) < 3)[None])
+        valid = out["valid"][0]
+        assert got[i]["boxes"] == out["boxes"][0][valid].round(2).tolist()
+        assert got[i]["scores"] == out["scores"][0][valid].round(4).tolist()
+        assert got[i]["classes"] == out["classes"][0][valid].tolist()
+
+
+def test_checkpoint_resume_is_bit_exact_for_the_proposal_net(run1,
+                                                              tmp_path):
+    """ProposalTrainer through Checkpointer: two steps, save, restore into
+    a fresh ProposalTrainer, one step — against three straight: loss,
+    every parameter, the momentum and the generator equal bit for bit."""
+    from multipathnet_tpu_torch.data.coco import CocoLoader
+    from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
+    from multipathnet_tpu_torch.data.proposals import ProposalStore
+    from multipathnet_tpu_torch.train.proposal import ProposalTrainer
+
+    work, _ = run1
+    ds = work / "ds"
+    cfg = preset("tiny")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, lr=5e-3))
+    pipe = DetectionPipeline(
+        CocoLoader(str(ds / "annotations" / "instances_synthetic.json"),
+                   str(ds / "synthetic")),
+        ProposalStore.load(str(ds / "proposals_synthetic.npz")), cfg.data,
+        batch_size=2, with_masks=True)
+    batches = list(pipe.epoch(0))[:3]
+    straight = ProposalTrainer(cfg, device="cpu")
+    state = straight.init_state(0)
+    ckpt = Checkpointer(str(tmp_path / "ck"))
+    for b in batches[:2]:
+        state, _ = straight.step(state, b)
+    ckpt.save(straight, state)
+    state, want = straight.step(state, batches[2])
+    resumed = ProposalTrainer(cfg, device="cpu")
+    restored = ckpt.restore_latest(resumed, resumed.init_state(1))
+    assert restored.step == 2 and restored.optimizer.count == 2
+    restored, got = resumed.step(restored, batches[2])
+    assert torch.equal(got["loss"], want["loss"])
+    pa = dict(straight.model.named_parameters())
+    for n, p in resumed.model.named_parameters():
+        assert torch.equal(p, pa[n]), n
+    sa = state.optimizer.sgd.state_dict()["state"]
+    sb = restored.optimizer.sgd.state_dict()["state"]
+    for k in sa:
+        assert torch.equal(sa[k]["momentum_buffer"],
+                           sb[k]["momentum_buffer"])
+    assert torch.equal(state.generator.get_state(),
+                       restored.generator.get_state())
 
 
 def _eval_json(capsys, run1, *extra):

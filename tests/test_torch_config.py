@@ -62,7 +62,10 @@ _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "eval.tester", "train.checkpoint", "utils.metrics",
                 "cli.common", "cli.eval", "cli.train", "data.t7",
                 "models.backbones.resnet", "models.import_weights",
-                "models.t7_import", "ops.roi")
+                "models.t7_import", "ops.roi", "ops.roi_pyramid",
+                "ops.scatter", "models.sharpmask", "train.proposal",
+                "cli.export_proposals", "cli.demo", "cli.export_serving",
+                "cli.serve")
 
 
 def test_port_never_imports_jax():

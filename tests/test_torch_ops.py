@@ -84,6 +84,31 @@ def test_resize_matches_reference(canvas):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("side", ["height", "width"])
+@pytest.mark.parametrize("jit", [True, False], ids=["jit", "eager"])
+def test_resize_scale_matches_reference(side, jit):
+    """The canvas scale min(ch / sh, cw / sw), bit for bit, for every
+    source size 1..1200 against canvases 48, 64, 600, 640 and 1000, each
+    side the limiting one: the reference jitted and eager. The other side
+    gets a canvas of 1 and a source of 1e-4, so it never limits and the
+    resized images stay one pixel wide."""
+    src = np.arange(1, 1201, dtype=np.float32)
+    other = np.full_like(src, 1e-4)
+    hw = np.stack([src, other] if side == "height" else [other, src], -1)
+    images = np.zeros((len(src), 1, 1, 3), np.uint8)
+    for c in (48, 64, 600, 640, 1000):
+        canvas = (c, 1) if side == "height" else (1, c)
+
+        def ref(im, hw, canvas=canvas):
+            return jtf.batch_resize_to_canvas(im, canvas, hw)[1]
+
+        want = np.asarray((jax.jit(ref) if jit else ref)(images, hw))
+        got = ttf.batch_resize_to_canvas(torch.from_numpy(images), canvas,
+                                         torch.from_numpy(hw))[1]
+        np.testing.assert_array_equal(_np(got), want, err_msg=str(c))
+        np.testing.assert_array_equal(want, np.float32(c) / src)
+
+
 def test_normalize_and_single_resize_match_reference():
     rng = np.random.default_rng(2)
     image = rng.integers(0, 256, (30, 22, 3), dtype=np.uint8)

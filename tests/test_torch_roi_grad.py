@@ -63,6 +63,38 @@ def test_window_grad_plain_matches_pallas():
     torch.testing.assert_close(trk.window_grad(*args), got, rtol=0, atol=0)
 
 
+def test_plain_window_scatter_repeats():
+    """The plain K3 and K4 sum each cell's windows in view order: with 4
+    threads, 3000 views crowded onto a 12 x 24 map give the same float32
+    gradient on every call, equal bit for bit to the serial sum of a
+    one-thread index_put_ (with threads, index_put_(accumulate=True) adds
+    in no fixed order: ROADMAP C7)."""
+    rng = np.random.default_rng(11)
+    n, c = 3000, 24
+    gout = _t(rng.normal(size=(n, 7, 7, c)).astype(np.float32))
+    wy = _t(rng.uniform(size=(n, 7, 10)).astype(np.float32))
+    wx = _t(rng.uniform(size=(n, 7, 16)).astype(np.float32))
+    row0 = _t(rng.integers(0, 3, n).astype(np.int32))
+    x0 = _t(rng.integers(0, 9, n).astype(np.int32))
+    torch.set_num_threads(1)
+    try:
+        want = torch.zeros(12, 24, c)
+        ys = row0.long()[:, None] + torch.arange(10)
+        xs = x0.long()[:, None] + torch.arange(16)
+        want.index_put_((ys[:, :, None].expand(n, 10, 16),
+                         xs[:, None, :].expand(n, 10, 16)),
+                        trk.window_cotangent(gout, wy, wx), accumulate=True)
+        torch.set_num_threads(4)
+        k3 = [trk.window_grad_ref(gout, row0, x0, wy, wx, 1, 12, 24)
+              for _ in range(3)]
+        k4 = [trk.window_rmw_grad_ref(gout, row0, x0, wy, wx, (12, 24, c),
+                                      torch.float32) for _ in range(3)]
+    finally:
+        torch.set_num_threads(2)
+    for got in k3 + k4:
+        assert torch.equal(got, want)
+
+
 def test_window_grad_writes_the_requested_dtype():
     """K3 returns float32 by default, as pallas_window_grad does, and the
     pyramid dtype when its caller asks (WindowPoolMulti's backward): the

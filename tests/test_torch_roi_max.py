@@ -258,10 +258,8 @@ def test_caffe_bgr_matches_reference():
     """BGR order, 0-255 minus the Caffe mean pixel in float32, no scale:
     normalize bit for bit. The canvas resize of those pixels within 1e-5
     of the 0-255 range (the rgb_unit resize is held to atol 1e-5 on its
-    unit range, tests/test_torch_ops.py), and its scale within one float32
-    ulp: for a 30-row source and a 48-row canvas the reference's compiled
-    48 / 30 reads 1.6000001 where the port's division gives 1.6 (ROADMAP
-    §C)."""
+    unit range, tests/test_torch_ops.py), and its scale bit for bit (48 /
+    30 is 1.6 on both sides: a true float32 division)."""
     rng = np.random.default_rng(8)
     image = rng.integers(0, 256, (2, 30, 22, 3), dtype=np.uint8)
     got = ttf.normalize(torch.from_numpy(image), "caffe_bgr")
@@ -276,7 +274,6 @@ def test_caffe_bgr_matches_reference():
     got, got_s = ttf.batch_resize_to_canvas(
         torch.from_numpy(image), (48, 48), torch.from_numpy(src),
         preprocess="caffe_bgr")
-    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
-                               atol=np.spacing(np.float32(2.0)))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5 * 255)

@@ -419,6 +419,33 @@ def test_train_step_repeats_from_a_snapshot(dtype):
     assert any(not torch.equal(a[n], saved["params"][n]) for n in a)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_float32_train_steps_repeat_with_four_threads(seed):
+    """Two float32 `tiny` steps from one snapshot, 4 threads: every
+    parameter equal bit for bit. Before the plain pool backwards summed in
+    a fixed order (ops/scatter.py), each of these batches gave trunk and
+    reduce gradients that differed in their last bits between the two
+    runs (ROADMAP C7)."""
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    batch = _batch(np.random.default_rng(seed), cfg)
+    torch.set_num_threads(4)
+    try:
+        trainer = tloop.Trainer(cfg, device="cpu")
+        state, _ = trainer.step(trainer.init_state(0), batch)
+        saved = tloop.snapshot_train_state(trainer, state)
+        runs = []
+        for _ in range(2):
+            state, _ = trainer.step(tloop.restore_train_state(trainer, saved),
+                                    batch)
+            runs.append({n: p.detach().clone()
+                         for n, p in trainer.model.named_parameters()})
+    finally:
+        torch.set_num_threads(2)
+    for n in runs[0]:
+        assert torch.equal(runs[0][n], runs[1][n]), n
+
+
 def test_train_steps_follow_reference_in_lockstep(tmp_path):
     """Two epochs (8 steps) of the `tiny` overfit fixture in float32 from
     the port's init, flips, ROI sampling and dropout on: the reference's
