@@ -173,8 +173,34 @@ Phases, each of which raises on failure (nothing is caught):
      server's kernel launches over them from /healthz (the int8 K1/K2
      must launch), the detections equal to a Detector on the bundle
      called in this process, and an oversized image answered 400.
+ 19. the mesh (`parallel`), ranks launched through core/mesh.spawn, each
+     rank's launches counted: (a) one NCCL rank, mesh (1, 1): one
+     `multipath_vgg16_train` step (phase 7's weights and batch, warmup off,
+     cudnn.deterministic) equal to the plain Trainer's bit for bit (loss,
+     gradients, parameters), and a Detector batch of phase 4 equal to the
+     plain Detector's, and a Tester on phase 13's split at batch 4 for
+     (c); (b)-(e) two ranks, sharing the one card through
+     gloo (NCCL, a card each, where there are two): (b) the same step on a
+     (2, 1) mesh, 4 images a rank, 5 more steps timed (not a speed-up on
+     one card), each rank's peak memory, the loss within rel 1e-2 of (a)'s
+     and the largest parameter difference, two steps from one state equal,
+     K1/K3/K4 launched on every rank and K2 and the placement GEMMs not;
+     the `tiny` float32 loss within rel 1e-5 of one rank's; (c) Tester on
+     phase 13's split at (2, 1): AP/AP50/AP75 within 1e-6 of phase 13's,
+     the detections equal bit for bit to (a)'s rank's Tester at batch 4
+     (each rank's share of a batch of 8) and, beside phase 13's at batch
+     8, the same images and counts with each image's sorted scores within
+     5e-3 (the share that differ printed), the images each rank decoded,
+     K1 and K2 on each rank; (d) tensor-parallel serving at (1, 2), 8 x
+     1000 proposals: `multipath_vgg16_int8` equal to the unsharded int8
+     head bit for bit (scores, boxes, detections), fc6's local kernel_i8
+     half its columns, the quant K1/K2 launched; `multipath_vgg16_batched`
+     probabilities within 1e-2; each timed over 5 batches; (e) `tiny`
+     float32 training at (1, 2) against (2, 1) within rel 1e-4, both timed
+     over 5 steps, the (1, 2) checkpoint restored here on one device bit
+     for bit and a step after it.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18, each
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, each
 counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
@@ -206,6 +232,7 @@ from multipathnet_tpu_torch.cli import eval as eval_cli
 from multipathnet_tpu_torch.cli import export_serving
 from multipathnet_tpu_torch.cli import train as train_cli
 from multipathnet_tpu_torch.core.config import preset
+from multipathnet_tpu_torch.core.mesh import spawn
 from multipathnet_tpu_torch.data import synthetic
 from multipathnet_tpu_torch.data.coco import CocoLoader
 from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
@@ -222,6 +249,7 @@ from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
+from multipathnet_tpu_torch.tools import mesh_runs
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
@@ -576,15 +604,9 @@ def check_and_time_kernels(gen):
 
 # ------------------------------------------------------------- phase 4 ---
 
-@torch.no_grad()
-def seeded_normal_(model, seed: int, std: float = 0.02):
-    """bench.py's weights: every parameter normal * std, drawn on the
-    model's device from one seeded generator."""
-    dev = next(model.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for p in model.parameters():
-        p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
-    return sum(p.numel() for p in model.parameters())
+# bench.py's weights: every parameter normal * 0.02, drawn on the model's
+# device from one seeded generator (the rank bodies of phase 19 draw them so)
+seeded_normal_ = mesh_runs.seeded_normal_
 
 
 def profile_once(tag: str, what: str, fn, top: int = 12) -> float:
@@ -1561,7 +1583,7 @@ def serial_detections(tester, model, cfg):
 
 def dataset_eval_path(loader, props):
     """Phase 13: Tester on `multipath_vgg16_batched` over the split on
-    disk. Returns (launches, split img/s)."""
+    disk. Returns (launches, split img/s, the metrics, the detections)."""
     cfg = preset("multipath_vgg16_batched")
     cfg = cfg.replace(eval=dataclasses.replace(cfg.eval,
                                                score_threshold=0.0))
@@ -1632,7 +1654,7 @@ def dataset_eval_path(loader, props):
                         tester.collect_detections, top=8)
     log(f"[dataset_eval] device busy over the split: {100 * busy:.1f}%")
     log("[dataset_eval] metrics: " + json.dumps(metrics))
-    return launches, n / dt
+    return launches, n / dt, metrics, dets
 
 
 # ------------------------------------------------------------ phase 14 ---
@@ -2776,6 +2798,281 @@ def serve_path():
     return launches, res
 
 
+# ------------------------------------------------------------ phase 19 ---
+
+def tiny_parallel_batch():
+    """`tiny` in float32 (batch 4, warmup off) and the first batch of a
+    synthetic split of 8 images of 64^2 (tests/test_sharding.py's data)."""
+    cfg = preset("tiny")
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype="float32"),
+        train=dataclasses.replace(cfg.train, batch_size=4, warmup_steps=0))
+    fx = synthetic.generate(fresh_dir("parallel_tiny"), num_images=8,
+                            image_size=64, num_classes=4,
+                            proposals_per_image=16, seed=31)
+    loader = CocoLoader(fx["annotations"], fx["images"])
+    return cfg, next(DetectionPipeline(
+        loader, ProposalStore.load(fx["proposals"]), cfg.data,
+        batch_size=4, seed=0).epoch(0))
+
+
+def differ_dets(got: list, want: list):
+    """-> (the share of detections, by position, that differ at all; the
+    largest difference between the two sides' sorted scores of an image,
+    inf where an image's detections differ in number)."""
+    share = 1.0 - sum(a == b for a, b in zip(got, want)) / max(
+        len(got), len(want), 1)
+
+    def scores(dets):
+        by_image = {}
+        for d in dets:
+            by_image.setdefault(d["image_id"], []).append(d["score"])
+        return {k: np.sort(v) for k, v in by_image.items()}
+
+    a, b = scores(got), scores(want)
+    if a.keys() != b.keys() or any(len(a[k]) != len(b[k]) for k in a):
+        return share, float("inf")
+    return share, max((float(np.abs(a[k] - b[k]).max()) for k in a),
+                      default=0.0)
+
+
+def parallel_path(phase13, resident_ms):
+    """Phase 19: the mesh paths through core/mesh.spawn, each rank's
+    kernel launches summed. Returns the launches."""
+    t_phase = time.perf_counter()
+    work = fresh_dir("parallel")
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    # phase 7's weights and batch; without the warmup, whose first step's
+    # learning rate is 0, so that the step moves the parameters
+    cfg = preset("multipath_vgg16_train")
+    batch = train_batch(cfg)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, warmup_steps=0))
+    bcfg = preset("multipath_vgg16_batched")
+    inputs = make_inputs(8, bcfg.data.max_proposals, 640)
+    # phase 13's split and Tester config
+    t_split = split_paths()
+    ecfg = bcfg.replace(eval=dataclasses.replace(bcfg.eval,
+                                                 score_threshold=0.0))
+    launches = {name: 0 for name in KERNELS}
+
+    def count(results):
+        for r in results:
+            for name, n in r["launches"].items():
+                if name in launches:
+                    launches[name] += n
+
+    # (a) one NCCL rank: the plain Trainer's step and Detector's batch
+    a_file = os.path.join(work, "a_params.pt")
+    jobs = [(mesh_runs.train_run, (cfg, (1, 1), batch),
+             dict(device="cuda", normal_std=0.02, compare_plain=True,
+                  deterministic=True, return_params=False,
+                  dump_file=a_file)),
+            (mesh_runs.detect_run, (bcfg, (1, 1), inputs),
+             dict(device="cuda", normal_seed=0, compare_unsharded=True)),
+            (mesh_runs.tester_run, (ecfg, (1, 1), t_split),
+             dict(device="cuda", normal_seed=0, batch_size=4,
+                  collect=True))]
+    t0 = time.perf_counter()
+    (a_train, a_det, a_test), = spawn(mesh_runs.run_jobs, 1, args=(jobs,),
+                              backend="nccl", device="cuda", timeout_s=600,
+                              workdir=work)
+    count([a_train, a_det])
+    a_loss = a_train["metrics"][0]["loss"]
+    log(f"[parallel] (a) one NCCL rank, mesh (1, 1), "
+        f"{time.perf_counter() - t0:.1f} s with its start: "
+        f"multipath_vgg16_train step (batch 8, 640^2, cudnn.deterministic) "
+        f"loss {a_loss:.6f}, against the plain Trainer "
+        f"{a_train['plain_equal']}"
+        f"; launches {a_train['launches']}")
+    require(all(a_train["plain_equal"].values()),
+            f"the 1 x 1 mesh's step differs from the plain Trainer's: "
+            f"{a_train['plain_equal']}")
+    for k, v in a_det["unsharded"]["detections"].items():
+        require(np.array_equal(a_det["detections"][k], v),
+                f"the 1 x 1 mesh's Detector differs from phase 4's in {k}")
+    log(f"[parallel] (a) Detector on multipath_vgg16_batched (8 x 1000, "
+        f"phase 4's weights and batch): equal to the plain Detector bit for "
+        f"bit; launches {a_det['launches']}")
+    count([a_test])
+
+    # (b)-(e) two ranks
+    tcfg, tbatch = tiny_parallel_batch()
+    qcfg = preset("multipath_vgg16_int8")
+    ckpt = os.path.join(work, "tp_ckpt")
+    jobs = [(mesh_runs.train_run, (cfg, (2, 1), batch),
+             dict(device="cuda", normal_std=0.02, timed=5, repeat=True,
+                  deterministic=True, return_params=False,
+                  diff_file=a_file)),
+            (mesh_runs.train_run, (tcfg, (2, 1), tbatch),
+             dict(device="cuda", deterministic=True, return_params=False)),
+            (mesh_runs.tester_run, (ecfg, (2, 1), t_split),
+             dict(device="cuda", normal_seed=0, batch_size=8,
+                  collect=True)),
+            (mesh_runs.detect_run, (qcfg, (1, 2), inputs),
+             dict(device="cuda", normal_seed=0, compare_unsharded=True,
+                  timed=5)),
+            (mesh_runs.detect_run, (bcfg, (1, 2), inputs),
+             dict(device="cuda", normal_seed=0, compare_unsharded=True,
+                  timed=5)),
+            (mesh_runs.train_run, (tcfg, (1, 2), tbatch),
+             dict(device="cuda", save_dir=ckpt, timed=5)),
+            (mesh_runs.train_run, (tcfg, (2, 1), tbatch),
+             dict(device="cuda", return_params=False, timed=5))]
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_runs.run_jobs, 2, args=(jobs,), backend=backend,
+                  device="cuda", timeout_s=900, workdir=work)
+    b_full, b_tiny, c_test, d_int8, d_bf16, e_tp, e_dp = zip(*ranks)
+    shared = backend == "gloo"
+    how = ("they share the one card; gloo stages each collective through "
+           "the host" if shared else "one card each")
+    log(f"[parallel] (b)-(e): 2 ranks, {backend} ({how}), "
+        f"{time.perf_counter() - t0:.1f} s with their start")
+
+    # (b) data parallelism at full width
+    for r in b_full:
+        count([r])
+        log(f"[parallel] (b) rank {r['coord']}: multipath_vgg16_train, 4 "
+            f"images of the batch: first step {r['first_s']:.2f} s, "
+            f"{r['ms_per_step']:.2f} ms/step over 5 steps (cudnn."
+            f"deterministic), peak memory {r['peak_gib']:.2f} GiB; "
+            f"launches {r['launches']}")
+        n = r["launches"]
+        require(n["window_pool_multi"] > 0 and n["window_grad"] > 0
+                and n["window_rmw_grad"] > 0,
+                f"a train kernel never launched on rank {r['coord']}: {n}")
+        require(n["resident_pool"] == 0 and n["placements"] == 0,
+                f"K2 or a placement GEMM launched in training: {n}")
+        require(r["repeat_equal"], "two DP steps from one state differ")
+    b_loss = b_full[0]["metrics"][0]["loss"]
+    require(all(r["metrics"] == b_full[0]["metrics"] for r in b_full),
+            "the ranks' metrics differ")
+    rel = abs(b_loss - a_loss) / abs(a_loss)
+    log(f"[parallel] (b) loss {b_loss:.6f} against (a)'s {a_loss:.6f}: rel "
+        f"{rel:.2e} (bf16); largest parameter difference after the step "
+        f"{b_full[0]['max_param_diff']:.3e}; two steps from one state equal "
+        f"bit for bit; {b_full[0]['ms_per_step']:.2f} ms/step for 8 images "
+        f"against phase 7's {resident_ms:.2f} on one rank"
+        f"{': not a speed-up, both ranks share one card' if shared else ''}")
+    require(rel < 1e-2, f"DP loss {b_loss} vs one rank's {a_loss}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = Trainer(tcfg, device="cuda")
+        _, m = plain.step(plain.init_state(0), tbatch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t_loss = b_tiny[0]["metrics"][0]["loss"]
+    rel = abs(t_loss - float(m["loss"])) / abs(float(m["loss"]))
+    log(f"[parallel] (b) tiny float32, cudnn.deterministic: (2, 1) loss "
+        f"{t_loss:.8f}, one rank {float(m['loss']):.8f}, rel {rel:.2e}")
+    require(rel <= 1e-5, "tiny DP loss off one rank's by more than 1e-5")
+    count(b_tiny)
+
+    # (c) the Tester on phase 13's split. Its APs are 0 for random weights,
+    # so the detections carry the check: each rank detects 4 images of a
+    # batch of 8, as a one-rank Tester at batch 4 detects each group of 4,
+    # so the two must be equal bit for bit (a row gathered into another
+    # image's place, or a rank's images dropped, is not); beside phase 13
+    # (batch 8: cuDNN and cuBLAS at other shapes) the image ids and counts
+    # must match and each image's sorted scores differ in their last bits
+    metrics13, dets13 = phase13
+    got = c_test[0]["metrics"]
+    diff = max(abs(got[k] - metrics13[k]) for k in ("AP", "AP50", "AP75"))
+    share, gap = differ_dets(c_test[0]["detections"], dets13)
+    same4 = c_test[0]["detections"] == a_test["detections"]
+    log(f"[parallel] (c) Tester at (2, 1) on phase 13's split: AP "
+        f"{got['AP']:.6f} AP50 {got['AP50']:.6f} AP75 {got['AP75']:.6f}, "
+        f"largest difference from phase 13 {diff:.2e}; its "
+        f"{len(c_test[0]['detections'])} detections against one rank's "
+        f"Tester at batch 4: {'equal bit for bit' if same4 else 'DIFFERENT'}"
+        f"; against phase 13's {len(dets13)} (batch 8): "
+        f"{100 * share:.2f}% differ at all, each image's sorted scores "
+        f"within {gap:.2e}; images decoded per rank "
+        f"{[r['decoded'] for r in c_test]}; Tester.test "
+        f"{c_test[0]['seconds']:.2f} s; launches "
+        f"{[r['launches'] for r in c_test]}")
+    require(diff <= 1e-6, f"DP Tester AP off phase 13's by {diff}")
+    require(all(r["metrics"] == got for r in c_test),
+            "the ranks' metrics differ")
+    require(len(a_test["detections"]) > 0 and same4,
+            "the DP Tester's detections differ from one rank's at batch 4")
+    require(gap <= 5e-3, f"the DP Tester's images or scores differ from "
+            f"phase 13's: sorted-score gap {gap}")
+    for r in c_test:
+        require(r["launches"]["window_pool_multi"] > 0
+                and r["launches"]["resident_pool"] > 0,
+                f"K1 or K2 never launched in the DP Tester: {r['launches']}")
+    count(c_test)
+
+    # (d) tensor-parallel serving
+    for r in d_int8:
+        for k in ("boxes", "probs"):
+            require(np.array_equal(r["scores"][k],
+                                   r["unsharded"]["scores"][k]),
+                    f"TP int8 {k} differ from the unsharded head")
+        for k, v in r["unsharded"]["detections"].items():
+            require(np.array_equal(r["detections"][k], v),
+                    f"TP int8 detections differ in {k}")
+        n = r["launches"]
+        require(n["window_pool_multi_quant"] > 0
+                and n["resident_pool_quant"] > 0,
+                f"a quant kernel never launched in TP serving: {n}")
+        shape = r["head_state_shapes"]["fc6_f0.weight_i8"]
+        require(shape[0] == 2048, f"fc6's local kernel_i8 {shape}")
+    log(f"[parallel] (d) multipath_vgg16_int8 at (1, 2), 8 x 1000, 640^2: "
+        f"scores, boxes and detections equal to the unsharded int8 head bit "
+        f"for bit on both ranks; fc6's local kernel_i8 "
+        f"{d_int8[0]['head_state_shapes']['fc6_f0.weight_i8']} (of 4096 "
+        f"columns); {d_int8[0]['ms_per_batch']:.2f} ms/batch over 5 "
+        f"batches{' (both ranks on one card)' if shared else ''}; peak "
+        f"{[round(r['peak_gib'], 2) for r in d_int8]} GiB; "
+        f"launches {d_int8[0]['launches']}")
+    for r in d_bf16:
+        got, want = r["scores"]["probs"], r["unsharded"]["scores"]["probs"]
+        err = float(np.abs(got - want).max())
+        require(err <= 1e-2, f"TP bf16 probabilities off by {err}")
+    log(f"[parallel] (d) multipath_vgg16_batched (bf16) at (1, 2): "
+        f"probabilities within {err:.2e} of the unsharded head, "
+        f"{100 * float(np.mean(got != want)):.2f}% differ at all; "
+        f"{d_bf16[0]['ms_per_batch']:.2f} ms/batch over 5 batches (the "
+        f"row-parallel fc7 in float32 with TF32); launches "
+        f"{d_bf16[0]['launches']}")
+    count(d_int8 + d_bf16)
+
+    # (e) tensor-parallel training and its checkpoint
+    tp_loss = e_tp[0]["metrics"][0]["loss"]
+    dp_loss = e_dp[0]["metrics"][0]["loss"]
+    rel = abs(tp_loss - dp_loss) / abs(dp_loss)
+    trainer = Trainer(tcfg, device="cuda")
+    state = Checkpointer(ckpt).restore_latest(trainer, trainer.init_state())
+    equal = all(np.array_equal(t.cpu().numpy(), e_tp[0]["params"][n])
+                for n, t in trainer.model.state_dict().items())
+    state, m = trainer.step(state, tbatch)
+    log(f"[parallel] (e) tiny float32: (1, 2) loss {tp_loss:.8f}, (2, 1) "
+        f"{dp_loss:.8f}, rel {rel:.2e}; {e_tp[0]['ms_per_step']:.2f} "
+        f"ms/step at (1, 2), {e_dp[0]['ms_per_step']:.2f} at (2, 1), over "
+        f"5 steps; roles {e_tp[0]['tp_roles']}; its "
+        f"checkpoint restored on one device "
+        f"{'equal bit for bit' if equal else 'DIFFERENT'}, a step after it: "
+        f"loss {float(m['loss']):.6f}")
+    require(rel <= 1e-4, "TP loss off DP's by more than 1e-4")
+    require(equal, "the TP checkpoint restores other parameters")
+    require(np.isfinite(float(m["loss"])), "no step after the restore")
+    count(e_tp + e_dp)
+    log(f"[parallel] kernel launches of the phase's mesh runs, all ranks: "
+        f"{launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def split_paths():
+    """(annotations file, image directory, proposals file) of phase 13's
+    split, as disk_split writes it."""
+    root = os.path.join(BUILD, "chip_smoke", "split")
+    return (os.path.join(root, "annotations", "instances_synthetic.json"),
+            os.path.join(root, "synthetic"),
+            os.path.join(root, "proposals_synthetic.npz"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2823,7 +3120,7 @@ def main() -> None:
     stats["window_read_probe"], probe_launches = probe_path()
     torch.cuda.empty_cache()
     split = disk_split()
-    dataset_eval_launches, split_ips = dataset_eval_path(*split)
+    dataset_eval_launches, split_ips, *phase13 = dataset_eval_path(*split)
     torch.cuda.empty_cache()
     train_eval_launches = train_eval_path(*split, resident_ms, resident_ips)
     log(f"[dataset_eval] split img/s from disk {split_ips:.2f}; one "
@@ -2838,6 +3135,8 @@ def main() -> None:
     sharpmask_launches, sm_e2e, sm_train = sharpmask_path()
     torch.cuda.empty_cache()
     serve_launches, serve = serve_path()
+    torch.cuda.empty_cache()
+    parallel_launches = parallel_path(phase13, resident_ms)
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -2861,7 +3160,8 @@ def main() -> None:
              "resnet": resnet_launches,
              "reference_exact": reference_launches,
              "sharpmask": sharpmask_launches,
-             "serve": {name: serve_launches.get(name, 0) for name in KERNELS}}
+             "serve": {name: serve_launches.get(name, 0) for name in KERNELS},
+             "parallel": parallel_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

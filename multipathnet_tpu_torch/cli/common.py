@@ -2,7 +2,9 @@
 selection + dataclass field overrides + data resolution (opts.lua +
 config.lua analog, SURVEY.md §2.1). `--device` names the device the
 entry points run on (core/device.resolve_device): the CUDA card unless the
-caller asks for the CPU."""
+caller asks for the CPU. Under torchrun (`launched_mesh`) each rank runs
+on its own card, or on the CPU with gloo, over the reference's data mesh
+(core/mesh.largest_data_mesh)."""
 
 from __future__ import annotations
 
@@ -67,13 +69,18 @@ def build_config(args) -> Config:
     return apply_overrides(preset(args.preset), args.set)
 
 
-def resolve_data(args, cfg: Config):
-    """Returns (loader, proposal_store). Generates synthetic data on demand."""
+def resolve_data(args, cfg: Config, mesh=None):
+    """Returns (loader, proposal_store). Generates synthetic data on demand
+    (on a mesh the first rank writes it under the shared --dataset-root
+    while the others wait)."""
     from multipathnet_tpu_torch.data import synthetic
     from multipathnet_tpu_torch.data.coco import CocoLoader, make_split
     from multipathnet_tpu_torch.data.proposals import ProposalStore
 
     root = args.dataset_root
+    if args.synthetic and mesh is not None and not root:
+        raise SystemExit("--synthetic on several ranks needs a shared "
+                         "--dataset-root")
     if getattr(args, "dataset", "coco") == "voc":
         from multipathnet_tpu_torch.data.voc import VocLoader
 
@@ -86,13 +93,14 @@ def resolve_data(args, cfg: Config):
                 root = tempfile.mkdtemp(prefix="mpnet_voc_")
             marker = os.path.join(root, f"VOC{year}", "ImageSets", "Main",
                                   f"{split}.txt")
-            if not os.path.exists(marker):
+            if not os.path.exists(marker) and is_first(mesh):
                 size = max(cfg.data.image_size)
                 synthetic.generate_voc(
                     root, num_images=16, image_size=min(size, 256),
                     num_classes=min(cfg.model.num_classes - 1, 20),
                     proposals_per_image=min(cfg.data.max_proposals, 64),
                     split=split, year=year, seed=cfg.train.seed)
+            _wait_for_first(mesh)
         if not root:
             raise SystemExit("--dataset-root required (or use --synthetic)")
         loader = VocLoader(root, split=split, year=year)
@@ -107,13 +115,14 @@ def resolve_data(args, cfg: Config):
             root = tempfile.mkdtemp(prefix="mpnet_synth_")
         marker = os.path.join(root, "annotations",
                               f"instances_{args.split}.json")
-        if not os.path.exists(marker):
+        if not os.path.exists(marker) and is_first(mesh):
             size = max(cfg.data.image_size)
             synthetic.generate(
                 root, num_images=16, image_size=min(size, 256),
                 num_classes=cfg.model.num_classes - 1,
                 proposals_per_image=min(cfg.data.max_proposals, 64),
                 split=args.split, seed=cfg.train.seed)
+        _wait_for_first(mesh)
         loader = CocoLoader(marker, os.path.join(root, args.split))
         prop_path = args.proposals or os.path.join(
             root, f"proposals_{args.split}.npz")
@@ -131,6 +140,33 @@ def resolve_data(args, cfg: Config):
     return loader, ProposalStore.load(prop_path)
 
 
+def launched_mesh(device: str, batch_size: int):
+    """-> (launched, mesh): whether torchrun started this process as one
+    of several ranks (WORLD_SIZE > 1), and then this rank's place in the
+    widest data mesh whose width divides batch_size (joined here: NCCL on
+    the card, one per rank; gloo on the CPU), None for a rank past it,
+    which has nothing to do. Not launched: (False, None), one device."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False, None
+    from multipathnet_tpu_torch.core import mesh as mesh_lib
+
+    mesh_lib.init_from_env(device)
+    return True, mesh_lib.largest_data_mesh(
+        batch_size, device=None if device == "cuda" else device)
+
+
+def is_first(mesh) -> bool:
+    """Whether this rank writes and prints: the mesh's first, or the one
+    process."""
+    return mesh is None or mesh.rank == 0
+
+
+def _wait_for_first(mesh) -> None:
+    from multipathnet_tpu_torch.core.mesh import barrier
+
+    barrier(mesh)
+
+
 def _serving(cfg: Config) -> bool:
     """Whether cfg asks for a serving transform (int8 head, truncated-SVD
     ranks), which checkpoints never hold."""
@@ -139,21 +175,22 @@ def _serving(cfg: Config) -> bool:
 
 
 def restore_float_state(cfg: Config, checkpoint_dir: str = "",
-                        strict: bool = True, device=None):
+                        strict: bool = True, device=None, mesh=None):
     """Shared CLI restore contract: checkpoints are FLOAT, so restore
     against a float-head Trainer on `device` even when the requested config
     is an int8 or truncated-SVD serving one — the transforms happen at the
     consumer (Detector at load).
 
     -> (trainer, state). strict: a checkpoint_dir with no checkpoint raises
-    SystemExit; strict=False keeps the random init."""
+    SystemExit; strict=False keeps the random init. `mesh`: the trainer's
+    (data) mesh, whose first rank reports."""
     from multipathnet_tpu_torch.train.loop import Trainer
 
     float_cfg = cfg
     if _serving(cfg):
         float_cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, head_quant="none", fc6_rank=0, fc7_rank=0))
-    trainer = Trainer(float_cfg, device=device)
+    trainer = Trainer(float_cfg, device=device, mesh=mesh)
     state = trainer.init_state()
     if checkpoint_dir:
         from multipathnet_tpu_torch.train.checkpoint import Checkpointer
@@ -165,7 +202,8 @@ def restore_float_state(cfg: Config, checkpoint_dir: str = "",
                 raise SystemExit(f"no checkpoint under {checkpoint_dir}")
         else:
             state = restored
-            print(f"restored step {state.step}", file=sys.stderr)
+            if is_first(mesh):
+                print(f"restored step {state.step}", file=sys.stderr)
     return trainer, state
 
 

@@ -7,8 +7,13 @@
 with RUN the train.checkpoint_dir of a cli.train run on the same DS.
 Prints the full COCO metric table (or one JSON line with --json). A serving
 preset (int8 head, truncated-SVD ranks) restores the float checkpoint and
-transforms it at load. Runs on one device: data-parallel evaluation is
-ROADMAP A17.
+transforms it at load. Under torchrun
+
+    torchrun --nproc_per_node=N -m multipathnet_tpu_torch.cli.eval ...
+
+it evaluates over the reference's data mesh (the widest width up to N that
+divides the eval batch; "eval mesh: W-wide data parallel" on stderr): each
+rank decodes and detects its rows, the first evaluates and prints.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 
 from multipathnet_tpu_torch.cli import common
 
@@ -31,21 +37,29 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     cfg = common.build_config(args)
-    loader, props = common.resolve_data(args, cfg)
+    launched, mesh = common.launched_mesh(args.device,
+                                          max(cfg.train.batch_size, 1))
+    if launched and mesh is None:
+        return  # a rank past the mesh's width
+    first = common.is_first(mesh)
+    loader, props = common.resolve_data(args, cfg, mesh)
     if loader.num_classes != cfg.model.num_classes:
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, num_classes=loader.num_classes))
 
     from multipathnet_tpu_torch.eval.tester import Tester
 
+    if mesh is not None and mesh.n_data > 1 and first:
+        print(f"eval mesh: {mesh.n_data}-wide data parallel",
+              file=sys.stderr)
     trainer, _ = common.restore_float_state(cfg, args.checkpoint_dir,
-                                            device=args.device)
+                                            device=args.device, mesh=mesh)
     model, params = common.eval_model_for(cfg, trainer)
     tester = Tester(model, cfg, loader, props, params=params,
-                    device=trainer.device)
+                    device=trainer.device, mesh=mesh)
     metrics = tester.test(max_images=args.max_images or None,
-                          verbose=not args.json)
-    if args.json:
+                          verbose=not args.json and first)
+    if args.json and first:
         print(json.dumps({k: round(v, 5) for k, v in metrics.items()}))
 
 

@@ -21,6 +21,16 @@ again. Batches reach the device through
 DetectionPipeline.epoch_on_device (pinned memory, a side CUDA stream), so
 batch N+1's copy overlaps step N. TensorBoard export (`--tensorboard`,
 ROADMAP A12d) is not ported yet and raises.
+
+On several cards (or CPU processes with --device cpu), under torchrun:
+
+    torchrun --nproc_per_node=N -m multipathnet_tpu_torch.cli.train \
+        --preset multipath_vgg16_train --dataset-root /data/coco ...
+
+the run trains over the reference's data mesh (the widest width up to N
+that divides the batch; train/loop.py): each rank decodes and steps its
+rows of every batch, the gradients are summed across ranks, and only the
+first rank writes checkpoints, metrics and prints.
 """
 
 from __future__ import annotations
@@ -98,26 +108,30 @@ def main(argv=None) -> None:
     if args.steps:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, total_steps=args.steps))
-    if 0 < cfg.train.total_steps <= cfg.train.warmup_steps:
-        # short runs inside the linear warmup train at LR ~0 and eval at
-        # chance — loud note instead of a silent AP=0
-        print(f"WARNING: total_steps={cfg.train.total_steps} <= "
-              f"warmup_steps={cfg.train.warmup_steps}; the LR never leaves "
-              f"warmup (peak {cfg.train.lr * cfg.train.total_steps / max(cfg.train.warmup_steps, 1):.2e} "
-              f"of lr={cfg.train.lr}). For short runs pass "
-              f"--set train.warmup_steps=0 (or a small value).")
-
     from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
     from multipathnet_tpu_torch.eval.tester import Tester
     from multipathnet_tpu_torch.train.checkpoint import Checkpointer
     from multipathnet_tpu_torch.train.loop import Trainer
     from multipathnet_tpu_torch.utils.metrics import MetricsLogger
 
-    loader, props = common.resolve_data(args, cfg)
+    launched, mesh = common.launched_mesh(args.device, cfg.train.batch_size)
+    if launched and mesh is None:
+        return  # a rank past the mesh's width
+    first = common.is_first(mesh)
+    say = print if first else (lambda *a, **k: None)
+    if 0 < cfg.train.total_steps <= cfg.train.warmup_steps:
+        # short runs inside the linear warmup train at LR ~0 and eval at
+        # chance — loud note instead of a silent AP=0
+        say(f"WARNING: total_steps={cfg.train.total_steps} <= "
+            f"warmup_steps={cfg.train.warmup_steps}; the LR never leaves "
+            f"warmup (peak {cfg.train.lr * cfg.train.total_steps / max(cfg.train.warmup_steps, 1):.2e} "
+            f"of lr={cfg.train.lr}). For short runs pass "
+            f"--set train.warmup_steps=0 (or a small value).")
+    loader, props = common.resolve_data(args, cfg, mesh)
     if loader.num_classes != cfg.model.num_classes:
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, num_classes=loader.num_classes))
-        print(f"config: num_classes -> {loader.num_classes} (from dataset)")
+        say(f"config: num_classes -> {loader.num_classes} (from dataset)")
 
     ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, "ckpt"))
     if not args.resume and ckpt.all_steps():
@@ -125,41 +139,45 @@ def main(argv=None) -> None:
             f"{ckpt.directory} already holds checkpoints (steps "
             f"{ckpt.all_steps()}): pass --resume to continue them, or set "
             f"another train.checkpoint_dir")
-    with open(os.path.join(cfg.train.checkpoint_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if first:
+        with open(os.path.join(cfg.train.checkpoint_dir, "config.json"),
+                  "w") as f:
+            f.write(cfg.to_json())
 
     if args.proposal_net:
         from multipathnet_tpu_torch.train.proposal import ProposalTrainer
 
-        trainer = ProposalTrainer(cfg, device=args.device)
+        trainer = ProposalTrainer(cfg, device=args.device, mesh=mesh)
     else:
-        trainer = Trainer(cfg, device=args.device)
-    print(f"dataset: {len(loader)} images, {loader.num_classes} classes; "
-          f"device: {trainer.device}")
-    pipe = DetectionPipeline(loader, props, cfg.data,
-                             batch_size=cfg.train.batch_size,
-                             seed=cfg.train.seed,
-                             with_masks=args.proposal_net)
+        trainer = Trainer(cfg, device=args.device, mesh=mesh)
+    width = "" if mesh is None else f" x {mesh.n_data} data ranks"
+    say(f"dataset: {len(loader)} images, {loader.num_classes} classes; "
+        f"device: {trainer.device}{width}")
+    pipe = DetectionPipeline(
+        loader, props, cfg.data, batch_size=cfg.train.batch_size,
+        seed=cfg.train.seed, with_masks=args.proposal_net,
+        shard=(0, 1) if mesh is None else (mesh.data_rank, mesh.n_data))
     logger = MetricsLogger(
         os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl"),
         tensorboard_dir=(os.path.join(cfg.train.checkpoint_dir, "tb")
-                         if args.tensorboard else None))
+                         if args.tensorboard else None)) if first \
+        else MetricsLogger(echo=False)
 
     state = trainer.init_state()
     if args.resume:
         restored = ckpt.restore_latest(trainer, state)
         if restored is not None:
             state = restored
-            print(f"resumed from step {state.step}")
+            say(f"resumed from step {state.step}")
         else:
-            print("no checkpoint found; starting fresh")
+            say("no checkpoint found; starting fresh")
 
     def run_eval(tag):
         if args.proposal_net:
             m = _proposal_recall(trainer, loader, cfg)
         else:
             m = Tester(trainer.model, cfg, loader, props,
-                       device=trainer.device).test()
+                       device=trainer.device, mesh=mesh).test()
         logger.log(state.step, tag=tag, **m)
         return m
 
@@ -176,7 +194,7 @@ def main(argv=None) -> None:
             if not first_step_logged:
                 dt0 = time.time() - t_start
                 logger.log(step, time_to_first_step=dt0)
-                print(f"time to first step: {dt0:.1f}s")
+                say(f"time to first step: {dt0:.1f}s")
                 first_step_logged = True
             if step % cfg.train.log_every == 0:
                 dt = time.time() - t_last
@@ -196,7 +214,7 @@ def main(argv=None) -> None:
     ckpt.wait()
     if not args.no_final_eval:
         m = run_eval("final")
-        print("final:", {k: round(v, 4) for k, v in m.items()})
+        say("final:", {k: round(v, 4) for k, v in m.items()})
     logger.close()
 
 

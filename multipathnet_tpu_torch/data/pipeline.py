@@ -9,6 +9,12 @@ train.loop.Batch of numpy arrays, field for field the reference's
 (tests/test_torch_data.py); `epoch_on_device` hands each one to a `put`
 (Trainer.stream_batch: pinned memory, a side CUDA stream) `depth` batches
 ahead of its use.
+
+`shard=(index, count)` makes the pipeline one data-parallel rank's: each
+batch is cut into `count` equal parts of consecutive rows and only part
+`index` is decoded and returned, so the ranks' parts together are the
+single-process batch, in its order (`examples_decoded` counts what this
+pipeline decoded).
 """
 
 from __future__ import annotations
@@ -31,7 +37,13 @@ class DetectionPipeline:
                  batch_size: int, seed: int = 0,
                  raw_hw: Optional[tuple] = None,
                  with_masks: bool = False, mask_size: int = 28,
-                 num_workers: int = 2):
+                 num_workers: int = 2, shard: tuple = (0, 1)):
+        index, count = shard
+        if batch_size % count or not 0 <= index < count:
+            raise ValueError(f"batch {batch_size} does not split into "
+                             f"{count} parts, or part {index} is not one")
+        self.shard = shard
+        self.examples_decoded = 0
         self.loader = loader
         self.proposals = proposals
         self.cfg = cfg
@@ -106,8 +118,18 @@ class DetectionPipeline:
                                  np.float32) / 255.0
         return out
 
+    def _rows(self, idxs):
+        """This shard's part of a batch's image indices."""
+        index, count = self.shard
+        if len(idxs) % count:
+            raise ValueError(f"a batch of {len(idxs)} does not split into "
+                             f"{count} parts")
+        k = len(idxs) // count
+        return idxs[index * k:(index + 1) * k]
+
     def _assemble(self, idxs) -> Batch:
-        ints = [int(i) for i in idxs]
+        ints = [int(i) for i in self._rows(idxs)]
+        self.examples_decoded += len(ints)
         if self._pool is not None:
             examples = list(self._pool.map(self._make_example, ints))
         else:
@@ -151,7 +173,9 @@ class DetectionPipeline:
     def eval_batches(self, batch_size: Optional[int] = None) -> Iterator[tuple]:
         """Sequential (no shuffle/aug) batches for the tester: yields
         (image_indices, Batch). The last partial batch is padded by repeating
-        the final example; consumers slice by len(indices)."""
+        the final example; consumers slice by len(indices). A shard's
+        Batch holds its rows of the padded batch; the indices stay the
+        whole batch's."""
         bs = batch_size or self.batch_size
         n = len(self.loader)
         for s in range(0, n, bs):

@@ -102,12 +102,17 @@ def sample_rois(noise, proposals, prop_mask, gt_boxes, gt_classes, gt_mask,
 
 
 def sample_batch(generator: torch.Generator, proposals, prop_mask, gt_boxes,
-                 gt_classes, gt_mask, **kw) -> RoiSample:
+                 gt_classes, gt_mask, shard=None, **kw) -> RoiSample:
     """Draws the uniform noise from `generator` (on the inputs' device) and
-    samples every image of the batch: tensors with a leading batch axis."""
+    samples every image of the batch: tensors with a leading batch axis.
+    `shard` (index, count): the batch is part `index` of `count` equal
+    parts of a global batch; the noise is drawn for all of it and this
+    part's rows kept."""
     b, p = proposals.shape[:2]
-    noise = torch.rand((b, 2, p + gt_boxes.shape[1]), generator=generator,
-                       device=proposals.device)
+    index, count = shard or (0, 1)
+    noise = torch.rand((b * count, 2, p + gt_boxes.shape[1]),
+                       generator=generator,
+                       device=proposals.device)[index * b:(index + 1) * b]
     return sample_rois(noise, proposals, prop_mask, gt_boxes, gt_classes,
                        gt_mask, **kw)
 

@@ -17,6 +17,14 @@ load for a serving config, as the reference's Detector does
 (`serving_params`): truncated-SVD factorization when the config has fc
 ranks, then int8 quantization when it has head_quant="int8"; a tree
 already in that form passes through.
+
+On a mesh (core/mesh.py; `Detector(..., mesh=...)`) each rank detects its
+rows of the batch, as the reference's shard_map over the data axis does,
+and the detections are all-gathered, so every rank returns the whole
+batch; the images are independent, so the split is exact. On a model
+axis wider than one the head is tensor-parallel (models/heads.
+shard_head_), which leaves the int8 head's outputs bit for bit the
+unsharded ones.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ from __future__ import annotations
 import torch
 
 from multipathnet_tpu_torch.core.config import Config, ModelConfig
+from multipathnet_tpu_torch.core.mesh import all_gather_cat
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert
+from multipathnet_tpu_torch.models.heads import shard_head_
 from multipathnet_tpu_torch.models.multipath import MultiPathNet
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops import lowrank, quant
@@ -127,19 +137,38 @@ class Detector:
     goes through `serving_params` for cfg.model and into `model`, which must
     be built for cfg.model. Without it the model serves the weights it
     holds. The model is moved to `device` (by default its own, which
-    build_model puts on the card) and put in eval mode.
+    build_model puts on the card; on a mesh, the mesh's) and put in eval
+    mode. With a `mesh` the batch size must divide by its data width, and
+    a model axis wider than one shards the head (module docstring).
     """
 
     def __init__(self, model: MultiPathNet, cfg: Config, device=None,
-                 params=None):
+                 params=None, mesh=None):
         if params is not None:
             convert.load_flax_params(model, serving_params(params, cfg.model))
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device) if device is not None else (
             next(model.parameters()).device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            shard_head_(self.model.head, mesh)
 
     def __call__(self, images_u8, src_hws, proposals, prop_mask) -> dict:
+        """A batch (numpy or tensors) -> its detections as numpy arrays;
+        on a mesh each rank detects its rows and returns the whole
+        batch's."""
+        rows = slice(None)
+        if self.mesh is not None and self.mesh.n_data > 1:
+            rows = self.mesh.rows(len(images_u8))
+        return self.detect_rows(images_u8[rows], src_hws[rows],
+                                proposals[rows], prop_mask[rows])
+
+    def detect_rows(self, images_u8, src_hws, proposals, prop_mask) -> dict:
+        """This rank's rows of a batch -> the whole batch's detections
+        (all-gathered over the mesh's data axis), as numpy arrays."""
         def put(x, dtype):
             return torch.as_tensor(x, dtype=dtype, device=self.device)
 
@@ -148,4 +177,7 @@ class Detector:
                            put(src_hws, torch.float32),
                            put(proposals, torch.float32),
                            put(prop_mask, torch.bool))
+        if self.mesh is not None:
+            out = {k: all_gather_cat(v, self.mesh.data_group)
+                   for k, v in out.items()}
         return {k: v.cpu().numpy() for k, v in out.items()}

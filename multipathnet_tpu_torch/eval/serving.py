@@ -68,7 +68,10 @@ def load_bundle(path: str, device=None):
     return cfg, build_model(cfg.model, device=device), params
 
 
-def load_detector(path: str, device=None) -> Detector:
-    """One-call serving entry: bundle directory -> a ready Detector."""
+def load_detector(path: str, device=None, mesh=None) -> Detector:
+    """One-call serving entry: bundle directory -> a ready Detector, over
+    `mesh` when one is given (eval/detect.Detector), on its device."""
+    if mesh is not None:
+        device = mesh.device
     cfg, model, params = load_bundle(path, device)
-    return Detector(model, cfg, params=params)
+    return Detector(model, cfg, params=params, mesh=mesh)

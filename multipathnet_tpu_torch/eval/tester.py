@@ -3,9 +3,13 @@
 
 Loop over an eval split: batched detection on the device (eval/detect.py),
 convert the fixed-size detection sets to COCO result dicts, score with the
-self-contained evaluator (eval/coco_eval.py, eval/voc_eval.py). The
-reference's mesh has no counterpart here: data-parallel evaluation is
-ROADMAP A17.
+self-contained evaluator (eval/coco_eval.py, eval/voc_eval.py).
+
+On a mesh (`Tester(..., mesh=...)`, core/mesh.py) each rank decodes and
+detects only its rows of each batch (DetectionPipeline(shard=...)), the
+detections are all-gathered (eval/detect.Detector.detect_rows), the
+mesh's first rank converts and evaluates them, and the metrics are
+broadcast to every rank.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from multipathnet_tpu_torch.core.config import Config
+from multipathnet_tpu_torch.core.mesh import broadcast_object
 from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
 from multipathnet_tpu_torch.data.proposals import ProposalStore
 from multipathnet_tpu_torch.eval.coco_eval import CocoEvaluator
@@ -93,23 +98,32 @@ def groundtruth_to_coco(loader, segm: bool = False) -> list[dict]:
 
 
 class Tester:
-    """`model`, `cfg`, `device` and `params` go to Detector (which moves
-    the model to `device`, by default the model's own, and transforms a
-    flax-layout `params` tree for a serving config at load)."""
+    """`model`, `cfg`, `device`, `params` and `mesh` go to Detector (which
+    moves the model to `device`, by default the model's own, and transforms
+    a flax-layout `params` tree for a serving config at load). On a mesh
+    the batch size must divide by its data width."""
 
     __test__ = False  # not a pytest class
 
     def __init__(self, model: MultiPathNet, cfg: Config, loader,
                  proposals: ProposalStore, params=None, device=None,
-                 batch_size: int = None):
+                 batch_size: int = None, mesh=None):
         self.cfg = cfg
         self.loader = loader
         self.proposals = proposals
-        self.detector = Detector(model, cfg, device=device, params=params)
+        self.mesh = mesh
+        self.detector = Detector(model, cfg, device=device, params=params,
+                                 mesh=mesh)
+        shard = (0, 1) if mesh is None else (mesh.data_rank, mesh.n_data)
         self.pipeline = DetectionPipeline(
             loader, proposals, cfg.data,
             batch_size=batch_size or max(cfg.train.batch_size, 1),
-            seed=cfg.train.seed)
+            seed=cfg.train.seed, shard=shard)
+
+    @property
+    def evaluates(self) -> bool:
+        """Whether this rank converts and evaluates (the mesh's first)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def collect_detections(self, max_images: int = None,
                            with_segm: bool = False) -> list[dict]:
@@ -118,7 +132,8 @@ class Tester:
         batch to its device and returns host arrays, so nothing here
         overlaps the card (a pinned side-stream copy ahead of use measured
         no faster over a split on the card: PERF.md); results equal a
-        serial loop's."""
+        serial loop's. On a mesh each rank detects its rows and only the
+        first converts: the others return no result dicts."""
         def convert(idxs, out):
             ids = [self.loader.image_id(i) for i in idxs]
             sliced = {k: np.asarray(v)[: len(ids)] for k, v in out.items()}
@@ -136,10 +151,10 @@ class Tester:
         pending = None
         for idxs, batch in self.pipeline.eval_batches():
             # the fields Detector reads: images, src_hws, proposals, prop_mask
-            out = self.detector(*batch[:4])
+            out = self.detector.detect_rows(*batch[:4])
             if pending is not None:
                 results.extend(convert(*pending))
-            pending = (idxs, out)
+            pending = (idxs, out) if self.evaluates else None
             done += len(idxs)
             if max_images and done >= max_images:
                 break
@@ -155,6 +170,15 @@ class Tester:
         proposal's mask — requires a mask-proposal store)."""
         segm = mode == "segm"
         dets = self.collect_detections(max_images, with_segm=segm)
+        metrics = None
+        if self.evaluates:
+            metrics = self._evaluate(dets, max_images, verbose, protocol,
+                                     segm)
+        if self.mesh is not None:
+            metrics = broadcast_object(metrics, self.mesh.group)
+        return metrics
+
+    def _evaluate(self, dets, max_images, verbose, protocol, segm) -> dict:
         gts = groundtruth_to_coco(self.loader, segm=segm)
         if max_images:
             keep_ids = {self.loader.image_id(i)

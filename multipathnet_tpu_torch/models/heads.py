@@ -22,6 +22,19 @@ float checkpoint, eval/detect.serving_params):
   fc6_rank/fc7_rank = t > 0: that FC family is a bias-free (in -> t)
       factor `{name}_u` followed by the (t -> fc_dim) layer `{name}` that
       keeps the bias, with no ReLU between (ops/lowrank.py).
+
+Tensor parallelism (`shard_head_`, the reference's layout in
+core/mesh.MeshRules): each rank of the model axis keeps its columns of a
+column-parallel layer and its input rows of a row-parallel one, in every
+layout above. A column-parallel layer reads the whole input (its gradient
+all-reduced over the model axis) and writes its columns; a row-parallel
+layer reads its columns and its float32 partial products are all-reduced,
+rounded to the compute dtype once, and the bias added after, as
+models/layers.py adds it; an int8 row-parallel layer quantizes its columns
+with each row's largest magnitude over all of them (an all-reduce of the
+maxima) and sums the int32 partials exactly, so it equals the unsharded
+layer bit for bit. Wherever a layer needs the whole input and holds a
+part, the parts are all-gathered (cls_bbox's output among them).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multipathnet_tpu_torch.core import mesh as mesh_lib
 from multipathnet_tpu_torch.models import layers
 from multipathnet_tpu_torch.ops import quant
 
@@ -92,12 +106,26 @@ class Int8Linear(nn.Module):
         row scales."""
         if x_scale is None:
             x, x_scale = quant.quantize_rows(x)
+        return self.rescale(self.accumulate(x), x_scale)
+
+    def accumulate(self, x_i8: torch.Tensor) -> torch.Tensor:
+        """(M, in_features) int8 codes -> the (M, N padded) int32 products."""
         k_pad = self.weight_i8.shape[1]
-        if x.shape[-1] != k_pad:
-            x = F.pad(x, (0, k_pad - x.shape[-1]))
-        out = quant.matmul_int8(x, x_scale, self.weight_i8,
-                                self.weight_scale, self.bias)
+        if x_i8.shape[-1] != k_pad:
+            x_i8 = F.pad(x_i8, (0, k_pad - x_i8.shape[-1]))
+        return quant.int_mm(x_i8, self.weight_i8)
+
+    def rescale(self, acc: torch.Tensor, x_scale: torch.Tensor):
+        """The int32 products and the (M, 1) row scales -> the output in
+        `dtype` (ops/quant.rescale_int32, then the padding dropped)."""
+        out = quant.rescale_int32(acc, x_scale, self.weight_scale, self.bias)
         return out[:, :self.out_features].to(self.dtype)
+
+    def logical_state(self) -> dict:
+        """The buffers without their padding, by name."""
+        return {name: getattr(self, name)[tuple(
+            slice(0, n) for n in self._logical(name))]
+            for name in _INT8_BUFFERS if getattr(self, name) is not None}
 
 
 class MultiPathHead(nn.Module):
@@ -144,37 +172,80 @@ class MultiPathHead(nn.Module):
         self.cls_dim = num_integral_heads * num_classes
         bbox_dim = 4 * num_classes if class_specific_bbox else 4
         dense("cls_bbox", self.num_views * fc_dim, self.cls_dim + bbox_dim)
+        self.mesh = None      # set by shard_head_
+        self.tp_roles = {}    # sharded layer -> "col" | "row"
 
-    def _dropout(self, h, train: bool, generator):
+    def _dropout(self, h, train: bool, generator, shard=None,
+                 local: bool = False):
+        """Dropout of h (n, d), its mask drawn at the global shape: the
+        whole batch (`shard` (index, count): h holds rows part `index` of
+        `count`) and, when h holds this rank's columns (`local`), every
+        column; this rank's part of it is kept. One process draws h.shape."""
         if not train or self.dropout_rate == 0.0:
             return h
         keep = 1.0 - self.dropout_rate
-        mask = torch.rand(h.shape, generator=generator,
-                          device=h.device) < keep
+        index, count = shard or (0, 1)
+        n, d = h.shape
+        n_model = self.mesh.n_model if local else 1
+        mask = torch.rand((n * count, d * n_model), generator=generator,
+                          device=h.device)[index * n:(index + 1) * n]
+        if local:
+            mask = mask[:, self.mesh.cols(d * n_model)]
+        mask = mask < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
-    def _dense(self, name, x, x_scale=None):
+    def _dense(self, name, x, x_scale=None, local: bool = False):
+        """One GEMM of x (all its columns, or this rank's when `local`) ->
+        (output, whether it holds this rank's columns only)."""
         mod = getattr(self, name)
+        role = self.tp_roles.get(name)
+        group = self.mesh.model_group if self.mesh is not None else None
+        if role == "row":
+            if not local:  # a row's codes keep the row's scale
+                x = mesh_lib.split_cols(x, group)
+            return self._row_parallel(mod, x, x_scale, group), False
+        if local:
+            x = mesh_lib.gather_cols(x, group)
+        if role == "col":
+            x = mesh_lib.copy_to_model(x, group)
         if isinstance(mod, Int8Linear):
-            return mod(x, x_scale)
-        return layers.linear(mod, x, self.dtype)
+            return mod(x, x_scale), role == "col"
+        return layers.linear(mod, x, self.dtype), role == "col"
 
-    def _fc(self, name, x, x_scale=None):
+    def _row_parallel(self, mod, x, x_scale, group):
+        """A row-parallel layer on this rank's input columns: the partial
+        products summed over the model axis (int32 exactly; float32 then
+        rounded once to the compute dtype), then the bias."""
+        if isinstance(mod, Int8Linear):
+            if x_scale is None:
+                x, x_scale = quant.quantize_rows(
+                    x, mesh_lib.all_max(quant.row_amax(x), group))
+            return mod.rescale(mesh_lib.all_sum(mod.accumulate(x), group),
+                               x_scale)
+        dt = self.dtype
+        part = _linear_f32(x.to(dt), mod.weight.to(dt))
+        y = mesh_lib.reduce_from_model(part, group).to(dt)
+        return y if mod.bias is None else y + mod.bias.to(dt)
+
+    def _fc(self, name, x, x_scale=None, local: bool = False):
         """One FC: the factor then the named layer when it is factored
         (only the first GEMM takes a pre-quantized input), else the named
-        layer alone."""
+        layer alone. -> (output, whether it holds this rank's columns)."""
         if hasattr(self, f"{name}_u"):
-            x, x_scale = self._dense(f"{name}_u", x, x_scale), None
-        return self._dense(name, x, x_scale)
+            x, local = self._dense(f"{name}_u", x, x_scale, local)
+            x_scale = None
+        return self._dense(name, x, x_scale, local)
 
     def forward(self, pooled: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                pooled_scale: torch.Tensor | None = None):
+                pooled_scale: torch.Tensor | None = None, shard=None):
         """pooled (B, F, R, G, G, C) -> (scores (B*R, K, num_classes) f32,
         bbox_deltas (B*R, D) f32). `generator` draws the dropout masks
         (train mode only). `pooled_scale` (B, F, R, 1) float32: pooled is
         int8 from the pool kernels, skip bias, ReLU and quantization
-        already applied (int8 serving only)."""
+        already applied (int8 serving only). `shard` (index, count): the
+        batch is part `index` of `count` equal parts of the global batch,
+        whose shape the dropout masks are drawn at."""
         b, f, r, g, _, c = pooled.shape
         if f != self.num_views or c != self.skip_reduce_dim:
             raise ValueError(f"pooled {tuple(pooled.shape)} does not match "
@@ -198,14 +269,113 @@ class MultiPathHead(nn.Module):
             if self.quant == "int8":
                 # once per (ROI, view) row, then int8 slices per branch
                 x, xs = quant.quantize_rows(x.reshape(b, f, r, g * g * c))
+        group = self.mesh.model_group if self.mesh is not None else None
         branches = []
         for i in range(f):
-            h = self._fc(f"fc6_f{i}", x[:, i].reshape(n, g * g * c),
-                         None if xs is None else xs[:, i].reshape(n, 1))
-            h = self._dropout(F.relu(h), train, generator)
-            h = F.relu(self._fc(f"fc7_f{i}", h))
-            branches.append(self._dropout(h, train, generator))
-        out = self._dense("cls_bbox", torch.cat(branches, dim=-1))
+            h, local = self._fc(f"fc6_f{i}", x[:, i].reshape(n, g * g * c),
+                                None if xs is None
+                                else xs[:, i].reshape(n, 1))
+            h = self._dropout(F.relu(h), train, generator, shard, local)
+            h, local = self._fc(f"fc7_f{i}", h, local=local)
+            h = self._dropout(F.relu(h), train, generator, shard, local)
+            branches.append(mesh_lib.gather_cols(h, group) if local else h)
+        out, local = self._dense("cls_bbox", torch.cat(branches, dim=-1))
+        if local:
+            out = mesh_lib.gather_cols(out, group)
         scores = out[:, :self.cls_dim].reshape(
             n, self.num_integral_heads, self.num_classes)
         return scores.float(), out[:, self.cls_dim:].float()
+
+
+def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T of operands already rounded to the compute dtype, the sum in
+    float32 (a row-parallel layer's partial product). On the card with a
+    bf16 or float16 compute dtype the float32 GEMM runs with TF32
+    allowed, as models/layers.conv_f32 runs its convolution: the operands
+    are exact in TF32 and the tensor cores sum in float32."""
+    exact_tf32 = x.is_cuda and x.dtype != torch.float32
+    x, w = x.float(), w.float()
+    if not exact_tf32:
+        return F.linear(x, w)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return F.linear(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _shard_dense(mod, col: bool, mesh):
+    """This rank's part of a dense layer: the output columns (`col`) or
+    the input rows of its (in, out) kernel, as a new layer of the same
+    kind; a row-parallel layer keeps the whole bias (and int8 scale)."""
+    k, n = mod.in_features, mod.out_features
+    part = mesh.cols(n if col else k)
+    width = part.stop - part.start
+    if isinstance(mod, Int8Linear):
+        st = mod.logical_state()
+        new = Int8Linear(k if col else width, width if col else n,
+                         mod.bias is not None, mod.dtype,
+                         mod.weight_i8.device)
+        sd = {name: (t[part] if col else t) for name, t in st.items()}
+        if not col:
+            sd["weight_i8"] = st["weight_i8"][:, part]
+        new.load_state_dict({name: t.clone() for name, t in sd.items()})
+        return new
+    w = mod.weight
+    new = nn.Linear(k if col else width, width if col else n,
+                    mod.bias is not None, device=w.device, dtype=w.dtype)
+    with torch.no_grad():
+        new.weight.copy_(w[part] if col else w[:, part])
+        if mod.bias is not None:
+            new.bias.copy_(mod.bias[part] if col else mod.bias)
+    for p_new, p_old in zip(new.parameters(), mod.parameters()):
+        p_new.requires_grad_(p_old.requires_grad)
+    return new
+
+
+def shard_head_(head: MultiPathHead, mesh) -> MultiPathHead:
+    """Shards the head over the mesh's model axis in place: each layer the
+    reference's rules shard (core/mesh.MeshRules.head_layout) is replaced
+    by this rank's part of its current weights; the rest stay whole. On a
+    model axis of 1 only the mesh is recorded. A head already on this mesh
+    (a Trainer's, handed to a Detector or Tester with the trainer's mesh)
+    is left as it is; a head sharded over another mesh raises."""
+    if head.mesh is mesh:
+        return head
+    if head.mesh is not None and (head.tp_roles or mesh.n_model > 1):
+        raise ValueError("the head is already on another mesh; build the "
+                         "model anew to shard it over this one")
+    head.mesh = mesh
+    if mesh.n_model == 1:
+        return head
+    rules = mesh_lib.MeshRules(mesh.n_model)
+    u_names = {name for name, _ in head.named_children()
+               if name.endswith("_u")}
+    for name, mod in list(head.named_children()):
+        if not isinstance(mod, (nn.Linear, Int8Linear)):
+            continue
+        axis = rules.head_layout(f"{name}/kernel",
+                                 (mod.in_features, mod.out_features),
+                                 u_names)
+        if axis is None:
+            continue
+        head.tp_roles[name] = "col" if axis == 1 else "row"
+        setattr(head, name, _shard_dense(mod, axis == 1, head.mesh))
+    return head
+
+
+def tp_dims(head: MultiPathHead) -> dict:
+    """{name in head.state_dict(): the dimension the model axis shards}
+    for every sharded tensor (torch's (out, in) weights: a column-parallel
+    layer's dim 0 and its bias and scale, a row-parallel layer's dim 1)."""
+    out = {}
+    for layer, role in head.tp_roles.items():
+        w = "weight_i8" if isinstance(getattr(head, layer),
+                                      Int8Linear) else "weight"
+        out[f"{layer}.{w}"] = 0 if role == "col" else 1
+        if role == "col":
+            for vec in ("bias", "weight_scale"):
+                if getattr(getattr(head, layer), vec, None) is not None:
+                    out[f"{layer}.{vec}"] = 0
+    return out

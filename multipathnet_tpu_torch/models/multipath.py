@@ -257,24 +257,28 @@ class MultiPathNet(nn.Module):
 
     def predict_rois(self, pooled: torch.Tensor, train: bool = False,
                      generator: torch.Generator | None = None,
-                     pooled_scale: torch.Tensor | None = None):
+                     pooled_scale: torch.Tensor | None = None,
+                     shard=None):
         """pooled (B, F, R, G, G, C) -> scores (B, R, K, classes) f32,
-        deltas (B, R, D) f32. `generator` draws the train-mode dropout;
-        `pooled_scale` goes with the int8 output of pool_rois_quantized."""
+        deltas (B, R, D) f32. `generator` draws the train-mode dropout (at
+        the global batch's shape, `shard` (index, count) naming this
+        batch's part of it); `pooled_scale` goes with the int8 output of
+        pool_rois_quantized."""
         b, r = pooled.shape[0], pooled.shape[2]
         scores, deltas = self.head(pooled, train=train, generator=generator,
-                                   pooled_scale=pooled_scale)
+                                   pooled_scale=pooled_scale, shard=shard)
         return (scores.reshape(b, r, scores.shape[1], -1),
                 deltas.reshape(b, r, -1))
 
     def forward(self, images: torch.Tensor, rois: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, shard=None):
         """{images (B, H, W, 3), rois (B, R, 4)} -> (class_scores,
         bbox_deltas), the reference's contract."""
         feats = self.features(images)
         pooled = self.pool_rois(feats, rois, images.shape[1:3], train=train)
-        return self.predict_rois(pooled, train=train, generator=generator)
+        return self.predict_rois(pooled, train=train, generator=generator,
+                                 shard=shard)
 
 
 def build_model(cfg: ModelConfig, freeze_stages: int = 0, param_dtype=None,

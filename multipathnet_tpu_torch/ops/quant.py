@@ -41,14 +41,22 @@ def quantize_weight(w: torch.Tensor):
     return w_i8, scale
 
 
-def quantize_rows(x: torch.Tensor):
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """(..., K) -> (..., 1) float32 largest magnitude of each row."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows(x: torch.Tensor, amax: torch.Tensor | None = None):
     """(..., K) float activations -> ((..., K) int8, (..., 1) float32 row
     scale). The scale is amax * float32(1/127), a constant multiply and not
     amax / 127, exactly as the reference (a one-ulp gap in the scale flips
-    round() ties)."""
+    round() ties). `amax` (..., 1), when given, is each row's largest
+    magnitude over the whole row of which x holds some columns (a
+    row-parallel layer's input, models/heads.py)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) * INV_127,
-                        min=1e-12)
+    if amax is None:
+        amax = row_amax(xf)
+    scale = torch.clamp(amax * INV_127, min=1e-12)
     x_i8 = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return x_i8, scale
 
@@ -85,7 +93,15 @@ def matmul_int8(x_i8: torch.Tensor, x_scale: torch.Tensor,
     rounded to the float32 output (a double rounding that differs from a
     true fused multiply-add only on an exact float32 tie of the float64
     sum). Returns float32."""
-    acc = int_mm(x_i8, w_nk).float()
+    return rescale_int32(int_mm(x_i8, w_nk), x_scale, w_scale, bias)
+
+
+def rescale_int32(acc: torch.Tensor, x_scale: torch.Tensor,
+                  w_scale: torch.Tensor,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """matmul_int8's epilogue on the int32 products: float32(acc) *
+    (x_scale * w_scale) + bias, rounded once."""
+    acc = acc.float()
     sc = x_scale * w_scale
     if bias is None:
         return acc * sc

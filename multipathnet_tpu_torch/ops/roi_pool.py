@@ -44,8 +44,11 @@ placement GEMMs:
       backward.
 Each wrapper runs its plain PyTorch version (`*_ref`: gather or scatter
 the windows, contract them in float32) for tensors on the CPU, launches its
-kernel for tensors on a CUDA device, and raises for anything else.
-`launches` on each wrapper counts its kernel launches.
+kernel for tensors on a CUDA device, and raises for anything else. A
+kernel launches on its input's card (under torch.cuda.device of it, since
+the ctypes launchers take a stream and no device), so a rank pinned to
+cuda:1 never launches on card 0. `launches` on each wrapper counts its
+kernel launches.
 """
 
 from __future__ import annotations
@@ -347,11 +350,13 @@ def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
     ptrs = [f.data_ptr() for f in flats] + pad
     rows = [f.shape[0] for f in flats] + [0] * (3 - nl)
     wmax = [f.shape[1] for f in flats] + [0] * (3 - nl)
-    _launch_pool("window_pool_kernel", lambda bias, dst, scale: (
-        _build.kernels().mpn_window_pool_multi(
-            _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
-            row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-            bias, dst, scale, _stream(dev))), flat0, out, scales, quant_bias)
+    with torch.cuda.device(dev):
+        _launch_pool("window_pool_kernel", lambda bias, dst, scale: (
+            _build.kernels().mpn_window_pool_multi(
+                _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
+                row0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+                wx.data_ptr(), bias, dst, scale, _stream(dev))), flat0, out,
+            scales, quant_bias)
     return out, scales, 1
 
 
@@ -384,12 +389,13 @@ def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
         return out if quant_bias is None else (out, scales)
     from multipathnet_tpu_torch.ops import _build
 
-    _launch_pool("resident_pool", lambda bias, dst, scale: (
-        _build.kernels().mpn_resident_pool(
-            _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c,
-            flat.data_ptr(), row0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
-            wx.data_ptr(), bias, dst, scale, _stream(dev))), flat, out,
-        scales, quant_bias)
+    with torch.cuda.device(dev):
+        _launch_pool("resident_pool", lambda bias, dst, scale: (
+            _build.kernels().mpn_resident_pool(
+                _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c,
+                flat.data_ptr(), row0.data_ptr(), x0.data_ptr(),
+                wy.data_ptr(), wx.data_ptr(), bias, dst, scale,
+                _stream(dev))), flat, out, scales, quant_bias)
     if quant_bias is None:
         resident_pool.launches += 1
         return out
@@ -528,10 +534,12 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
         raise ValueError(f"{n} views do not split over {batch} images")
     out = torch.empty((batch * rows, wmax, c), dtype=dtype, device=dev)
     scratch = _grad_scratch(batch, rows, wmax, n, dev)
-    rc = _grad_kernels().mpn_window_grad(
-        _GRAD_OUT_DTYPES[dtype], batch, n // batch, rows, wmax, c,
-        gout.data_ptr(), row0_rel.data_ptr(), x0.data_ptr(), wy.data_ptr(),
-        wx.data_ptr(), out.data_ptr(), scratch.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _grad_kernels().mpn_window_grad(
+            _GRAD_OUT_DTYPES[dtype], batch, n // batch, rows, wmax, c,
+            gout.data_ptr(), row0_rel.data_ptr(), x0.data_ptr(),
+            wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_grad launch failed: cudaError {rc}")
     window_grad.launches += 1
@@ -561,10 +569,11 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
     _check_windows(row0, x0, rows, wmax)
     out = torch.empty((rows, wmax, c), dtype=dtype, device=dev)
     scratch = _grad_scratch(1, rows, wmax, n, dev)
-    rc = _grad_kernels().mpn_window_rmw_grad(
-        _GRAD_OUT_DTYPES[dtype], n, rows, wmax, c, gout.data_ptr(),
-        row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _grad_kernels().mpn_window_rmw_grad(
+            _GRAD_OUT_DTYPES[dtype], n, rows, wmax, c, gout.data_ptr(),
+            row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_rmw_grad launch failed: cudaError {rc}")
     window_rmw_grad.launches += 1

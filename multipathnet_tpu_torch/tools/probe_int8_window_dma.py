@@ -86,9 +86,10 @@ def window_read_probe(flat, row0, x0) -> torch.Tensor:
         return out
     from multipathnet_tpu_torch.ops import _build
 
-    rc = _build.kernels().mpn_window_read_probe(
-        _IS_INT8[flat.dtype], n, rows, wmax, c, flat.data_ptr(),
-        row0.data_ptr(), x0.data_ptr(), out.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _build.kernels().mpn_window_read_probe(
+            _IS_INT8[flat.dtype], n, rows, wmax, c, flat.data_ptr(),
+            row0.data_ptr(), x0.data_ptr(), out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_read_probe launch failed: cudaError {rc}")
     window_read_probe.launches += 1

@@ -15,6 +15,15 @@ background thread, to a temporary file first and then into place by
 os.replace, so a run killed mid-write leaves no torn checkpoint; `wait`
 joins the write. The port does not read the reference's orbax checkpoints
 (ROADMAP §C).
+
+On a mesh (the trainer's `.mesh`) a checkpoint holds whole tensors, as one
+process's does: `save` gathers each tensor-parallel parameter and its
+momentum over the model axis (every rank calls it), the mesh's first rank
+writes at once, and every rank waits for the write; whether the step is
+already saved, and which step a restore reads, are the first rank's
+decisions. `restore_latest` cuts the whole tensors to the restoring
+trainer's mesh, so a checkpoint saved
+on any mesh restores on any other, as the reference's does.
 """
 
 from __future__ import annotations
@@ -26,8 +35,11 @@ from typing import Optional
 
 import torch
 
+from multipathnet_tpu_torch.core.mesh import barrier, broadcast_object
 from multipathnet_tpu_torch.train.loop import (TrainState,
-                                               restore_train_state)
+                                               gather_state_dict,
+                                               restore_train_state,
+                                               shard_state_dict)
 
 _NAME = re.compile(r"step_(\d+)\.pt")
 
@@ -41,6 +53,22 @@ def _to_host(x):
     if isinstance(x, list):
         return [_to_host(v) for v in x]
     return x
+
+
+def _momentum_names(trainer, opt) -> list:
+    """The parameter name of each optimizer slot, in slot order."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    return [names[id(p)] for p in opt.params]
+
+
+def _map_momentum(sgd: dict, names: list, fn) -> dict:
+    """A copy of an SGD state dict with each momentum buffer t of the
+    parameter called name replaced by fn(name, t)."""
+    state = {i: {**st, "momentum_buffer": fn(names[i],
+                                              st["momentum_buffer"])}
+             if st.get("momentum_buffer") is not None else st
+             for i, st in sgd["state"].items()}
+    return {**sgd, "state": state}
 
 
 class Checkpointer:
@@ -62,19 +90,34 @@ class Checkpointer:
     def save(self, trainer, state: TrainState) -> None:
         """Checkpoint `state` (with the parameters `trainer.model` holds);
         a step already saved is not written again (the periodic and the
-        final save can hit the same step)."""
+        final save can hit the same step). On a mesh the first rank, which
+        writes, decides that for every rank."""
         self.wait()
-        if state.step in self.all_steps():
+        dims, mesh = getattr(trainer, "tp_dims", {}), trainer.mesh
+        group = None if mesh is None else mesh.group
+        # every rank takes the first rank's branch around the collectives,
+        # whatever it sees on disk itself
+        if broadcast_object(state.step in self.all_steps(), group):
             return
-        payload = _to_host({
+        names = _momentum_names(trainer, state.optimizer)
+        payload = {  # the gathers are collective: every rank makes them
             "step": state.step,
-            "params": dict(trainer.model.named_parameters()),
+            "params": gather_state_dict(
+                dict(trainer.model.named_parameters()), dims, mesh),
             "buffers": dict(trainer.model.named_buffers()),
-            "sgd": state.optimizer.sgd.state_dict(),
+            "sgd": _map_momentum(
+                state.optimizer.sgd.state_dict(), names,
+                lambda n, t: gather_state_dict({n: t}, dims, mesh)[n]),
             "count": state.optimizer.count,
             "generator": state.generator.get_state(),
-        })
-        self._pending = self._writer.submit(self._write, state.step, payload)
+        }
+        if mesh is None or mesh.size == 1:
+            self._pending = self._writer.submit(self._write, state.step,
+                                                _to_host(payload))
+            return
+        if mesh.rank == 0:
+            self._write(state.step, _to_host(payload))
+        barrier(mesh)
 
     def _write(self, step: int, payload: dict) -> None:
         path = self._path(step)
@@ -100,9 +143,19 @@ class Checkpointer:
         optimizer; returns the state to step from, or None if there is no
         checkpoint."""
         step = self.latest_step()
+        mesh = trainer.mesh
+        step = broadcast_object(step, None if mesh is None else mesh.group)
         if step is None:
             return None
         saved = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
+        dims = getattr(trainer, "tp_dims", {})
+        if dims:
+            names = _momentum_names(trainer, template.optimizer)
+            saved["params"] = shard_state_dict(saved["params"], dims,
+                                               trainer.mesh)
+            saved["sgd"] = _map_momentum(
+                saved["sgd"], names,
+                lambda n, t: shard_state_dict({n: t}, dims, trainer.mesh)[n])
         return restore_train_state(
             trainer, {**saved, "optimizer": template.optimizer})

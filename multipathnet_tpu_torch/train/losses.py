@@ -4,13 +4,17 @@ regression on the positive ROIs (Fast R-CNN §2.3).
 
 `integral_agg` "mean" divides the K heads' sum by K (the reference's
 default), "sum" is the paper-literal L = sum_k CE_k. Every term is a masked
-mean over the valid ROI slots, so padding never contributes.
+mean over the valid ROI slots, so padding never contributes. Under data
+parallelism (`group`, the data axis's process group) the count of valid
+slots is the whole batch's, summed over the ranks, so each rank's loss
+and metrics are its share of the global ones and sum to them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multipathnet_tpu_torch.core.mesh import all_sum
 from multipathnet_tpu_torch.data.sampler import RoiSample, integral_labels
 
 
@@ -25,13 +29,13 @@ def detection_loss(scores: torch.Tensor,   # (B, S, K, C) f32 logits
                    *, integral_thresholds, num_classes: int,
                    class_specific_bbox: bool = True,
                    bbox_loss_weight: float = 1.0,
-                   integral_agg: str = "mean"):
+                   integral_agg: str = "mean", group=None):
     """Returns (total loss, metrics dict of 0-d tensors)."""
     b, s, k, _ = scores.shape
     labels = integral_labels(sample.matched_class, sample.max_iou,
                              sample.is_fg, integral_thresholds)  # (B, S, K)
     valid = sample.valid.float()
-    n_valid = torch.clamp(valid.sum(), min=1.0)
+    n_valid = torch.clamp(all_sum(valid.sum(), group), min=1.0)
 
     logp = torch.log_softmax(scores, dim=-1)
     ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0]

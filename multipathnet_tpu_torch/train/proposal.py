@@ -23,6 +23,14 @@ decay and momentum still move it, as optax's chain moves it in the
 reference. The jitter's two normal draws come from the state's generator
 (`jitter_draws`), shift first; the reference's random key cannot be
 reproduced, so parity tests replace them.
+
+On a mesh (`ProposalTrainer(cfg, mesh=...)`, or largest_data_mesh when
+ranks were launched) each rank steps its rows of the global batch as
+train/loop.py's Trainer does: the jitter is drawn at the global batch's
+shape and cut to the rank's rows, every count the losses divide by is
+summed over the data axis, the gradients (a parameter the loss does not
+reach with its zero one) are summed in one fixed-order all-reduce, and
+the metrics are the global ones on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from multipathnet_tpu_torch.core.config import Config
+from multipathnet_tpu_torch.core.mesh import all_sum
 from multipathnet_tpu_torch.core.device import HostToDevice, resolve_device
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models.sharpmask import (STDS, SharpMaskNet,
@@ -40,7 +49,9 @@ from multipathnet_tpu_torch.models.sharpmask import (STDS, SharpMaskNet,
                                                      init_sharpmask_)
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops.nms import _top_k
-from multipathnet_tpu_torch.train.loop import BatchFeeder, TrainState
+from multipathnet_tpu_torch.train.loop import (BatchFeeder, TrainState,
+                                               auto_mesh, batch_shard,
+                                               optimizer_step)
 from multipathnet_tpu_torch.train.losses import smooth_l1
 from multipathnet_tpu_torch.train.schedule import (make_lr_schedule,
                                                    make_optimizer)
@@ -58,12 +69,13 @@ def _gather_boxes(gt_boxes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(gt_boxes, 1, idx[..., None].expand(-1, -1, 4))
 
 
-def _balanced_bce(logits, pos, neg):
+def _balanced_bce(logits, pos, neg, group=None):
     """(mean BCE over positives + mean BCE over negatives) / 2, labels =
-    pos; -> (loss, positive count clamped at 1)."""
+    pos; -> (loss, positive count clamped at 1). The counts are summed
+    over `group` (the data axis)."""
     bce = sigmoid_bce(logits, pos.float())
-    n_pos = torch.clamp(pos.sum().float(), min=1.0)
-    n_neg = torch.clamp(neg.sum().float(), min=1.0)
+    n_pos = torch.clamp(all_sum(pos.sum().float(), group), min=1.0)
+    n_neg = torch.clamp(all_sum(neg.sum().float(), group), min=1.0)
     return ((bce * pos).sum() / n_pos + (bce * neg).sum() / n_neg) / 2.0, \
         n_pos
 
@@ -81,13 +93,14 @@ def sharpmask_loss(anchors, scores, deltas, mask_logits, gt_boxes,
                    gt_mask, gt_masks, *, pos_iou=0.5, neg_iou=0.3,
                    ref_rois=None, ref_deltas=None, ref_logits=None,
                    ref_valid=None, ref_pos_iou=0.5, ref_neg_iou=0.4,
-                   bbox_reg_stds=STDS):
+                   bbox_reg_stds=STDS, group=None):
     """Per-batch proposal losses -> (total, metrics). Shapes: anchors (N,
     4); scores (B, N); deltas (B, N, 4); mask_logits (B, G, M, M);
     gt_boxes (B, G, 4); gt_mask (B, G); gt_masks (B, G, M, M). The cascade
     terms (ref_rois (B, K, 4) the boxes the refine head saw, ref_deltas,
     ref_logits its outputs, ref_valid (B, K)) match per ROI with a tighter
-    negative band (IoU < 0.4)."""
+    negative band (IoU < 0.4). Every count divided by is summed over
+    `group`, the data axis's process group (None: this batch alone)."""
     iou, best_iou, best_gt = _match(anchors[None], gt_boxes, gt_mask)
     pos = best_iou >= pos_iou
     # every valid GT claims its best anchor (the lower anchor among ties)
@@ -96,7 +109,7 @@ def sharpmask_loss(anchors, scores, deltas, mask_logits, gt_boxes,
     claim.scatter_reduce_(1, best_anchor, gt_mask.int(), "amax")
     pos = pos | claim.bool()
     neg = (best_iou < neg_iou) & ~pos
-    obj_loss, n_pos = _balanced_bce(scores, pos, neg)
+    obj_loss, n_pos = _balanced_bce(scores, pos, neg, group)
 
     targets = box_ops.encode(anchors[None], _gather_boxes(gt_boxes, best_gt),
                              stds=bbox_reg_stds)
@@ -105,7 +118,7 @@ def sharpmask_loss(anchors, scores, deltas, mask_logits, gt_boxes,
     mask_bce = sigmoid_bce(mask_logits, gt_masks)
     g_valid = gt_mask.float()[..., None, None]
     mask_loss = (mask_bce * g_valid).sum() / torch.clamp(
-        g_valid.sum() * mask_logits.shape[-1] ** 2, min=1.0)
+        all_sum(g_valid.sum(), group) * mask_logits.shape[-1] ** 2, min=1.0)
 
     total = obj_loss + box_loss + mask_loss
     metrics = {"loss_obj": obj_loss, "loss_box": box_loss,
@@ -118,7 +131,7 @@ def sharpmask_loss(anchors, scores, deltas, mask_logits, gt_boxes,
                                    device=ref_rois.device)
         pos_r = (best_r >= ref_pos_iou) & ref_valid
         neg_r = (best_r < ref_neg_iou) & ref_valid
-        ref_obj, np_r = _balanced_bce(ref_logits, pos_r, neg_r)
+        ref_obj, np_r = _balanced_bce(ref_logits, pos_r, neg_r, group)
         targets_r = box_ops.encode(ref_rois, _gather_boxes(gt_boxes,
                                                            best_rgt),
                                    stds=bbox_reg_stds)
@@ -153,12 +166,14 @@ def jitter_boxes(gt_boxes, shift_noise, scale_noise, h, w):
 
 
 def make_proposal_train_step(model: SharpMaskNet, cfg: Config,
-                             refine_top_k: int = 16):
+                             refine_top_k: int = 16, mesh=None):
     """-> step(state, batch) -> (state, metrics): one optimizer step on
     the model's parameters, in place; each parameter keeps this step's
-    gradient in `.grad`."""
+    gradient in `.grad`. On a mesh the batch is the rank's rows."""
     d = cfg.data
     h, w = d.image_size
+    index, count = batch_shard(mesh) or (0, 1)
+    group = mesh.data_group if mesh is not None else None
 
     def step(state: TrainState, batch):
         canvases, scales = transforms.batch_resize_to_canvas(
@@ -174,8 +189,9 @@ def make_proposal_train_step(model: SharpMaskNet, cfg: Config,
             b1 = box_ops.clip(box_ops.decode(
                 anchors[idx], torch.gather(deltas, 1, idx[..., None].expand(
                     -1, -1, 4)), stds=STDS), float(h), float(w))
-            noise = jitter_draws(state.generator, gt_boxes.shape[:2] + (2,),
-                                 gt_boxes.device)
+            b, g = gt_boxes.shape[:2]
+            noise = [t[index * b:(index + 1) * b] for t in jitter_draws(
+                state.generator, (b * count, g, 2), gt_boxes.device)]
             ref_rois = torch.cat([b1, jitter_boxes(gt_boxes, *noise, h, w)],
                                  dim=1)
             ref_valid = torch.cat([torch.ones(b1.shape[:2], dtype=torch.bool,
@@ -186,16 +202,11 @@ def make_proposal_train_step(model: SharpMaskNet, cfg: Config,
         loss, metrics = sharpmask_loss(
             anchors, scores, deltas, mask_logits, gt_boxes, batch.gt_mask,
             batch.gt_masks, ref_rois=ref_rois, ref_deltas=ref_deltas,
-            ref_logits=ref_logits, ref_valid=ref_valid)
-        opt = state.optimizer
-        opt.zero_grad()
-        loss.backward()
-        for p in opt.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        metrics["grad_norm"] = opt.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return TrainState(state.step + 1, opt, state.generator), metrics
+            ref_logits=ref_logits, ref_valid=ref_valid, group=group)
+        metrics = optimizer_step(state.optimizer, loss, metrics, group,
+                                 zero_missing=True)
+        return TrainState(state.step + 1, state.optimizer,
+                          state.generator), metrics
 
     return step
 
@@ -203,7 +214,8 @@ def make_proposal_train_step(model: SharpMaskNet, cfg: Config,
 class ProposalTrainer(BatchFeeder):
     """Owns the proposal network (float32 parameters, compute in
     cfg.model.dtype) and its train step, on one device: the CUDA card
-    unless the caller names another (device="cpu").
+    unless the caller names another (device="cpu"), or the mesh's device
+    (its data axis; the model axis replicates the network).
 
     As the reference: gradients are clipped by global norm 2.0 when lr >
     1e-2 and no clip is set (the dense-anchor BCE diverges above that rate
@@ -212,7 +224,7 @@ class ProposalTrainer(BatchFeeder):
     neck reads c4 below a 256-pixel canvas, c5 from there."""
 
     def __init__(self, cfg: Config, device=None, anchor_scales=None,
-                 neck_level: str | None = None):
+                 neck_level: str | None = None, mesh=None):
         self.cfg = cfg
         if cfg.train.grad_clip_norm <= 0 and cfg.train.lr > 1e-2:
             cfg = cfg.replace(train=dataclasses.replace(cfg.train,
@@ -224,12 +236,15 @@ class ProposalTrainer(BatchFeeder):
                                   for f in (0.12, 0.25, 0.5, 0.8))
         if neck_level is None:
             neck_level = "c4" if size < 256 else "c5"
-        self.device = resolve_device(device)
+        self.mesh = auto_mesh(cfg, mesh, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.model = build_sharpmask(cfg.model, device=self.device,
                                      param_dtype=torch.float32,
                                      anchor_scales=anchor_scales,
                                      neck_level=neck_level)
-        self._step = make_proposal_train_step(self.model, cfg)
+        self._step = make_proposal_train_step(self.model, cfg,
+                                              mesh=self.mesh)
         self.lr_schedule = make_lr_schedule(cfg.train)
         self._copy = HostToDevice(self.device)
 

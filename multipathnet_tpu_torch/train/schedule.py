@@ -7,6 +7,10 @@ torch.optim.SGD adds the decay before the momentum, and its momentum buffer
 starts at the first (decayed) gradient, as optax's zero-initialized trace
 does after one step, so one SGD step with lr = schedule(count) is the
 chain's update. Clipping runs first, on the global norm, with optax's rule.
+With a tensor-parallel head the norm covers every parameter once: the
+squares of each sharded gradient are summed over the model axis, the
+replicated ones counted on each rank as they are; momentum and weight
+decay stay elementwise on each rank's part.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Callable
 import torch
 
 from multipathnet_tpu_torch.core.config import TrainConfig
+from multipathnet_tpu_torch.core.mesh import all_sum
 
 
 def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -56,10 +61,14 @@ class Optimizer:
     """The reference's optax chain over `params`: `step()` clips the
     gradients to grad_clip_norm by their global norm (when > 0), sets the
     learning rate of this step's count and takes one torch.optim.SGD step
-    (momentum, weight decay). Returns the global norm before clipping."""
+    (momentum, weight decay). Returns the global norm before clipping.
+    `sharded`: the parameters that hold one part each of a tensor split
+    over `group` (the model axis)."""
 
-    def __init__(self, params, cfg: TrainConfig):
+    def __init__(self, params, cfg: TrainConfig, sharded=(), group=None):
         self.params = list(params)
+        self.sharded = {id(p) for p in sharded}
+        self.group = group
         self.lr_schedule = make_lr_schedule(cfg)
         self.grad_clip_norm = cfg.grad_clip_norm
         self.sgd = torch.optim.SGD(self.params, lr=0.0, momentum=cfg.momentum,
@@ -72,7 +81,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_norm(grads)
+        norm = self._sharded_norm() if self.sharded else global_norm(grads)
         if self.grad_clip_norm > 0 and grads:
             clip = self.grad_clip_norm
             scale = torch.where(norm < clip, torch.ones_like(norm),
@@ -84,9 +93,20 @@ class Optimizer:
         self.count += 1
         return norm
 
+    def _sharded_norm(self) -> torch.Tensor:
+        def squares(sharded: bool):
+            g = [p.grad for p in self.params if p.grad is not None
+                 and (id(p) in self.sharded) == sharded]
+            if not g:
+                return torch.zeros((), device=self.params[0].device)
+            return torch.stack(torch._foreach_norm(g)).square().sum()
 
-def make_optimizer(cfg: TrainConfig, params):
+        return torch.sqrt(squares(False) + all_sum(squares(True),
+                                                   self.group))
+
+
+def make_optimizer(cfg: TrainConfig, params, sharded=(), group=None):
     """-> (Optimizer over params, lr schedule), as the reference returns
     (optax chain, schedule)."""
-    opt = Optimizer(params, cfg)
+    opt = Optimizer(params, cfg, sharded, group)
     return opt, opt.lr_schedule

@@ -226,14 +226,14 @@ def lockstep(fx, seeds, init=None, dtype=None, epochs=30, evaluate=True):
         drawn["sample"] = out = sample_batch(*a, **k)
         return out
 
-    def rec_dropout(self, h, train, generator):
+    def rec_dropout(self, h, train, generator, *shard_local):
         if train and self.dropout_rate:
             g = torch.Generator(h.device)
             g.set_state(generator.get_state())
             keep = 1.0 - self.dropout_rate
             drawn["masks"].append((torch.rand(h.shape, generator=g) < keep)
                                   .numpy())
-        return dropout(self, h, train, generator)
+        return dropout(self, h, train, generator, *shard_local)
 
     # the reference's step with those draws in place of its own
     ctx = {}

@@ -38,8 +38,10 @@ import multipathnet_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import importlib.util
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("chip_smoke", "chip_smoke.py"),
+                   ("torch_mesh_workers", "tests/torch_mesh_workers.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "multipathnet_tpu"))
@@ -65,12 +67,13 @@ _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "models.t7_import", "ops.roi", "ops.roi_pyramid",
                 "ops.scatter", "models.sharpmask", "train.proposal",
                 "cli.export_proposals", "cli.demo", "cli.export_serving",
-                "cli.serve")
+                "cli.serve", "core.mesh", "tools.mesh_runs")
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, and chip_smoke.py, import without jax
-    (nor flax or optax)."""
+    """Every module of the port, chip_smoke.py and the mesh tests' rank
+    bodies (tests/torch_mesh_workers.py; spawned ranks import their
+    function's module) import without jax (nor flax or optax)."""
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -512,8 +512,10 @@ def test_tiny_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
                   rng.integers(1, 5, (b, g)).astype(np.int32),
                   np.arange(g)[None].repeat(b, 0) < 5)
 
-    def sample_cpu_noise(generator, proposals, *args, **kw):
-        # the same uniform draws on both devices: made on the CPU
+    def sample_cpu_noise(generator, proposals, *args, shard=None, **kw):
+        # the same uniform draws on both devices: made on the CPU (one
+        # device: the step passes no batch shard)
+        assert shard is None
         b, n = proposals.shape[0], proposals.shape[1] + args[1].shape[1]
         noise = torch.rand((b, 2, n), generator=torch.Generator(
             ).manual_seed(0)).to(proposals.device)
