@@ -199,8 +199,28 @@ Phases, each of which raises on failure (nothing is caught):
      float32 training at (1, 2) against (2, 1) within rel 1e-4, both timed
      over 5 steps, the (1, 2) checkpoint restored here on one device bit
      for bit and a step after it.
+ 20. the measurement tools and the rest of the reference package
+     (`tools`), launches counted over the phase: (a) C8, int8 serving in
+     max mode: `multipath_vgg16_reference` with the int8 head, and with
+     int8 + truncated SVD at fc6 1024 / fc7 256 (factorized on the card),
+     from phase 16's float weights at 8 x 1000 proposals, 640^2: finite
+     detections of the right shapes, ms a batch beside phase 16's float
+     number, no pool kernel launched (the max route is plain ops); (b)
+     tools/soak_svd_decay at its 256^2 canvas and 16 images, 40 steps with
+     one snapshot: ms/step, the float / int8 / SVD / int8+SVD APs and the
+     fc6/fc7 truncation errors, every step in the TensorBoard event file
+     read back with utils/tbevents.read_scalars, utils/profiling.trace
+     around two steps writing a trace with device kernels, one step under
+     debug_nans raising nothing; (c) tools/prop_quality_scale at 640^2, 4
+     images, 2 epochs, top-400: the eight quality numbers finite; (d)
+     tools/prof_eval on `multipath_vgg16_int8` and tools/prof_train
+     (--stages) on `multipath_vgg16_train` at the bench shapes, beside
+     phases 9 and 7; (e) phase 13's detections and phase 17's masks
+     evaluated with the native RLE codec (data/rle_native.py, built with
+     g++, which must succeed) and the NumPy one: every COCO stat equal,
+     seconds for each.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, each
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20, each
 counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
@@ -233,7 +253,7 @@ from multipathnet_tpu_torch.cli import export_serving
 from multipathnet_tpu_torch.cli import train as train_cli
 from multipathnet_tpu_torch.core.config import preset
 from multipathnet_tpu_torch.core.mesh import spawn
-from multipathnet_tpu_torch.data import synthetic
+from multipathnet_tpu_torch.data import rle, rle_native, synthetic
 from multipathnet_tpu_torch.data.coco import CocoLoader
 from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
 from multipathnet_tpu_torch.data.proposals import ProposalStore
@@ -247,15 +267,17 @@ from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.models.sharpmask import generate_proposals
 from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
+from multipathnet_tpu_torch.ops import lowrank, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
-from multipathnet_tpu_torch.tools import mesh_runs
+from multipathnet_tpu_torch.tools import (mesh_runs, prof_eval, prof_train,
+                                         prop_quality_scale, soak_svd_decay)
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
                                                restore_train_state,
                                                snapshot_train_state)
 from multipathnet_tpu_torch.train.proposal import ProposalTrainer
+from multipathnet_tpu_torch.utils import profiling, tbevents
 
 # every model path pools in bf16, which runs the tensor-core body; the
 # float32 body (csrc/roi_window_pool.cu) is checked in phases 3, 6, 8, 11
@@ -2188,7 +2210,8 @@ def reference_exact_path():
     """Phase 16 (`reference_exact`): multipath_vgg16_reference through
     Detector at 8 x 1000 proposals, 640^2, weights from the reference's
     torch contract through import_weights; then the max route held to the
-    CPU. Returns (launches, ms per batch)."""
+    CPU. Returns (launches, ms per batch, the float state dict on the
+    host, which phase 20 serves in int8)."""
     cfg = preset("multipath_vgg16_reference")
     m = cfg.model
     proposals, hw = cfg.data.max_proposals, cfg.data.image_size[0]
@@ -2298,8 +2321,9 @@ def reference_exact_path():
                 f"windowed and exact max routes differ at {lv}")
     log("[reference_exact] windowed route equal to the exact one, bit for "
         "bit, on 512 views up to 28 px at c3/c4/c5")
+    host_state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
     del model, det, feats
-    return launches, ms
+    return launches, ms, host_state
 
 
 # ------------------------------------------------------------ phase 17 ---
@@ -2404,6 +2428,9 @@ def sharpmask_e2e(cfg, trainer):
     res["busy"] = profile_once("sharpmask", "one end-to-end batch", e2e,
                                top=16)
     res["device_ms"] = profile_once.device_ms
+    # phase 20(e) evaluates these masks with both RLE codecs
+    res["top_masks"] = tuple(props[k][:, :50].float().cpu().numpy()
+                             for k in ("boxes", "scores", "masks"))
     del det_model, props
     return res, x_u8
 
@@ -3064,6 +3091,247 @@ def parallel_path(phase13, resident_ms):
     return launches
 
 
+# ------------------------------------------------------------ phase 20 ---
+
+def c8_serving(host_state, float_ms):
+    """(a) int8 serving in max mode (C8): multipath_vgg16_reference with
+    the int8 head, and with int8 + truncated SVD at fc6 1024 / fc7 256,
+    from phase 16's float weights (factorized on the card, quantized at
+    load) at 8 x 1000 proposals, 640^2: finite detections of the right
+    shapes, ms a batch beside phase 16's float number; the max route pools
+    in plain ops, so no pool kernel launches."""
+    base = preset("multipath_vgg16_reference")
+    float_model = build_model(base.model, device="cuda")
+    float_model.load_state_dict(host_state)
+    tree = convert.flax_from_state_dict(float_model.state_dict(), host=False)
+    inputs = make_inputs(8, base.data.max_proposals, base.data.image_size[0])
+    dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
+    before = read_launches()
+    res = {}
+    for tag, ranks in (("int8", (0, 0)), ("int8+svd", (1024, 256))):
+        cfg = base.replace(model=dataclasses.replace(
+            base.model, head_quant="int8", fc6_rank=ranks[0],
+            fc7_rank=ranks[1]))
+        t0 = time.perf_counter()
+        report = {}
+        params = tree
+        if ranks[0]:
+            params = lowrank.factorize_head_params(tree, *ranks,
+                                                   report=report)
+        det = Detector(build_model(cfg.model, device="cuda"), cfg,
+                       params=params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        out = det(*inputs)
+        check_detections(f"tools {tag}", out)
+        iters = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            detect_batch(det.model, cfg, *dev_inputs)
+        torch.cuda.synchronize()
+        res[tag] = 1e3 * (time.perf_counter() - t0) / iters
+        trunc = (f"; fc6/fc7 truncation errors "
+                 f"{min(report.values()):.4f}-{max(report.values()):.4f}"
+                 if report else "")
+        log(f"[tools] (a) C8 multipath_vgg16_reference {tag} (roi_mode max,"
+            f" head_quant int8, ranks {ranks}): load {load_s:.1f} s{trunc}; "
+            f"{res[tag]:.2f} ms/batch over {iters} batches (phase 16 float: "
+            f"{float_ms:.2f}); {int(out['valid'].sum())} detections, finite")
+        del det, params
+    require(read_launches() == before,
+            "the max route launched a pool kernel")
+    del float_model, tree
+    return res
+
+
+def soak_check(workdir):
+    """(b) soak_svd_decay at its 256^2 canvas and 16 images, 40 steps with
+    one snapshot: ms/step, the four APs and the truncation errors; the
+    event file read back with the port's read_scalars holds every step;
+    profiling.trace around two steps writes a non-empty trace and
+    debug_nans over one step raises nothing."""
+    steps = 40
+    cfg = soak_svd_decay.soak_config(256, 1e-3, 0.1, steps)
+    out = soak_svd_decay.soak(cfg, steps=steps, snap_every=steps, images=16,
+                              eval_batch=8, workdir=workdir, device="cuda")
+    (row,) = out["snapshots"]
+    require(all(np.isfinite(out["losses"])), "a soak loss is not finite")
+    seen = tbevents.read_scalars(out["tensorboard"])
+    require(sorted(seen["loss"]) == list(range(1, steps + 1)),
+            f"the event file holds steps {sorted(seen.get('loss', {}))}")
+    aps = {name: row[name]["AP"] for name in
+           ("float", "int8", "svd", "int8+svd")}
+    require(all(np.isfinite(v) for v in aps.values()), f"APs {aps}")
+    log(f"[tools] (b) soak_svd_decay, multipath_vgg16_train at 256^2, 16 "
+        f"images, wd 0.1, lr 1e-3: {out['ms_per_step']:.2f} ms/step over "
+        f"steps 2-{steps}; loss {out['losses'][0]:.4f} -> "
+        f"{out['losses'][-1]:.4f}; at step {steps}: AP "
+        + ", ".join(f"{k} {v:.4f}" for k, v in aps.items())
+        + f" (AP50 float {row['float']['AP50']:.4f}, int8+svd "
+        f"{row['int8+svd']['AP50']:.4f}); float - int8+svd AP gap "
+        f"{row['gap']:+.4f}; rel truncation error fc6 "
+        f"{row['trunc_fc6'][0]:.4f}-{row['trunc_fc6'][1]:.4f}, fc7 "
+        f"{row['trunc_fc7'][0]:.4f}-{row['trunc_fc7'][1]:.4f} (factorized "
+        f"on the card in {row['factorize_s']:.2f} s); event file: "
+        f"{len(seen['loss'])} steps read back")
+
+    trainer, state, fx = out["trainer"], out["state"], out["split"]
+    pipe = DetectionPipeline(CocoLoader(fx["annotations"], fx["images"]),
+                             ProposalStore.load(fx["proposals"]), cfg.data,
+                             batch_size=cfg.train.batch_size)
+    batch = trainer.put_batch(next(pipe.eval_batches())[1])
+    trace_dir = os.path.join(workdir, "trace")
+    with profiling.trace(trace_dir):
+        for _ in range(2):
+            state, m = trainer.step(state, batch)
+        float(m["loss"])
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    size = sum(os.path.getsize(f) for f in files)
+    require(len(files) == 1 and size > 0, f"trace files {files}")
+    with open(files[0]) as f:
+        require('"cat": "kernel"' in f.read(),
+                "the trace holds no device kernel")
+    t0 = time.perf_counter()
+    with profiling.debug_nans():
+        state, m = trainer.step(state, batch)
+        float(m["loss"])
+    log(f"[tools] (b) profiling.trace over two steps: {size} bytes with "
+        f"device kernels; one step under debug_nans raised nothing "
+        f"({time.perf_counter() - t0:.2f} s, a host check per operator)")
+    res = {"ms_per_step": out["ms_per_step"], "aps": aps,
+           "gap": row["gap"], "trunc_fc6": row["trunc_fc6"],
+           "trunc_fc7": row["trunc_fc7"]}
+    del out, trainer, state
+    return res
+
+
+def proposal_quality_check(workdir):
+    """(c) prop_quality_scale at 640^2, 4 images, 2 epochs, top-400: the
+    eight quality numbers finite."""
+    cfg = prop_quality_scale.quality_config(640, 5e-3)
+    rows = prop_quality_scale.run(cfg, epochs=2, images=4, top_k=400,
+                                  quality_every=20, workdir=workdir,
+                                  device="cuda")
+    last = rows[-1]
+    nums = last["stage1"] + last["cascade"]
+    require(len(rows) == 1 and len(nums) == 8 and all(np.isfinite(nums)),
+            f"proposal quality {rows}")
+    log(f"[tools] (c) prop_quality_scale at 640^2, 4 images, 2 epochs "
+        f"(step {last['step']}, loss {last['loss']:.4f}), top-400: stage 1 "
+        f"median IoU {nums[0]:.4f}, at >= 0.5 {nums[1]:.4f}, oracle "
+        f"{nums[2]:.4f}, recall@0.5 {nums[3]:.4f}; cascade {nums[4]:.4f}, "
+        f"{nums[5]:.4f}, {nums[6]:.4f}, {nums[7]:.4f}")
+    return last
+
+
+def profilers(int8_ips, resident_ms):
+    """(d) prof_eval on multipath_vgg16_int8 and prof_train (--stages) on
+    multipath_vgg16_train at the bench shapes: the stage tables, timed's
+    steady ms beside phases 9 and 7."""
+    ev = prof_eval.run(prof_eval.eval_config("multipath_vgg16_int8"),
+                       batch=8, device="cuda")
+    tr = prof_train.run(prof_train.train_config("multipath_vgg16_train"),
+                        stages=True, device="cuda")
+    require(all(np.isfinite(v) and v > 0 for v in {**ev, **tr}.values()),
+            "a profiler row is not a positive time")
+    log(f"[tools] (d) prof_eval multipath_vgg16_int8: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ev.items())
+        + f" (ms; detect_batch {ev['detect_batch']:.2f} ms = "
+        f"{ev['img/s']:.2f} img/s, phase 9: {8e3 / int8_ips:.2f} ms = "
+        f"{int8_ips:.2f} img/s)")
+    log(f"[tools] (d) prof_train multipath_vgg16_train: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in tr.items())
+        + f" (ms unless _s; chained {tr['chained_ms']:.2f} ms/step, phase "
+        f"7: {resident_ms:.2f})")
+    return ev, tr
+
+
+def codec_check(phase13, top_masks):
+    """(e) phase 13's detections (bbox) and phase 17's top-50 masks an
+    image (segm, against each image's first 5 as ground truth) evaluated
+    with the native RLE codec and with the NumPy one: the COCO stats equal
+    exactly; seconds for each."""
+    from unittest import mock
+
+    require(rle_native.available(), f"the native RLE codec did not build: "
+            f"{rle_native.load_error()}")
+    metrics13, dets13 = phase13
+    gts13 = groundtruth_to_coco(CocoLoader(*split_paths()[:2]))
+    boxes, scores, masks = top_masks
+    b, k, hw = boxes.shape[0], boxes.shape[1], 640
+    pasted = [[rle.paste_mask(masks[i, j], boxes[i, j], hw, hw)
+               for j in range(k)] for i in range(b)]
+
+    def evaluate():
+        t0 = time.perf_counter()
+        bbox = CocoEvaluator().evaluate(gts13, dets13)
+        t_bbox = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gts, dets = [], []
+        for i in range(b):
+            for j in range(k):
+                r = rle.encode(pasted[i][j])
+                x, y, w, h = (float(v) for v in rle.to_bbox(r))
+                item = {"image_id": i, "category_id": 1, "segmentation": r,
+                        "bbox": [x, y, w, h], "area": float(rle.area(r))}
+                dets.append({**item, "score": float(scores[i, j])})
+                if j < 5:
+                    gts.append({**item, "iscrowd": False})
+        segm = CocoEvaluator(mode="segm").evaluate(gts, dets)
+        return bbox, segm, t_bbox, time.perf_counter() - t0, dets
+
+    codec = rle.codec()
+    n_bbox, n_segm, n_tb, n_ts, n_dets = evaluate()
+    with mock.patch.object(rle_native, "available", lambda: False):
+        np_codec = rle.codec()
+        p_bbox, p_segm, p_tb, p_ts, p_dets = evaluate()
+    require(codec == "native" and np_codec == "numpy",
+            f"codecs {codec}, {np_codec}")
+    require(n_bbox == p_bbox == metrics13,
+            "bbox stats differ between the codecs or from phase 13")
+    require(n_segm == p_segm, "segm stats differ between the codecs")
+    require([d["segmentation"] for d in n_dets]
+            == [d["segmentation"] for d in p_dets],
+            "the two codecs encode the masks differently")
+    log(f"[tools] (e) RLE codecs: {codec} then {np_codec}; phase 13's "
+        f"{len(dets13)} detections (bbox) {n_tb:.3f} s native, {p_tb:.3f} s "
+        f"NumPy; phase 17's {b * k} masks at 640^2 (encode, area, box, segm "
+        f"evaluation against {b * 5} GT) {n_ts:.3f} s native, {p_ts:.3f} s "
+        f"NumPy; every stat equal (segm AP {n_segm['AP']:.4f}, AP50 "
+        f"{n_segm['AP50']:.4f})")
+    return {"bbox_s": (n_tb, p_tb), "segm_s": (n_ts, p_ts)}
+
+
+def tools_path(host_state, float_ms, int8_ips, resident_ms, phase13,
+               top_masks):
+    """Phase 20 (`tools`), launches counted from 0 over the phase: (a) C8,
+    (b) the soak, (c) proposal quality, (d) the profilers, (e) the RLE
+    codecs."""
+    reset_launches()
+    t_phase = time.perf_counter()
+    res = {"c8": c8_serving(host_state, float_ms)}
+    torch.cuda.empty_cache()
+    res["soak"] = soak_check(fresh_dir("soak"))
+    torch.cuda.empty_cache()
+    res["quality"] = proposal_quality_check(fresh_dir("quality"))
+    torch.cuda.empty_cache()
+    res["prof_eval"], res["prof_train"] = profilers(int8_ips, resident_ms)
+    torch.cuda.empty_cache()
+    res["codec"] = codec_check(phase13, top_masks)
+    launches = read_launches()
+    log(f"[tools] kernel launches over phase 20: {launches}")
+    require(launches["window_pool_multi"] > 0
+            and launches["resident_pool"] > 0
+            and launches["window_pool_multi_quant"] > 0
+            and launches["resident_pool_quant"] > 0
+            and launches["window_grad"] > 0
+            and launches["window_rmw_grad"] > 0,
+            f"a kernel of the tools' path never launched: {launches}")
+    log(f"[tools] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, res
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -3130,13 +3398,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     resnet_launches = resnet_path()
     torch.cuda.empty_cache()
-    reference_launches, _ = reference_exact_path()
+    reference_launches, reference_ms, reference_state = \
+        reference_exact_path()
     torch.cuda.empty_cache()
     sharpmask_launches, sm_e2e, sm_train = sharpmask_path()
     torch.cuda.empty_cache()
     serve_launches, serve = serve_path()
     torch.cuda.empty_cache()
     parallel_launches = parallel_path(phase13, resident_ms)
+    torch.cuda.empty_cache()
+    tools_launches, _ = tools_path(reference_state, reference_ms, int8_ips,
+                                   resident_ms, phase13,
+                                   sm_e2e.pop("top_masks"))
+    del reference_state
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -3161,7 +3435,8 @@ def main() -> None:
              "reference_exact": reference_launches,
              "sharpmask": sharpmask_launches,
              "serve": {name: serve_launches.get(name, 0) for name in KERNELS},
-             "parallel": parallel_launches}
+             "parallel": parallel_launches,
+             "tools": tools_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

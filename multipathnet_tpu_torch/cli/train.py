@@ -19,8 +19,9 @@ then, as the reference does, restarts the data order at the start of the
 epoch that step falls in, so batches already seen in that epoch are seen
 again. Batches reach the device through
 DetectionPipeline.epoch_on_device (pinned memory, a side CUDA stream), so
-batch N+1's copy overlaps step N. TensorBoard export (`--tensorboard`,
-ROADMAP A12d) is not ported yet and raises.
+batch N+1's copy overlaps step N. `--tensorboard` also writes every logged
+scalar to <checkpoint_dir>/tb as a TensorBoard event file
+(utils/tbevents.py; `tensorboard --logdir <checkpoint_dir>/tb`).
 
 On several cards (or CPU processes with --device cpu), under torchrun:
 
@@ -97,8 +98,7 @@ def main(argv=None) -> None:
                    help="run the tester every N steps (0 = only at end)")
     p.add_argument("--no-final-eval", action="store_true")
     p.add_argument("--tensorboard", action="store_true",
-                   help="also export scalars to <checkpoint_dir>/tb "
-                        "(not ported yet: raises)")
+                   help="also export scalars to <checkpoint_dir>/tb")
     p.add_argument("--proposal-net", action="store_true",
                    help="train the SharpMask-style proposal network "
                         "(checkpoints feed export_proposals/demo)")

@@ -5,10 +5,14 @@ multipathnet_tpu/data/rle.py (maskApi.c's formats, written from the spec).
   (Fortran order) runs, starting with the count of 0s.
 - *compressed RLE*: the LEB128-like ASCII string used inside COCO JSON.
 
-The reference also dispatches to a C++ codec (native/rle.cpp through
-ctypes) when it is built; that is a speed path only, its results byte-equal
-to the NumPy ones (tests/test_rle_native.py), and the port does not carry it
-(ROADMAP). tests/test_torch_data.py holds this module equal to the
+The codec entry points (mask_to_counts, counts_to_mask, encode_counts,
+decode_counts, area, to_bbox, and through them encode, decode and iou)
+dispatch to the C++ codec of data/rle_native.py (the port's copy of
+native/rle.cpp, built with g++ at first use) when it builds and loads, as
+the reference dispatches to its own; it is a host speed path whose
+results equal the NumPy versions (the `_np` functions, the oracle and the
+fallback) byte for byte (tests/test_torch_rle_native.py). `codec()` says
+which one runs. tests/test_torch_data.py holds this module equal to the
 reference's.
 """
 
@@ -16,8 +20,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from multipathnet_tpu_torch.data import rle_native
 
-def mask_to_counts(mask: np.ndarray) -> list[int]:
+
+def mask_to_counts_np(mask: np.ndarray) -> list[int]:
     """Binary mask (h, w) -> uncompressed RLE counts (column-major)."""
     flat = np.asfortranarray(mask.astype(np.uint8)).reshape(-1, order="F")
     # run-length encode, first run counts zeros (may be 0-length)
@@ -29,7 +35,7 @@ def mask_to_counts(mask: np.ndarray) -> list[int]:
     return [int(r) for r in runs]
 
 
-def counts_to_mask(counts, size) -> np.ndarray:
+def counts_to_mask_np(counts, size) -> np.ndarray:
     """Uncompressed RLE -> binary mask (h, w) uint8."""
     h, w = size
     total = int(np.sum(counts))
@@ -44,7 +50,7 @@ def counts_to_mask(counts, size) -> np.ndarray:
     return flat.reshape((h, w), order="F")
 
 
-def encode_counts(counts) -> str:
+def encode_counts_np(counts) -> str:
     """Counts -> COCO compressed RLE string (maskApi rleToString format):
     each count is delta-encoded (from the count two back) and written as a
     variable-length base-32 signed integer using chars 48..111, with bit 0x20
@@ -67,7 +73,7 @@ def encode_counts(counts) -> str:
     return "".join(s)
 
 
-def decode_counts(s: str) -> list[int]:
+def decode_counts_np(s: str) -> list[int]:
     """COCO compressed RLE string -> counts."""
     counts: list[int] = []
     i = 0
@@ -90,6 +96,39 @@ def decode_counts(s: str) -> list[int]:
     return counts
 
 
+def codec() -> str:
+    """"native" when the C++ codec built and loaded, else "numpy"."""
+    return "native" if rle_native.available() else "numpy"
+
+
+def mask_to_counts(mask: np.ndarray) -> list[int]:
+    """Binary mask (h, w) -> uncompressed RLE counts (column-major)."""
+    if rle_native.available():
+        return rle_native.mask_to_counts(mask)
+    return mask_to_counts_np(mask)
+
+
+def counts_to_mask(counts, size) -> np.ndarray:
+    """Uncompressed RLE -> binary mask (h, w) uint8."""
+    if rle_native.available():
+        return rle_native.counts_to_mask(counts, size)
+    return counts_to_mask_np(counts, size)
+
+
+def encode_counts(counts) -> str:
+    """Counts -> COCO compressed RLE string."""
+    if rle_native.available():
+        return rle_native.encode_string(counts)
+    return encode_counts_np(counts)
+
+
+def decode_counts(s: str) -> list[int]:
+    """COCO compressed RLE string -> counts."""
+    if rle_native.available():
+        return rle_native.decode_string(s)
+    return decode_counts_np(s)
+
+
 def encode(mask: np.ndarray) -> dict:
     """Binary mask -> compressed RLE dict (as found in COCO JSON)."""
     h, w = mask.shape
@@ -98,37 +137,32 @@ def encode(mask: np.ndarray) -> dict:
 
 def decode(rle: dict) -> np.ndarray:
     """RLE dict (compressed string or uncompressed list counts) -> mask."""
+    return counts_to_mask(_counts_of(rle), rle["size"])
+
+
+def _counts_of(rle: dict) -> list[int]:
+    """The uncompressed counts of an RLE dict (compressed or not)."""
     counts = rle["counts"]
-    if isinstance(counts, (bytes, str)):
-        if isinstance(counts, bytes):
-            counts = counts.decode("ascii")
+    if isinstance(counts, bytes):
+        counts = counts.decode("ascii")
+    if isinstance(counts, str):
         counts = decode_counts(counts)
-    return counts_to_mask(counts, rle["size"])
+    return counts
 
 
-def area(rle: dict) -> int:
+def area_np(rle: dict) -> int:
     """Foreground pixel count straight from the runs (no mask materialize)."""
-    counts = rle["counts"]
-    if isinstance(counts, (bytes, str)):
-        if isinstance(counts, bytes):
-            counts = counts.decode("ascii")
-        counts = decode_counts(counts)
-    return int(np.sum(counts[1::2]))
+    return int(np.sum(_counts_of(rle)[1::2]))
 
 
-def to_bbox(rle: dict) -> np.ndarray:
+def to_bbox_np(rle: dict) -> np.ndarray:
     """RLE -> tight (x, y, w, h) bbox, computed from runs without a full mask.
 
     This is the DeepMask-proposals -> boxes path (SURVEY.md §2.2): column-major
     runs give column index = pos // h, row index = pos % h for each fg run.
     """
     h, _ = rle["size"]
-    counts = rle["counts"]
-    if isinstance(counts, (bytes, str)):
-        if isinstance(counts, bytes):
-            counts = counts.decode("ascii")
-        counts = decode_counts(counts)
-    counts = np.asarray(counts, np.int64)
+    counts = np.asarray(_counts_of(rle), np.int64)
     if counts[1::2].sum() == 0:
         return np.zeros(4, np.float32)
     ends = np.cumsum(counts)
@@ -148,6 +182,20 @@ def to_bbox(rle: dict) -> np.ndarray:
         y0 = int(np.min(rs))
         y1 = int(np.max(re))
     return np.array([x0, y0, x1 - x0 + 1, y1 - y0 + 1], np.float32)
+
+
+def area(rle: dict) -> int:
+    """Foreground pixel count straight from the runs (no mask materialize)."""
+    if rle_native.available():
+        return rle_native.area_bbox(_counts_of(rle), rle["size"][0])[0]
+    return area_np(rle)
+
+
+def to_bbox(rle: dict) -> np.ndarray:
+    """RLE -> tight float32 (x, y, w, h) bbox, from the runs."""
+    if rle_native.available():
+        return rle_native.area_bbox(_counts_of(rle), rle["size"][0])[1]
+    return to_bbox_np(rle)
 
 
 def paste_mask(mask: np.ndarray, box, height: int, width: int,

@@ -1,7 +1,9 @@
 """Self-contained COCO-protocol detection AP evaluator — the port's copy of
-multipathnet_tpu/eval/coco_eval.py, NumPy only (the reference's optional C++
-box IoU is a speed path with the same results; ROADMAP). Metric dicts equal
-the reference's exactly (tests/test_torch_eval.py).
+multipathnet_tpu/eval/coco_eval.py. The box IoU dispatches to the C++
+codec's bb_iou (data/rle_native.py) when it builds and loads, as the
+reference's does: a speed path with the same results as the NumPy version
+(box_iou_xywh_np), which runs otherwise. Metric dicts equal the reference's
+exactly (tests/test_torch_eval.py).
 
 Replaces the lua `coco` API's CocoEval used by Tester_FRCNN (SURVEY.md §2.1
 "Test harness", §2.2 "COCO mask/eval ops") — pycocotools is not installed and
@@ -25,6 +27,8 @@ from collections import defaultdict
 
 import numpy as np
 
+from multipathnet_tpu_torch.data import rle_native
+
 IOU_THRS = np.round(np.arange(0.5, 1.0, 0.05), 2)
 REC_THRS = np.round(np.linspace(0.0, 1.0, 101), 2)
 AREA_RANGES = {
@@ -37,7 +41,17 @@ MAX_DETS = (1, 10, 100)
 
 
 def box_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray):
-    """IoU of xywh boxes; crowd GT uses union = area(dt) (maskApi semantics)."""
+    """IoU of xywh boxes; crowd GT uses union = area(dt) (maskApi semantics).
+    The native bb_iou when the C++ codec is available."""
+    if len(dt) == 0 or len(gt) == 0:
+        return np.zeros((len(dt), len(gt)))
+    if rle_native.available():
+        return rle_native.box_iou_xywh(dt, gt, np.asarray(iscrowd, np.uint8))
+    return box_iou_xywh_np(dt, gt, iscrowd)
+
+
+def box_iou_xywh_np(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray):
+    """box_iou_xywh in NumPy: the oracle and the fallback."""
     if len(dt) == 0 or len(gt) == 0:
         return np.zeros((len(dt), len(gt)))
     dx1, dy1 = dt[:, 0], dt[:, 1]

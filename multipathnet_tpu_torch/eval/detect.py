@@ -6,11 +6,12 @@ softmaxes, delta decode and clip, then class-aware NMS — all on the model's
 device, with only the fixed-size detection set copied back to the host.
 The align route streams fixed windows, so all P proposals go through in
 one pass (no chunking); roi_mode="max" pools in plain ops
-(models/multipath.py). An int8 head (head_quant="int8") always takes the
-quantized pool route: the head's skip bias, ReLU and per-view int8
-quantization run in the pool kernels' epilogue, as the reference's
-roi_impl="pallas" route does (the port has only the kernel route for
-align).
+(models/multipath.py). In align mode an int8 head (head_quant="int8")
+always takes the quantized pool route: the head's skip bias, ReLU and
+per-view int8 quantization run in the pool kernels' epilogue, as the
+reference's roi_impl="pallas" route does (the port has only the kernel
+route for align). In max mode the pool has no epilogue, so an int8 head
+quantizes its pooled rows itself, as the reference's does.
 
 `Detector` takes its weights as a flax-layout tree and transforms them at
 load for a serving config, as the reference's Detector does
@@ -57,7 +58,9 @@ def score_batch(model: MultiPathNet, cfg: Config,
     rois = proposals.to(torch.float32) * scales[:, None, None]
 
     feats = model.features(canvases)
-    if cfg.model.head_quant == "int8":
+    # max mode pools in plain ops with no int8 epilogue: its int8 head
+    # quantizes the pooled rows itself, as the reference's does
+    if cfg.model.head_quant == "int8" and cfg.model.roi_mode != "max":
         pooled, pooled_scale = model.pool_rois_quantized(
             feats, rois, canvas_hw, model.head.skip_bias)
         scores, deltas = model.predict_rois(pooled,

@@ -36,8 +36,10 @@ route, the window kernels.
 Serving (`head_quant="int8"`, `fc6_rank`/`fc7_rank`) builds the int8 and
 factored head (models/heads.py); its weights come from the load-time
 transforms of a float tree (eval/detect.serving_params). An int8 model
-pools through `pool_rois_quantized`: the head's skip bias, ReLU and the
-per-view int8 quantization run in the pool kernels' epilogue.
+in align mode pools through `pool_rois_quantized`: the head's skip bias,
+ReLU and the per-view int8 quantization run in the pool kernels'
+epilogue. In max mode it pools through `pool_rois` and the head
+quantizes its rows.
 """
 
 from __future__ import annotations

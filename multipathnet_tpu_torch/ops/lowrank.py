@@ -6,10 +6,15 @@ each fc kernel W (K, N) becomes W ~= A @ B, A = U_t (K, t) and
 B = diag(s_t) V_t^T (t, N), one GEMM turned into two of t * (K + N) MACs.
 `factorize_head_params` rewrites fc6_f{i}/fc7_f{i} {kernel, bias} of a
 flax-layout tree into fc6_f{i}_u {kernel (K, t)} + fc6_f{i} {kernel (t, N),
-bias}, the layout of a head built with fc6_rank/fc7_rank > 0. It runs on
-the host in numpy, before int8 quantization (it needs float kernels); a
-torch leaf is copied to the host first. The copy is held equal to the
-reference by tests/test_torch_quant.py.
+bias}, the layout of a head built with fc6_rank/fc7_rank > 0. It runs
+before int8 quantization (it needs float kernels): on the host in numpy,
+a torch leaf on the CPU copied there first; a leaf on the card is
+factorized there by the same algorithm in torch (`factorize_kernel_torch`,
+the same Gaussian test matrix; its factors stay on the card), because a
+host pass over VGG-16's four 25088 x 4096 fc6 kernels takes minutes. The
+numpy path is held equal to the reference by tests/test_torch_quant.py,
+the torch one to the numpy one within float32 rounding by
+tests/test_torch_tools.py.
 """
 
 from __future__ import annotations
@@ -72,11 +77,54 @@ def factorize_kernel(w, rank: int, method: str = "auto",
     return a.astype(np.float32), b.astype(np.float32)
 
 
+def _on_card(w) -> bool:
+    return isinstance(w, torch.Tensor) and w.device.type != "cpu"
+
+
+def factorize_kernel_torch(w: torch.Tensor, rank: int, method: str = "auto",
+                           oversample: int = 16, power_iters: int = 2,
+                           seed: int = 0):
+    """factorize_kernel in torch float32 on w's device: the same methods,
+    the same Gaussian test matrix (numpy's, from `seed`), factors on w's
+    device."""
+    w = w.detach().float()
+    k, n = w.shape
+    if not 1 <= rank <= min(k, n):
+        raise ValueError(f"rank {rank} out of [1, {min(k, n)}] for a kernel "
+                         f"of shape {tuple(w.shape)}")
+    if method == "auto":
+        method = ("randomized"
+                  if rank + oversample < min(k, n) // 2 else "exact")
+    if method == "exact":
+        u, s, vt = torch.linalg.svd(w, full_matrices=False)
+    elif method == "randomized":
+        rng = np.random.default_rng(seed)
+        r = min(rank + oversample, min(k, n))
+        tall = w if k >= n else w.T
+        g = torch.from_numpy(rng.standard_normal(
+            (tall.shape[1], r)).astype(np.float32)).to(w.device)
+        y = tall @ g
+        for _ in range(power_iters):
+            y, _ = torch.linalg.qr(y)
+            y = tall @ (tall.T @ y)
+        q, _ = torch.linalg.qr(y)
+        ub, s, vt_s = torch.linalg.svd(q.T @ tall, full_matrices=False)
+        u_tall = q @ ub
+        u, vt = (u_tall, vt_s) if k >= n else (vt_s.T, u_tall.T)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return u[:, :rank].contiguous(), (s[:rank, None] * vt[:rank]).contiguous()
+
+
 def truncation_rel_err(w, a, b) -> float:
     """||W - AB|| / ||W|| (Frobenius) without forming AB: A's columns are
     orthonormal and B = A^T W, so ||W - AB||^2 = ||W||^2 - ||B||^2."""
-    wsq = float(np.sum(np.square(_host(w))))
-    bsq = float(np.sum(np.square(_host(b))))
+    if _on_card(w):
+        wsq = float(torch.sum(torch.square(w.detach().float())))
+        bsq = float(torch.sum(torch.square(b.detach().float())))
+    else:
+        wsq = float(np.sum(np.square(_host(w))))
+        bsq = float(np.sum(np.square(_host(b))))
     return float(np.sqrt(max(0.0, 1.0 - bsq / max(wsq, 1e-30))))
 
 
@@ -141,7 +189,8 @@ def factorize_head_params(params, fc6_rank: int = 0, fc7_rank: int = 0,
             if r > 0 and "kernel" in v:
                 if f"{k}_u" in d:
                     raise ValueError(f"{k} is already factored")
-                a, b = factorize_kernel(v["kernel"], r)
+                a, b = (factorize_kernel_torch if _on_card(v["kernel"])
+                        else factorize_kernel)(v["kernel"], r)
                 errs[k] = truncation_rel_err(v["kernel"], a, b)
                 out[f"{k}_u"] = {"kernel": a}
                 out[k] = {"kernel": b,

@@ -1,6 +1,7 @@
 """Detection NMS with static shapes — port of multipathnet_tpu/ops/nms.py.
 
-`nms` is the sequential pick/suppress oracle; `nms_sorted` solves the same
+`nms` is the sequential pick/suppress oracle and `batched_nms` runs it over
+a leading axis; `nms_sorted` solves the same
 greedy recurrence for score-sorted candidates as a parallel fixpoint;
 `multiclass_nms` is the eval post-processing (per-class top-k, per-class
 NMS, global top max_detections). The reference vmaps over images; here
@@ -45,6 +46,19 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         idx.append(i)
         keep.append(ok)
     return torch.stack(idx), torch.stack(keep)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                iou_threshold: float, max_out: int,
+                valid: torch.Tensor | None = None):
+    """nms over a leading axis: boxes (B, N, 4), scores (B, N), valid
+    (B, N) or None -> (indices (B, max_out), keep (B, max_out)); each
+    problem is independent."""
+    out = [nms(boxes[i], scores[i], iou_threshold, max_out,
+               None if valid is None else valid[i])
+           for i in range(boxes.shape[0])]
+    return (torch.stack([i for i, _ in out]),
+            torch.stack([k for _, k in out]))
 
 
 def nms_sorted(boxes: torch.Tensor, scores: torch.Tensor,

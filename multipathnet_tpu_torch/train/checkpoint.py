@@ -13,8 +13,10 @@ copies the state to host memory at once
 (the train loop goes on changing the parameters) and writes it on a
 background thread, to a temporary file first and then into place by
 os.replace, so a run killed mid-write leaves no torn checkpoint; `wait`
-joins the write. The port does not read the reference's orbax checkpoints
-(ROADMAP §C).
+joins the write. A checkpoint of the reference (orbax) converts into this
+layout with tools/convert_orbax_checkpoint.py, on a host with jax and
+orbax; its generator entry is then a seed drawn from the reference's PRNG
+key, not a generator state.
 
 On a mesh (the trainer's `.mesh`) a checkpoint holds whole tensors, as one
 process's does: `save` gathers each tensor-parallel parameter and its

@@ -365,5 +365,10 @@ def restore_train_state(trainer, saved: dict) -> TrainState:
     opt.sgd.load_state_dict(copy.deepcopy(saved["sgd"]))
     opt.count = saved["count"]
     gen = torch.Generator(trainer.device)
-    gen.set_state(saved["generator"])
+    if isinstance(saved["generator"], int):
+        # a seed, as tools/convert_orbax_checkpoint.py writes for the
+        # reference's PRNG key, which has no torch generator state
+        gen.manual_seed(saved["generator"])
+    else:
+        gen.set_state(saved["generator"])
     return TrainState(saved["step"], opt, gen)

@@ -128,11 +128,34 @@ def test_train_cli_refuses_a_used_checkpoint_dir(run1, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--tensorboard"])
 def test_train_cli_unported_modes_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main([
-            "--preset", "tiny", "--synthetic", "--device", "cpu",
-            "--dataset-root", str(tmp_path / "ds"), "--steps", "1", flag,
-            "--set", f"train.checkpoint_dir={tmp_path / 'run'}"])
+    """The modes that once raised as not ported now run. --tensorboard:
+    2 steps logged at every step write <checkpoint_dir>/tb, and its
+    scalars read back, through the port's read_scalars and the JAX
+    package's alike, equal to the JSONL metrics rows (float32 values)."""
+    import numpy as np
+
+    from multipathnet_tpu.utils import tbevents as jtb
+    from multipathnet_tpu_torch.utils import tbevents
+
+    run = tmp_path / "run"
+    train_cli.main([
+        "--preset", "tiny", "--synthetic", "--device", "cpu",
+        "--dataset-root", str(tmp_path / "ds"), "--steps", "2", flag,
+        "--no-final-eval", "--set", f"train.checkpoint_dir={run}",
+        "--set", "train.log_every=1"])
+    files = os.listdir(run / "tb")
+    assert len(files) == 1 and "tfevents" in files[0]
+    path = str(run / "tb" / files[0])
+    seen = tbevents.read_scalars(path)
+    assert seen == jtb.read_scalars(path)
+    rows = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    logged = [r for r in rows if "loss" in r]
+    assert [r["step"] for r in logged] == [1, 2]
+    for r in logged:
+        for k in ("loss", "lr", "grad_norm"):
+            assert abs(seen[k][r["step"]] - np.float32(r[k])) <= 1e-6 * max(
+                1.0, abs(r[k])), (k, r)
+    assert set(seen["time_to_first_step"]) == {1}
 
 
 # ------------------------------------------- config 5: the proposal net ---

@@ -67,7 +67,10 @@ _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "models.t7_import", "ops.roi", "ops.roi_pyramid",
                 "ops.scatter", "models.sharpmask", "train.proposal",
                 "cli.export_proposals", "cli.demo", "cli.export_serving",
-                "cli.serve", "core.mesh", "tools.mesh_runs")
+                "cli.serve", "core.mesh", "tools.mesh_runs",
+                "utils.tbevents", "utils.profiling", "data.rle_native",
+                "tools.soak_svd_decay", "tools.prop_quality_scale",
+                "tools.prof_eval", "tools.prof_train")
 
 
 def test_port_never_imports_jax():

@@ -48,11 +48,8 @@ def _inputs(seed=0):
     return images, src_hws, proposals, prop_mask
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
-    """(jax model, params, cfg) and (torch model, cfg) on one tree."""
-    jcfg = _cfg(jpreset)
-    jmodel = jbuild(jcfg.model)
+def _random_tree(jmodel):
+    """A float tree for jmodel from numpy seed 7, scores spread out."""
     shapes = jax.eval_shape(
         jmodel.init, jax.random.key(0), jnp.zeros((1, 64, 64, 3)),
         jnp.asarray([[[0.0, 0.0, 16.0, 16.0]]]))
@@ -67,7 +64,15 @@ def slice_pair():
                     ).astype(np.float32)
         return (rng.normal(size=s.shape) * 0.1).astype(np.float32)
 
-    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@pytest.fixture(scope="module")
+def slice_pair():
+    """(jax model, params, cfg) and (torch model, cfg) on one tree."""
+    jcfg = _cfg(jpreset)
+    jmodel = jbuild(jcfg.model)
+    params = _random_tree(jmodel)
     tcfg = _cfg(preset)
     tmodel = convert.load_flax_params(
         build_model(tcfg.model, device="cpu"), params)
@@ -173,3 +178,50 @@ def test_int8_serving_matches_reference(slice_pair, ranks):
     got = tdet(images, src_hws, proposals, prop_mask)
     d = tcfg.eval.max_detections
     assert got["boxes"].shape == (B, d, 4) and got["valid"].any()
+
+
+@pytest.mark.parametrize("ranks", [(0, 0), (16, 8)], ids=["int8", "int8_svd"])
+def test_int8_serving_in_max_mode_matches_reference(ranks, tmp_path):
+    """int8 serving with roi_mode="max" (the exact route, roi_impl
+    "direct"): the pool has no int8 epilogue there, so the head quantizes
+    its own pooled rows, as the reference's does (it takes the in-kernel
+    route only for "pallas" outside max mode). One float tree, factorized
+    and quantized at load by each side's Detector; the tolerances of
+    test_int8_serving_matches_reference. The port's Detector also returns
+    detections, and a bundle of it loads and detects the same."""
+    from multipathnet_tpu_torch.eval import serving
+
+    def max_cfg(make_preset):
+        cfg = make_preset("tiny")
+        return _serving_cfg(cfg.replace(model=dataclasses.replace(
+            cfg.model, dtype="float32", roi_mode="max", roi_impl="direct")),
+            *ranks)
+
+    jcfg, tcfg = max_cfg(jpreset), max_cfg(preset)
+    jmodel = jbuild(jcfg.model)
+    params = _random_tree(jbuild(dataclasses.replace(
+        jcfg.model, head_quant="none", fc6_rank=0, fc7_rank=0)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # random weights: a flat spectrum
+        jdet = jdetect.Detector(jmodel, params, jcfg)
+        tdet = tdetect.Detector(build_model(tcfg.model, device="cpu"), tcfg,
+                                params=params)
+    images, src_hws, proposals, prop_mask = _inputs()
+    want_b, want_p = jax.jit(partial(jdetect.score_batch, model=jmodel,
+                                     cfg=jcfg))(
+        jdet.params, images_u8=images, src_hws=src_hws, proposals=proposals)
+    got_b, got_p = tdetect.score_batch(
+        tdet.model, tcfg, *(torch.from_numpy(x) for x in
+                            (images, src_hws, proposals)))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=2e-3)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), atol=5e-2)
+    got = tdet(images, src_hws, proposals, prop_mask)
+    d = tcfg.eval.max_detections
+    assert got["boxes"].shape == (B, d, 4) and got["valid"].any()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        serving.save_bundle(str(tmp_path), tcfg, params)
+    again = serving.load_detector(str(tmp_path), device="cpu")(
+        images, src_hws, proposals, prop_mask)
+    for key in got:
+        np.testing.assert_array_equal(again[key], got[key], err_msg=key)
