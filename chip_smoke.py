@@ -8,8 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit.
   2. build: compiles csrc/ with nvcc (ops/_build.py) and prints the time,
-     ptxas's report and each pool and gradient instance's registers, local
-     memory (spills) and static/dynamic shared memory
+     ptxas's report and each pool, gradient and P instance's registers,
+     local memory (spills) and static/dynamic shared memory
      (cudaFuncGetAttributes).
   3. kernels: K1 (window_pool_multi) and K2 (resident_pool) against their
      plain PyTorch versions on random 640^2 c3/c4/c5 maps in float32
@@ -93,8 +93,11 @@ Phases, each of which raises on failure (nothing is caught):
  12. window-read probe P (tools/probe_int8_window_dma.py of the port) at
      its tool's shapes (32000 views over a (4096, 160, 512) buffer), bf16
      and int8 windows: the kernel against its plain version (rtol/atol
-     1e-2, a bf16 output), each timed against it; then the tool's `bench`
-     for each dtype as the path `probe` (launches counted from 0).
+     1e-2, a bf16 output), its output bit-equal over two calls and, view
+     by view, under a shuffled view order; timed against the plain
+     version, with its share of the bound and two rates (every view's
+     window read, and the bound's bytes). Then the tool's `bench` for each
+     dtype as the path `probe` (launches counted from 0, one a call).
  13. dataset to AP (`dataset_eval`): synthetic.generate writes a COCO split
      under build/ (32 PNG images of 600^2, 80 categories, up to 4 objects
      and 1000 proposals per image, seed 0); Tester runs
@@ -228,8 +231,7 @@ once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
 bf16 body's W2 GEMM, 2 x 49 x 160 per view, level and channel, over the
 989 TF/s of the bf16 tensor cores); for P the
 distinct cells under its windows and its output over 3.35 TB/s, with the
-int8 numbers beside the bf16 ones. The last line is {"ok": true, "device":
-{...}}.
+int8 numbers and the share of the bound beside the bf16 ones. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -394,17 +396,6 @@ def bound(n_bytes, n_ops, n_bf16_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def window_cells(row0, x0, n_rows, wmax) -> int:
-    """The distinct cells of an (n_rows, wmax) buffer under the 10 x 16
-    windows at (row0, x0): what these views need read."""
-    dev = row0.device
-    mask = torch.zeros((n_rows, wmax), dtype=torch.bool, device=dev)
-    ys = row0.long()[:, None] + torch.arange(10, device=dev)
-    xs = x0.long()[:, None] + torch.arange(16, device=dev)
-    mask[ys[:, :, None], xs[:, None, :]] = True
-    return int(mask.sum())
-
-
 def pool_bound(flats, row0s, x0s, quant: bool):
     """bound() of one K1 or K2 call on these inputs: each pyramid cell
     under a window read once, the geometry read once, the (N, 7, 7, C)
@@ -422,8 +413,8 @@ def pool_bound(flats, row0s, x0s, quant: bool):
             b, rows = flat.shape[:2]
             row0 = row0 + torch.arange(b, device=row0.device)[:, None] * rows
         wmax = flat.shape[-2]
-        cells += window_cells(row0.reshape(-1), x0.reshape(-1),
-                              flat.numel() // (wmax * c), wmax)
+        cells += probe.window_cells(row0.reshape(-1), x0.reshape(-1),
+                                    flat.numel() // (wmax * c), wmax)
     out = n * 49 * c + n * 4 + c * size if quant else n * 49 * c * size
     views = n * len(flats) * c
     bf16 = flats[0].dtype == torch.bfloat16
@@ -452,9 +443,9 @@ def grad_bound(gout, out_numel: int, out_size: int):
 
 
 def log_pool_instances() -> None:
-    """Phase 2: each pool and gradient instance's registers, local memory
-    (spills) and shared memory, from cudaFuncGetAttributes
-    (mpn_pool_kernel_attrs, mpn_grad_kernel_attrs)."""
+    """Phase 2: each pool, gradient and P instance's registers, local
+    memory (spills) and shared memory, from cudaFuncGetAttributes
+    (mpn_pool_kernel_attrs, mpn_grad_kernel_attrs, mpn_probe_kernel_attrs)."""
     attrs = (ctypes.c_int * 5)()
     for out_bf16 in (0, 1):
         rc = _build.kernels().mpn_grad_kernel_attrs(out_bf16,
@@ -465,6 +456,15 @@ def log_pool_instances() -> None:
             f" output: {regs} registers, {local} B local memory (spills), "
             f"{static} B static + {dynamic} B dynamic shared memory, at most "
             f"{threads} threads per block")
+    for is_int8 in (0, 1):
+        rc = _build.kernels().mpn_probe_kernel_attrs(is_int8,
+                                                     ctypes.addressof(attrs))
+        require(rc == 0, f"mpn_probe_kernel_attrs: cudaError {rc}")
+        regs, local, static, dynamic, threads = attrs
+        log(f"[build] P body, {'int8' if is_int8 else 'bf16'} windows: {regs}"
+            f" registers, {local} B local memory (spills), {static} B static "
+            f"+ {dynamic} B dynamic shared memory, at most {threads} threads "
+            f"per block")
     for is_bf16, body in ((1, "bf16 tensor-core"), (0, "float32 CUDA-core")):
         for levels in (1, 2, 3):
             for quant in (0, 1):
@@ -1491,52 +1491,64 @@ def pool_api_path(gen):
 # ------------------------------------------------------------ phase 12 ---
 
 def probe_bound(flat, row0, x0):
-    """bound() of one P call: the distinct cells under its windows read
-    once, row0/x0 read once, the (N, 49, C) bf16 output written once; 160
-    float32 adds per view and channel."""
-    rows, wmax, c = flat.shape
-    n = row0.numel()
-    cells = window_cells(row0, x0, rows, wmax)
-    return bound(cells * c * flat.element_size() + n * 8 + n * 49 * c * 2,
-                 n * c * 160)
+    """bound() of one P call: probe.bound_bytes (the distinct cells under
+    its windows read once, row0/x0 read once, the (N, 49, C) bf16 output
+    written once); 160 float32 adds per view and channel."""
+    return bound(probe.bound_bytes(flat, row0, x0),
+                 row0.numel() * flat.shape[-1] * 160)
 
 
 def probe_path():
-    """Phase 12: P against its plain version at its tool's shapes, bf16 and
-    int8 windows (rtol/atol 1e-2), each timed against it; then the tool's
-    bench for each dtype as the path `probe`, launches counted from 0.
+    """Phase 12: P at its tool's shapes, bf16 and int8 windows: against its
+    plain version (rtol/atol 1e-2), bit-equal over two calls and view by
+    view under a shuffled view order; timed against the plain version.
+    Then the tool's bench for each dtype as the path `probe`, launches
+    counted from 0.
     Returns (stats with the bf16 numbers as the row's and the int8 ones in
     "extra", the path's launches)."""
     stats = {"extra": {}}
+    shuffle = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.bfloat16, torch.int8):
         key = str(dtype)[6:]
         args = probe.probe_inputs(dtype)
+        flat, row0, x0 = args
+        n, c = row0.numel(), flat.shape[-1]
         got = probe.window_read_probe(*args)
+        again = probe.window_read_probe(*args)
+        perm = torch.randperm(n, generator=shuffle, device="cuda")
+        shuffled = probe.window_read_probe(flat, row0[perm].contiguous(),
+                                           x0[perm].contiguous())
         torch.cuda.synchronize()
+        require(torch.equal(got, again), f"P {key}: two calls differ")
+        require(torch.equal(shuffled, got[perm]),
+                f"P {key}: a shuffled view order changes the output")
+        del again, shuffled
         err, tol = compare(f"window_read_probe {key}", torch.bfloat16, got,
                            probe.window_read_probe_ref(*args))
-        del got
         ms, plain_ms = alternate_ms(lambda: probe.window_read_probe_ref(*args),
                                     lambda: probe.window_read_probe(*args),
                                     1, 10)
         b_ms, b_by = probe_bound(*args)
-        n, c = args[1].numel(), args[0].shape[-1]
-        read_gb_s = n * 160 * c * args[0].element_size() / ms / 1e6
+        window_gb_s = n * 160 * c * flat.element_size() / ms / 1e6
+        bound_gb_s = probe.bound_bytes(*args) / ms / 1e6
         log(f"[probe] window_read_probe {key} windows, {n} views: max abs "
-            f"err {err:.3e} ({tol}) ok; kernel {ms:.4f} ms ({read_gb_s:.1f} "
-            f"GB/s of window reads), plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"err {err:.3e} ({tol}) ok, equal over two calls and under a "
+            f"shuffled view order; kernel {ms:.4f} ms, {100 * b_ms / ms:.1f}%"
+            f" of its bound {b_ms:.4f} ms ({b_by}); {window_gb_s:.1f} GB/s "
+            f"of window reads (every view's window), {bound_gb_s:.1f} GB/s "
+            f"of the bound's bytes; plain {plain_ms:.3f} ms")
+        numbers = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, bound_share=b_ms / ms,
+                       window_gb_s=window_gb_s, bound_gb_s=bound_gb_s)
         if dtype == torch.bfloat16:
             stats.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by)
-            stats["extra"]["read_gb_s"] = read_gb_s
+            stats["extra"].update({k: v for k, v in numbers.items()
+                                   if k not in stats})
         else:
-            stats["extra"].update(
-                max_abs_err_int8=err, int8_ms=round(ms, 4),
-                int8_plain_ms=round(plain_ms, 4),
-                int8_bound_ms=round(b_ms, 4), int8_bound_by=b_by,
-                int8_read_gb_s=read_gb_s)
-        del args
+            stats["extra"].update(max_abs_err_int8=err, **{
+                f"int8_{k}": v for k, v in numbers.items()})
+        del args, flat, row0, x0, got
         torch.cuda.empty_cache()
     reset_launches()
     bf16 = probe.bench(torch.bfloat16)
@@ -1544,13 +1556,14 @@ def probe_path():
     launches = read_launches()
     log(f"[probe] bench: bf16 / int8 time {bf16['ms'] / int8['ms']:.3f}x; "
         f"launches {launches}")
-    require(launches["window_read_probe"] > 0
+    require(launches["window_read_probe"] == 42
             and sum(launches.values()) == launches["window_read_probe"],
-            f"the probe's bench launched {launches}")
-    stats["extra"].update(bench_ms=round(bf16["ms"], 4),
-                          int8_bench_ms=round(int8["ms"], 4),
-                          bench_read_gb_s=bf16["gb_s"],
-                          int8_bench_read_gb_s=int8["gb_s"])
+            f"the probe's bench launched {launches}, not 2 x 21 calls")
+    stats["extra"].update(bench_ms=bf16["ms"], int8_bench_ms=int8["ms"],
+                          bench_window_gb_s=bf16["window_gb_s"],
+                          bench_bound_gb_s=bf16["bound_gb_s"],
+                          int8_bench_window_gb_s=int8["window_gb_s"],
+                          int8_bench_bound_gb_s=int8["bound_gb_s"])
     return stats, launches
 
 

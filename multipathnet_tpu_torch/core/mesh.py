@@ -42,6 +42,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from multipathnet_tpu_torch.core.device import resolve_device
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -108,13 +110,7 @@ def _world() -> int:
 def _rank_device(device) -> torch.device:
     """The rank's device: `device`, or the current card; "cuda" without an
     index is the current card, which the launchers set per rank."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on an NVIDIA GPU by default; "
-                "pass device='cpu' to run on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -7,7 +7,7 @@ use, into build/kernels/<hash>/ at the repository root (listed in
 source rebuilds and an unchanged one loads what is there. The library is
 bound with ctypes: every pointer and the stream pass as c_void_p, every
 size as c_int, and each entry point returns the cudaError_t of its launch.
-The bf16 pool body encodes its TMA tensor maps through the runtime's
+The bf16 pool body and the probe encode their TMA tensor maps through the runtime's
 cudaGetDriverEntryPoint, so the link line names no driver library.
 
 Nothing is compiled or loaded when this module is imported; CPU-only hosts
@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("roi_window_pool.cu", "roi_window_pool_wgmma.cu",
            "roi_window_grad.cu", "window_read_probe.cu")
-HEADERS = ("roi_window_pool.cuh",)
+HEADERS = ("roi_window_pool.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -49,11 +49,14 @@ _SIGNATURES = {
     "mpn_window_rmw_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                             _P, _P],
     "mpn_grad_kernel_attrs": [_I, _P],
-    "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "mpn_window_read_probe_scratch_words": [_I, _I],
+    "mpn_probe_kernel_attrs": [_I, _P],
 }
 
 # entry points that return a size rather than a cudaError_t
-_RESTYPES = {"mpn_grad_scratch_words": ctypes.c_longlong}
+_RESTYPES = {"mpn_grad_scratch_words": ctypes.c_longlong,
+             "mpn_window_read_probe_scratch_words": ctypes.c_longlong}
 
 _lib = None
 

@@ -6,11 +6,14 @@ the entry points a user calls (Trainer, ProposalTrainer, Detector, Tester,
 Checkpointer) and returns what a comparison needs as host values: metrics
 as floats, tensors as numpy arrays, the kernels' launch counts of the run.
 chip_smoke.py (phase 19, `parallel`) runs them on the card at full width
-and tests/test_torch_{mesh,dp,tp}.py on the CPU at `tiny`:
+and tests/test_torch_{mesh,dp,tp}.py on the CPU at `tiny`. Each runs on
+the rank's card unless it is given `device="cpu"`, and raises without a
+card:
 
     from multipathnet_tpu_torch.core.mesh import spawn
     from multipathnet_tpu_torch.tools import mesh_runs
-    results = spawn(mesh_runs.train_run, 2, args=(cfg, (2, 1), batch))
+    results = spawn(mesh_runs.train_run, 2, args=(cfg, (2, 1), batch),
+                    kwargs=dict(device="cpu"))
 
 `run_jobs` runs several of them in order on one set of ranks, each on its
 own mesh, so one launch serves meshes of several shapes:
@@ -128,7 +131,7 @@ def set_weights(trainer, seed: int, std: float, tree) -> None:
         trainer.load_full_state_dict(full.state_dict())
 
 
-def train_run(cfg, shape, batch, *, device="cpu", seed=0, steps=1,
+def train_run(cfg, shape, batch, *, device=None, seed=0, steps=1,
               normal_std=0.0, tree=None, repeat=False, timed=0,
               compare_plain=False, save_dir=None, restore_dir=None,
               return_params=True, dump_file=None, diff_file=None,
@@ -230,7 +233,7 @@ def train_run(cfg, shape, batch, *, device="cpu", seed=0, steps=1,
     return out
 
 
-def detect_run(cfg, shape, inputs, *, device="cpu", tree=None,
+def detect_run(cfg, shape, inputs, *, device=None, tree=None,
                normal_seed=None, compare_unsharded=False, timed=0):
     """Detector(model, cfg, params=tree, mesh) on this rank (with
     `normal_seed`, bench.py's weights drawn into the model instead: for an
@@ -298,7 +301,7 @@ def detect_run(cfg, shape, inputs, *, device="cpu", tree=None,
     return out
 
 
-def tester_run(cfg, shape, split, *, device="cpu", tree=None,
+def tester_run(cfg, shape, split, *, device=None, tree=None,
                normal_seed=None, batch_size=None, collect=False):
     """Tester(model, cfg, loader, proposals, mesh) on this rank over a
     COCO split on disk (`split`: annotations file, image directory,
@@ -327,7 +330,7 @@ def tester_run(cfg, shape, split, *, device="cpu", tree=None,
     return out
 
 
-def proposal_run(cfg, shape, batch, *, device="cpu", seed=0, steps=1):
+def proposal_run(cfg, shape, batch, *, device=None, seed=0, steps=1):
     """ProposalTrainer(cfg, mesh) on this rank: init_state(seed), `steps`
     steps on the global `batch` (with gt_masks). Returns the metrics of
     each step and the parameters after them."""

@@ -146,16 +146,17 @@ def runs(data, fitted, tmp_path_factory):
                                                  head_quant="int8"))
     images = (batch.images, batch.src_hws, batch.proposals, batch.prop_mask)
     split = (fx["annotations"], fx["images"], fx["proposals"])
-    jobs = [(mesh_runs.train_run, (cfg, (2, 1), batch), {}),
-            (mesh_runs.train_run, (cfg, (4, 1), batch), {}),
+    cpu = dict(device="cpu")
+    jobs = [(mesh_runs.train_run, (cfg, (2, 1), batch), cpu),
+            (mesh_runs.train_run, (cfg, (4, 1), batch), cpu),
             (workers.train_with_sample,
              (_no_flip(cfg), (2, 1), batch, sample),
              dict(tree=ref_params, return_params=False)),
-            (mesh_runs.proposal_run, (pcfg, (2, 1), masked), {}),
+            (mesh_runs.proposal_run, (pcfg, (2, 1), masked), cpu),
             (mesh_runs.tester_run, (cfg, (2, 1), split),
-             dict(tree=fitted, batch_size=4, collect=True)),
+             dict(cpu, tree=fitted, batch_size=4, collect=True)),
             (mesh_runs.detect_run, (qcfg, (2, 1), images),
-             dict(tree=fitted, compare_unsharded=True)),
+             dict(cpu, tree=fitted, compare_unsharded=True)),
             (workers.tester_on_trainer_model, (cfg, (1, 2), split, fitted),
              {})]
     res = spawn(mesh_runs.run_jobs, 4, args=(jobs,), timeout_s=TIMEOUT,

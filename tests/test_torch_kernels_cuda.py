@@ -952,10 +952,15 @@ def test_single_level_backwards_match_autograd_of_plain(cuda):
         torch.testing.assert_close(g_, w_, **_tol(torch.float32))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
-@pytest.mark.parametrize("c", [512, 200])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 512),
+                                     (torch.int8, 512),
+                                     (torch.bfloat16, 200),
+                                     (torch.int8, 208)],
+                         ids=["512-bf16", "512-int8", "200-bf16", "208-int8"])
 def test_window_read_probe_matches_plain(cuda, dtype, c):
+    """At 3000 views over 512 rows; C = 200 (bf16) and 208 (int8) are no
+    multiple of the kernel's 256-channel slice (int8 needs C % 16 for its
+    TMA strides: test_window_read_probe_checks_its_inputs)."""
     from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 
     flat, row0, x0 = probe.probe_inputs(dtype, 3000, 512, 160, c,
@@ -969,6 +974,61 @@ def test_window_read_probe_matches_plain(cuda, dtype, c):
     assert got.shape == (3000, 49, c)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
+
+
+def _probe_case(case, dtype, device):
+    """(flat, row0, x0) of one P case, drawn with numpy from seed 0: views
+    all in one 16-row band; views in the last band of a 509-row buffer,
+    one window ending on the last row; C = 200 (bf16) / 208 (int8), no
+    multiple of the 256-channel slice, over two slices (C + 256); one
+    view; 2049 views, one past a block of the order pass."""
+    rng = np.random.default_rng(0)
+    rows, wmax, c, n = 512, 64, 64, 300
+    if case == "odd_c":
+        c = (200 if dtype == torch.bfloat16 else 208) + 256
+    elif case == "one_view":
+        n = 1
+    elif case == "ragged_views":
+        n = 2049
+    elif case == "last_band":
+        rows = 509
+    row0 = rng.integers(0, rows - 9, n)
+    if case == "one_band":
+        row0 = rng.integers(32, 48, n)
+    elif case == "last_band":
+        row0 = rng.integers(496, rows - 9, n)
+        row0[7] = rows - 10
+    x0 = rng.integers(0, wmax - 15, n)
+    x = rng.standard_normal((rows, wmax, c)).astype(np.float32)
+    flat = (torch.from_numpy(np.clip(np.trunc(x * 40), -127, 127)).to(
+        torch.int8) if dtype == torch.int8 else torch.from_numpy(x).to(dtype))
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return flat.to(device), as_i32(row0), as_i32(x0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", ["one_band", "last_band", "odd_c",
+                                  "one_view", "ragged_views"])
+def test_window_read_probe_orders_views_by_band(cuda, case, dtype):
+    """The band-ordered body on the cases _probe_case lists: against the
+    plain version (rtol/atol 1e-2), bit-equal over two calls and, view by
+    view, under a permutation of the views."""
+    from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
+
+    flat, row0, x0 = _probe_case(case, dtype, cuda)
+    got = probe.window_read_probe(flat, row0, x0)
+    again = probe.window_read_probe(flat, row0, x0)
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(
+        row0.numel())).to(cuda)
+    shuffled = probe.window_read_probe(flat, row0[perm].contiguous(),
+                                       x0[perm].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(shuffled, got[perm])
+    torch.testing.assert_close(
+        got.float(), probe.window_read_probe_ref(flat, row0, x0).float(),
+        rtol=1e-2, atol=1e-2)
 
 
 def test_window_read_probe_checks_its_inputs(cuda):
@@ -986,6 +1046,12 @@ def test_window_read_probe_checks_its_inputs(cuda):
         probe.window_read_probe(flat[None], row0, x0)
     with pytest.raises(ValueError):
         probe.window_read_probe(flat, row0, x0.cpu())
+    with pytest.raises(ValueError):         # int8 rows of 200 bytes: TMA
+        probe.window_read_probe(             # strides are 16-byte units
+            torch.zeros((64, 48, 200), dtype=torch.int8, device=cuda),
+            row0, x0)
+    with pytest.raises(ValueError):         # smaller than one window
+        probe.window_read_probe(flat[:9].contiguous(), row0, x0)
     bad = row0.clone()
     bad[3] = 60                      # the window hangs past the last row
     out = probe.window_read_probe(flat, bad, x0)

@@ -171,6 +171,16 @@ def test_nccl_refuses_ranks_sharing_a_card(tmp_path):
                     timeout_s=TIMEOUT, workdir=str(tmp_path))
 
 
+@pytest.mark.parametrize("body", ["train_run", "detect_run", "tester_run",
+                                  "proposal_run"])
+def test_rank_bodies_run_on_the_card_by_default(body, monkeypatch):
+    """A rank body given no device runs on the card: without one it raises
+    before it builds anything, rather than carry on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(mesh_runs, body)(preset("tiny"), (1, 1), None)
+
+
 def test_mesh_groups_and_head_collectives(tmp_path):
     """A (2, 2) mesh over 4 ranks: each rank's coordinate, a (1, 2) mesh
     leaving ranks 2 and 3 out (None), the groups' sums and maxima, and a
@@ -203,8 +213,10 @@ def test_spawned_ranks_import_no_jax(tmp_path):
                   np.full((2, 2), 64, np.float32), boxes,
                   np.ones((2, p), bool), gt, np.ones(gt.shape[:2], np.int32),
                   np.ones(gt.shape[:2], bool))
-    jobs = [(mesh_runs.train_run, (cfg, (2, 1), batch), dict(return_params=False)),
-            (mesh_runs.detect_run, (cfg, (2, 1), batch[:4]), dict(normal_seed=0))]
+    jobs = [(mesh_runs.train_run, (cfg, (2, 1), batch),
+             dict(device="cpu", return_params=False)),
+            (mesh_runs.detect_run, (cfg, (2, 1), batch[:4]),
+             dict(device="cpu", normal_seed=0))]
     res = tmesh.spawn(workers.jobs_then_modules, 2, args=(jobs,),
                       timeout_s=TIMEOUT, workdir=str(tmp_path))
     assert res == [[], []]
@@ -269,11 +281,12 @@ def test_checkpoint_restores_across_meshes(split, tmp_path):
     batch = next(DetectionPipeline(loader, props, cfg.data, batch_size=4,
                                    seed=0).epoch(0))
     ckpt = str(tmp_path / "ckpt")
-    jobs = [(mesh_runs.train_run, (cfg, (2, 2), batch), dict(save_dir=ckpt)),
+    jobs = [(mesh_runs.train_run, (cfg, (2, 2), batch),
+             dict(device="cpu", save_dir=ckpt)),
             (mesh_runs.train_run, (cfg, (2, 4), batch),
-             dict(steps=0, restore_dir=ckpt)),
+             dict(device="cpu", steps=0, restore_dir=ckpt)),
             (mesh_runs.train_run, (cfg, (2, 4), batch),
-             dict(restore_dir=ckpt, return_params=False))]
+             dict(device="cpu", restore_dir=ckpt, return_params=False))]
     res = tmesh.spawn(mesh_runs.run_jobs, 8, args=(jobs,), timeout_s=TIMEOUT,
                       workdir=str(tmp_path))
     saved, on24, stepped = res[0]

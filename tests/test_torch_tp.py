@@ -113,13 +113,16 @@ def runs(data, tmp_path_factory):
     k1 = _cfg(preset, integral_thresholds=(0.5,))
     trees = {layout: _serving_tree(layout) for layout in _SERVING}
     images = (batch.images, batch.src_hws, batch.proposals, batch.prop_mask)
+    cpu = dict(device="cpu")
     jobs = [(mesh_runs.train_run, (cfg, (4, 1), batch),
-             dict(steps=2, return_params=False)),
-            (mesh_runs.train_run, (cfg, (2, 2), batch), dict(steps=2)),
-            (mesh_runs.train_run, (cfg, (2, 4), batch), dict(return_params=False)),
-            (mesh_runs.train_run, (k1, (2, 2), batch), dict(return_params=False))]
+             dict(cpu, steps=2, return_params=False)),
+            (mesh_runs.train_run, (cfg, (2, 2), batch), dict(cpu, steps=2)),
+            (mesh_runs.train_run, (cfg, (2, 4), batch),
+             dict(cpu, return_params=False)),
+            (mesh_runs.train_run, (k1, (2, 2), batch),
+             dict(cpu, return_params=False))]
     jobs += [(mesh_runs.detect_run, (_cfg(preset, *_SERVING[layout]), (1, 2),
-                             images), dict(tree=trees[layout],
+                             images), dict(cpu, tree=trees[layout],
                                            compare_unsharded=True))
              for layout in _SERVING]
     res = spawn(mesh_runs.run_jobs, 8, args=(jobs,), timeout_s=TIMEOUT,

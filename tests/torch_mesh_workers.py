@@ -96,9 +96,9 @@ def jobs_then_modules(jobs):
 
 
 def train_with_sample(cfg, shape, batch, sample, **kwargs):
-    """mesh_runs.train_run with the step's ROI sample replaced by `sample`
-    (a whole batch's RoiSample fields as numpy arrays; each rank takes its
-    rows) and dropout off."""
+    """mesh_runs.train_run on the CPU with the step's ROI sample replaced
+    by `sample` (a whole batch's RoiSample fields as numpy arrays; each
+    rank takes its rows) and dropout off."""
     def fixed(generator, proposals, *_, shard=None, **__):
         index, count = shard or (0, 1)
         return sampler_lib.RoiSample(*(
@@ -108,7 +108,8 @@ def train_with_sample(cfg, shape, batch, sample, **kwargs):
     drawn, rate = sampler_lib.sample_batch, MultiPathHead.dropout_rate
     sampler_lib.sample_batch, MultiPathHead.dropout_rate = fixed, 0.0
     try:
-        return mesh_runs.train_run(cfg, shape, batch, **kwargs)
+        return mesh_runs.train_run(cfg, shape, batch, device="cpu",
+                                   **kwargs)
     finally:
         sampler_lib.sample_batch, MultiPathHead.dropout_rate = drawn, rate
 
