@@ -222,9 +222,27 @@ Phases, each of which raises on failure (nothing is caught):
      evaluated with the native RLE codec (data/rle_native.py, built with
      g++, which must succeed) and the NumPy one: every COCO stat equal,
      seconds for each.
+ 21. the align routes (`align_routes`), launches counted over the phase, at
+     bench.py's 8 x 1000 proposals, 640^2: (a) `multipath_vgg16_batched`'s
+     pool_rois through the kernels (K1, K2) against roi_impl="pyramid",
+     the reference's XLA oracle of them (each image's avg pyramids and the
+     window sampler, float32), on one batch's features: the pooled (B, F,
+     R, G, G, C) cast to bf16 within rtol/atol 1e-2 (phase 3's rule), each
+     route's pool_rois timed; then score_batch through each, probabilities
+     within rtol 5e-2 and boxes within 0.5 px; (b) Detector with
+     roi_impl="direct" (the gather roi_align, ROIs in chunks of
+     eval.roi_chunk = 512) on `multipath_vgg16_batched` and
+     `multipath_vgg16_int8` (weights as phases 4 and 9): one warm batch, 2
+     timed (ms/batch, img/s, peak memory), one profiled bf16 batch,
+     detections finite, no kernel launched (the int8 head quantizes its
+     own rows); (c) Trainer on `multipath_vgg16_train` with
+     train_roi_impl="direct" (phase 7's weights and batch): a first step,
+     3 timed (ms/step, peak memory) beside phase 7's, losses finite, no
+     kernel launched, two steps from one state equal under
+     cudnn.deterministic.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20, each
-counted from 0, and their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21,
+each counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -260,7 +278,8 @@ from multipathnet_tpu_torch.data.coco import CocoLoader
 from multipathnet_tpu_torch.data.pipeline import DetectionPipeline
 from multipathnet_tpu_torch.data.proposals import ProposalStore
 from multipathnet_tpu_torch.eval.coco_eval import CocoEvaluator
-from multipathnet_tpu_torch.eval.detect import Detector, detect_batch
+from multipathnet_tpu_torch.eval.detect import (Detector, detect_batch,
+                                                score_batch)
 from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
                                                 groundtruth_to_coco)
 from multipathnet_tpu_torch.data import transforms
@@ -2287,7 +2306,8 @@ def reference_exact_path():
     scales = {lv: 1.0 / strides[lv] for lv in m.skip_levels}
     for factors, levels in model._view_level_plan():
         args = dict(scales=scales, foveal_factors=factors,
-                    image_hw=(hw, hw), output_size=m.roi_output_size)
+                    image_hw=(hw, hw), output_size=m.roi_output_size,
+                    mode="exact_max")
         got = roi_ops.multilevel_foveal_roi_features(
             {lv: feats[lv][0] for lv in levels}, rois[0], **args)
         want = roi_ops.multilevel_foveal_roi_features(
@@ -2329,7 +2349,8 @@ def reference_exact_path():
                                         mode="max")
         exact = roi_ops.roi_pool_max(feats[lv][0], small,
                                      spatial_scale=scales[lv]).float()
-        windowed = roi_pyramid.pyramid_roi_align(pyr, small)
+        windowed = roi_pyramid.pyramid_roi_align(pyr, small,
+                                                 mode="exact_max")
         require(torch.equal(exact, windowed),
                 f"windowed and exact max routes differ at {lv}")
     log("[reference_exact] windowed route equal to the exact one, bit for "
@@ -3345,6 +3366,209 @@ def tools_path(host_state, float_ms, int8_ips, resident_ms, phase13,
     return launches, res
 
 
+# ------------------------------------------------------------ phase 21 ---
+
+def with_model(cfg, **model):
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model))
+
+
+def timed_batches(fn, iters: int) -> float:
+    """ms per call of fn() over `iters` calls after one warm call, host
+    clock between synchronizes."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def pyramid_against_kernels(cfg, inputs, device="cuda") -> dict:
+    """Phase 21(a): one model's features of bench.py's batch pooled by the
+    kernel route ("auto": K1, K2; bf16) and by the reference's oracle of
+    it ("pyramid": each image's avg pyramids and the window sampler, in
+    float32), then both cast to bf16 and compared at phase 3's rule (rtol
+    and atol 1e-2); then score_batch through each route, probabilities
+    within rtol 5e-2 and boxes within 0.5 px."""
+    hw = cfg.data.image_size
+    model = build_model(cfg.model, device=device)
+    seeded_normal_(model, 0)
+    model.eval()
+    pcfg = with_model(cfg, roi_impl="pyramid")
+    oracle = build_model(pcfg.model, device=device).eval()
+    oracle.load_state_dict(model.state_dict())
+    images, hws, props, _ = (torch.as_tensor(x, device=device)
+                             for x in inputs)
+    with torch.inference_mode():
+        canvases, scales = transforms.batch_resize_to_canvas(
+            images, hw, hws, preprocess=cfg.model.preprocess)
+        rois = props * scales[:, None, None]
+        feats = model.features(canvases)
+        got = model.pool_rois(feats, rois, hw)
+        want = oracle.pool_rois(feats, rois, hw)
+        require(got.dtype == torch.bfloat16 and want.dtype == torch.float32
+                and got.shape == want.shape,
+                f"pooled {got.dtype} {tuple(got.shape)} against "
+                f"{want.dtype} {tuple(want.shape)}")
+        err, bad, differ = 0.0, 0, 0
+        for i in range(got.shape[0]):   # an image at a time: 100M values
+            w = want[i].to(torch.bfloat16).float()
+            d = (got[i].float() - w).abs()
+            err = max(err, float(d.max()))
+            bad += int((d > 1e-2 + 1e-2 * w.abs()).sum())
+            differ += int((d > 0).sum())
+        kernel_ms = timed_batches(lambda: model.pool_rois(feats, rois, hw), 2)
+        oracle_ms = timed_batches(lambda: oracle.pool_rois(feats, rois, hw),
+                                  2)
+    n = got.numel()
+    log(f"[align_routes] (a) pooled {tuple(got.shape)}: K1/K2 against the "
+        f"pyramid oracle cast to bf16: max abs err {err:.4g}, "
+        f"{100 * differ / n:.3f}% of values differ, {bad} outside rtol/atol "
+        f"1e-2; pool_rois {kernel_ms:.2f} ms (kernels) against "
+        f"{oracle_ms:.2f} ms (pyramid oracle)")
+    require(bad == 0, f"{bad} pooled values of K1/K2 outside rtol/atol 1e-2 "
+            f"of the pyramid oracle")
+    del got, want, feats
+    torch.cuda.empty_cache()
+    args = [torch.as_tensor(x, device=device) for x in inputs[:3]]
+    want_b, want_p = score_batch(oracle, pcfg, *args)
+    got_b, got_p = score_batch(model, cfg, *args)
+    prob_rel = float(((got_p - want_p).abs() / want_p.abs()).max())
+    box_err = float((got_b - want_b).abs().max())
+    log(f"[align_routes] (a) score_batch, kernels against the pyramid "
+        f"oracle: probabilities largest relative difference {prob_rel:.4g} "
+        f"(at most 5e-2), boxes largest difference {box_err:.4g} px (at "
+        f"most 0.5)")
+    require(prob_rel <= 5e-2 and box_err <= 0.5,
+            "score_batch through the kernels is off the pyramid oracle")
+    return {"max_abs_err": err, "kernel_pool_ms": kernel_ms,
+            "oracle_pool_ms": oracle_ms}
+
+
+def direct_serving(cfg, inputs, tag: str, device="cuda") -> dict:
+    """Phase 21(b): Detector with roi_impl="direct" on a serving preset at
+    bench.py's batch, ROIs in chunks of eval.roi_chunk: weights as phases
+    4 and 9 (an int8 preset drawn in float32 and quantized at load), one
+    warm batch, then 2 timed; detections finite with the right shapes."""
+    b = len(inputs[0])
+    if cfg.model.head_quant == "int8":
+        float_model = build_model(dataclasses.replace(
+            cfg.model, head_quant="none"), param_dtype=torch.float32,
+            device=device)
+        seeded_normal_(float_model, 0)
+        tree = convert.flax_from_state_dict(float_model.state_dict(),
+                                            host=False)
+        del float_model
+        model = build_model(cfg.model, device=device)
+        det = Detector(model, cfg, params=tree)
+        del tree
+    else:
+        model = build_model(cfg.model, device=device)
+        seeded_normal_(model, 0)
+        det = Detector(model, cfg, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = det(*inputs)
+    dev_inputs = [torch.as_tensor(x, device=device) for x in inputs]
+    ms = timed_batches(lambda: detect_batch(model, cfg, *dev_inputs), 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_detections(f"align_routes {tag}", out, b=b,
+                     d=cfg.eval.max_detections)
+    log(f"[align_routes] (b) {tag} roi_impl='direct' (chunks of "
+        f"{cfg.eval.roi_chunk} ROIs): {ms:.2f} ms/batch, {1e3 * b / ms:.2f} "
+        f"img/s, peak device memory {peak:.2f} GiB; detections img0: "
+        f"{int(out['valid'][0].sum())}")
+    return {"ms": ms, "peak_gib": peak, "model": model, "cfg": cfg,
+            "inputs": dev_inputs}
+
+
+def direct_train(cfg, iters: int = 3, device="cuda") -> dict:
+    """Phase 21(c): Trainer with train_roi_impl="direct" (phase 7's
+    weights and batch): a first step, `iters` timed, every loss finite,
+    foreground sampled; then two steps from one state equal under
+    cudnn.deterministic (repeat_steps)."""
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(0)
+    seeded_normal_(trainer.model, 0)
+    batch = trainer.put_batch(train_batch(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = trainer.step(state, batch)
+    history = [metrics]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.step(state, batch)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(h["loss"]) for h in history]
+    require(all(np.isfinite(losses)), f"non-finite direct loss: {losses}")
+    require(all(float(h["num_fg"]) > 0 for h in history),
+            "a direct step sampled no foreground ROI")
+    b = cfg.train.batch_size
+    log(f"[align_routes] (c) train_roi_impl='direct': {ms:.2f} ms/step over "
+        f"{iters} steps after a first, {1e3 * b / ms:.2f} img/s, peak device "
+        f"memory {peak:.2f} GiB; losses {', '.join(f'{x:.4g}' for x in losses)}")
+    repeat_steps(trainer, state, batch, iters=2, tag="align_routes")
+    return {"ms": ms, "peak_gib": peak}
+
+
+def align_routes_path(card: str, bf16_ips: float, int8_ips: float,
+                      train_ms: float):
+    """Phase 21: the align routes roi_impl "pyramid" and "direct" at the
+    published widths (module docstring). Returns the phase's launches."""
+    t_phase = time.perf_counter()
+    cfg = preset("multipath_vgg16_batched")
+    b, p, canvas = 8, cfg.data.max_proposals, cfg.data.image_size[0]
+    require((b, p, canvas) == (8, 1000, 640),
+            f"unexpected align_routes shape {(b, p, canvas)}")
+    inputs = make_inputs(b, p, canvas)
+    reset_launches()
+    pyr = pyramid_against_kernels(cfg, inputs)
+    torch.cuda.empty_cache()
+    serving = {}
+    for name, tag in (("multipath_vgg16_batched", "bf16"),
+                      ("multipath_vgg16_int8", "int8")):
+        before = read_launches()
+        res = direct_serving(with_model(preset(name), roi_impl="direct"),
+                             inputs, tag)
+        require(read_launches() == before,
+                f"a kernel launched on the direct {tag} route: "
+                f"{read_launches()} after {before}")
+        if tag == "bf16":
+            profile_once("align_routes", "one direct bf16 batch",
+                         lambda: detect_batch(res["model"], res["cfg"],
+                                              *res["inputs"]))
+        serving[tag] = {k: res[k] for k in ("ms", "peak_gib")}
+        del res
+        torch.cuda.empty_cache()
+    before = read_launches()
+    train = direct_train(with_model(preset("multipath_vgg16_train"),
+                                    train_roi_impl="direct"))
+    require(read_launches() == before,
+            f"a kernel launched in direct training: {read_launches()}")
+    launches = read_launches()
+    require(launches["window_pool_multi"] > 0
+            and launches["resident_pool"] > 0,
+            f"K1/K2 never launched in (a): {launches}")
+    log(f"[align_routes] summary ({card}): serving 8 x 1000 proposals, "
+        f"640^2, ms/batch direct against the kernels in this process: bf16 "
+        f"{serving['bf16']['ms']:.2f} against {1e3 * b / bf16_ips:.2f} "
+        f"(phase 4), int8 {serving['int8']['ms']:.2f} against "
+        f"{1e3 * b / int8_ips:.2f} (phase 9); peak GiB direct bf16 "
+        f"{serving['bf16']['peak_gib']:.2f}, int8 "
+        f"{serving['int8']['peak_gib']:.2f}; train ms/step direct "
+        f"{train['ms']:.2f} against {train_ms:.2f} (phase 7), peak "
+        f"{train['peak_gib']:.2f} GiB; pool_rois kernels "
+        f"{pyr['kernel_pool_ms']:.2f} ms, pyramid oracle "
+        f"{pyr['oracle_pool_ms']:.2f} ms; K1/K2 against the oracle max abs "
+        f"err {pyr['max_abs_err']:.4g}")
+    log(f"[align_routes] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -3424,6 +3648,8 @@ def main() -> None:
                                    resident_ms, phase13,
                                    sm_e2e.pop("top_masks"))
     del reference_state
+    torch.cuda.empty_cache()
+    align_launches = align_routes_path(smi, bf16_ips, int8_ips, resident_ms)
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -3449,7 +3675,8 @@ def main() -> None:
              "sharpmask": sharpmask_launches,
              "serve": {name: serve_launches.get(name, 0) for name in KERNELS},
              "parallel": parallel_launches,
-             "tools": tools_launches}
+             "tools": tools_launches,
+             "align_routes": align_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

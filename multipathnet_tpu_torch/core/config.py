@@ -58,13 +58,14 @@ class ModelConfig:
     # subtraction, no std — the reference's Caffe-origin trunks,
     # SURVEY.md §2.1 ImageTransformer).
     preprocess: str = "rgb_unit"
-    # ROI feature implementation for inference: "auto" (Pallas kernel on TPU,
-    # direct XLA elsewhere), "pallas", "pyramid" (XLA oracle of the kernel),
-    # "direct" (gather-based roi_align).
+    # ROI feature implementation for inference: "auto" and "pallas" (the
+    # CUDA window kernels, on every device: the card takes the TPU's part),
+    # "pyramid" (plain oracle of the kernels), "direct" (gather-based
+    # roi_align); models/multipath.py.
     roi_impl: str = "auto"
-    # Training-path implementation: "auto" = Pallas forward + windowed
-    # scatter-add backward (custom VJP) on TPU, direct XLA elsewhere;
-    # or "direct" / "pallas" explicitly.
+    # Training-path implementation: "auto" / "pallas" = the differentiable
+    # window kernels (K1 forward, K3/K4 backward); "direct" the gather
+    # roi_align; "pyramid" trains as "direct".
     train_roi_impl: str = "auto"
     fc_dim: int = 4096  # FC6/FC7 width (VGG-16 heads)
     # FC-head quantization for SERVING: "none" (bf16 GEMMs) or "int8"

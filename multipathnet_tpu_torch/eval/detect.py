@@ -1,17 +1,20 @@
 """Detection path: (images, proposals) -> final boxes/scores/classes.
 
 Port of multipathnet_tpu/eval/detect.py: resize + normalize, trunk, ROI
-pooling through the window kernels, the heads, the mean of the K integral
-softmaxes, delta decode and clip, then class-aware NMS — all on the model's
-device, with only the fixed-size detection set copied back to the host.
-The align route streams fixed windows, so all P proposals go through in
-one pass (no chunking); roi_mode="max" pools in plain ops
-(models/multipath.py). In align mode an int8 head (head_quant="int8")
-always takes the quantized pool route: the head's skip bias, ReLU and
-per-view int8 quantization run in the pool kernels' epilogue, as the
-reference's roi_impl="pallas" route does (the port has only the kernel
-route for align). In max mode the pool has no epilogue, so an int8 head
-quantizes its pooled rows itself, as the reference's does.
+pooling by the route cfg.model.roi_impl names (models/multipath.py), the
+heads, the mean of the K integral softmaxes, delta decode and clip, then
+class-aware NMS — all on the model's device, with only the fixed-size
+detection set copied back to the host. The kernel route ("auto",
+"pallas") streams fixed windows, so all P proposals go through in one
+pass; every other route takes them in chunks of cfg.eval.roi_chunk, the
+last one padded with zero boxes, as the reference's SequentialSplitBatch
+analog does, which bounds the direct route's gathered samples. An int8
+head (head_quant="int8") on the kernel route in align mode takes the
+quantized pool route: the head's skip bias, ReLU and per-view int8
+quantization run in the pool kernels' epilogue, as the reference's
+roi_impl="pallas" route does. On every other route (and in max mode) the
+pool has no epilogue, so an int8 head quantizes its pooled rows itself,
+as the reference's does.
 
 `Detector` takes its weights as a flax-layout tree and transforms them at
 load for a serving config, as the reference's Detector does
@@ -37,7 +40,8 @@ from multipathnet_tpu_torch.core.mesh import all_gather_cat
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.heads import shard_head_
-from multipathnet_tpu_torch.models.multipath import MultiPathNet
+from multipathnet_tpu_torch.models.multipath import (KERNEL_ROUTES,
+                                                     MultiPathNet)
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops import lowrank, quant
 from multipathnet_tpu_torch.ops import nms as nms_ops
@@ -58,22 +62,32 @@ def score_batch(model: MultiPathNet, cfg: Config,
     rois = proposals.to(torch.float32) * scales[:, None, None]
 
     feats = model.features(canvases)
-    # max mode pools in plain ops with no int8 epilogue: its int8 head
-    # quantizes the pooled rows itself, as the reference's does
-    if cfg.model.head_quant == "int8" and cfg.model.roi_mode != "max":
-        pooled, pooled_scale = model.pool_rois_quantized(
-            feats, rois, canvas_hw, model.head.skip_bias)
-        scores, deltas = model.predict_rois(pooled,
-                                            pooled_scale=pooled_scale)
+    m = cfg.model
+    kernels = m.roi_impl in KERNEL_ROUTES
+    quantized_pool = (m.head_quant == "int8" and kernels
+                      and m.roi_mode != "max")
+    chunk = p if kernels else min(cfg.eval.roi_chunk, p)
+
+    def head_chunk(rois_c):  # (B, chunk, 4) -> scores, deltas
+        if quantized_pool:
+            pooled, pooled_scale = model.pool_rois_quantized(
+                feats, rois_c, canvas_hw, model.head.skip_bias)
+            return model.predict_rois(pooled, pooled_scale=pooled_scale)
+        return model.predict_rois(model.pool_rois(feats, rois_c, canvas_hw))
+
+    if chunk >= p:
+        scores, deltas = head_chunk(rois)
     else:
-        scores, deltas = model.predict_rois(
-            model.pool_rois(feats, rois, canvas_hw))
+        pad = (-p) % chunk
+        parts = [head_chunk(c) for c in torch.split(
+            torch.nn.functional.pad(rois, (0, 0, 0, pad)), chunk, dim=1)]
+        scores = torch.cat([s_ for s_, _ in parts], dim=1)[:, :p]
+        deltas = torch.cat([d_ for _, d_ in parts], dim=1)[:, :p]
 
     # integral heads: average the K softmaxes (MultiPath §3.3 test protocol)
     probs = torch.softmax(scores, dim=-1).mean(dim=2)   # (B, P, C)
     num_classes = probs.shape[-1]
 
-    m = cfg.model
     if m.class_specific_bbox:
         d = deltas.reshape(b, p, num_classes, 4)
     else:

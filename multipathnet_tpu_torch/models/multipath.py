@@ -1,18 +1,34 @@
 """MultiPathNet assembly — port of multipathnet_tpu/models/multipath.py:
-trunk, per-level 1x1 skip reduction, foveal views pooled through the CUDA
-window kernels, and the head; and the reference-exact max route.
+trunk, per-level 1x1 skip reduction, foveal views pooled by the route
+`cfg.roi_impl` names (`cfg.train_roi_impl` in training), and the head.
 
-Pooling follows the reference's view x level plan. In the "reference"
-topology, group 1 (the 1x view over every skip level) goes to K1
-(roi_pool.window_pool_multi) and group 2 (the context views over the last
-level) to K2 (roi_pool.resident_pool). In training every group goes through
-the differentiable K1 (roi_pool.WindowPoolMulti), one level for group 2, as
-the reference's `not train` guard routes it. The TPU-only parts of the
-reference are gone: C is not padded to the TPU's 128 lanes (only to a
-multiple of 8 for the bf16 kernels, whose TMA strides are 16-byte units,
-with zero bias on the pad lanes, as the reference pads), and every
-single-level eval group goes to K2 whatever its pyramid's size (the
-reference's 4 MB VMEM budget has no counterpart here).
+Pooling follows the reference's view x level plan (`_view_level_plan`).
+The align routes, as the reference's `pool_rois` picks them:
+  - "pallas" and "auto": the CUDA window kernels. In the "reference"
+    topology group 1 (the 1x view over every skip level) goes to K1
+    (roi_pool.window_pool_multi) and group 2 (the context views over the
+    last level) to K2 (roi_pool.resident_pool). In training every group
+    goes through the differentiable K1 (roi_pool.WindowPoolMulti), one
+    level for group 2, as the reference's `not train` guard routes it.
+    The reference's "auto" means its kernels on the TPU and "direct"
+    elsewhere; here the card plays the TPU's part, so "auto" means the
+    kernels on every device (their plain versions on the CPU).
+  - "direct": the gather-based bilinear roi_align on each level's reduced
+    map, image by image, each group's levels summed in float32
+    (ops/roi.multilevel_foveal_roi_features(combine="sum")).
+  - "pyramid": the reference's XLA oracle of the kernels: each image's
+    avg pyramids (roi_pyramid.build_pyramid) and the window sampler
+    (roi_pyramid.multilevel_foveal_pyramid_features(mode="avg",
+    combine="sum")), float32. Training takes "direct" in its place, as the
+    reference does.
+The last two are plain PyTorch: the reference computes them in XLA,
+outside any Pallas kernel. They return float32 and the head casts to its
+dtype. The TPU-only parts of the kernel route are gone: C is not padded to
+the TPU's 128 lanes (only to a multiple of 8 for the bf16 kernels, whose
+TMA strides are 16-byte units, with zero bias on the pad lanes, as the
+reference pads), and every single-level eval group goes to K2 whatever
+its pyramid's size (the reference's 4 MB VMEM budget has no counterpart
+here).
 
 Parameters are stored in `param_dtype` (float32 for training, as flax keeps
 them) and cast to the compute dtype `cfg.dtype` at each call; an eval model
@@ -23,23 +39,19 @@ reference's order: `features` returns the RAW trunk maps, each view x
 level plan group is max-pooled with inn.ROIPooling semantics and its levels
 concatenated, then each level's 1x1 reduce runs on its slice of the pooled
 channels in the compute dtype and the levels are summed in level order
-(`_pool_rois_max`). In max mode only, `cfg.roi_impl` (`train_roi_impl` in
-training) picks the route as the reference does: "direct" is the exact
-route (ops/roi.py, bit-equal to the reference's oracle at every scale),
-"pyramid"/"pallas"/"auto" the windowed one (max pyramids and window
-masks, ops/roi_pyramid.py; exact for views whose bins span at most one
-base cell). Training always takes the exact route. Both are plain
-PyTorch: the reference computes them in XLA, outside any Pallas kernel.
-In align mode the roi_impl fields are not read: the port has one align
-route, the window kernels.
+(`_pool_rois_max`). There "direct" is the exact route (ops/roi.py,
+bit-equal to the reference's oracle at every scale), "pyramid"/"pallas"/
+"auto" the windowed one (max pyramids and window masks,
+ops/roi_pyramid.py; exact for views whose bins span at most one base
+cell). Training always takes the exact route. Both are plain PyTorch.
 
 Serving (`head_quant="int8"`, `fc6_rank`/`fc7_rank`) builds the int8 and
 factored head (models/heads.py); its weights come from the load-time
-transforms of a float tree (eval/detect.serving_params). An int8 model
-in align mode pools through `pool_rois_quantized`: the head's skip bias,
-ReLU and the per-view int8 quantization run in the pool kernels'
-epilogue. In max mode it pools through `pool_rois` and the head
-quantizes its rows.
+transforms of a float tree (eval/detect.serving_params). An int8 model on
+the kernel route in align mode pools through `pool_rois_quantized`: the
+head's skip bias, ReLU and the per-view int8 quantization run in the pool
+kernels' epilogue. On every other route it pools through `pool_rois` and
+the head quantizes its rows.
 """
 
 from __future__ import annotations
@@ -58,8 +70,8 @@ from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_MAX_ROUTES = {"direct": "exact", "pyramid": "windowed", "pallas": "windowed",
-               "auto": "windowed"}
+ROI_ROUTES = ("auto", "direct", "pallas", "pyramid")
+KERNEL_ROUTES = ("auto", "pallas")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -68,20 +80,21 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"roi_mode must be align|max, got {cfg.roi_mode!r}")
     if cfg.preprocess not in ("rgb_unit", "caffe_bgr"):
         raise ValueError(f"unknown preprocess {cfg.preprocess!r}")
-    if cfg.roi_mode == "max":
-        for impl in (cfg.roi_impl, cfg.train_roi_impl):
-            if impl not in _MAX_ROUTES:
-                raise ValueError(f"unknown roi_impl {impl!r}; have "
-                                 f"{sorted(_MAX_ROUTES)}")
+    for impl in (cfg.roi_impl, cfg.train_roi_impl):
+        if impl not in ROI_ROUTES:
+            raise ValueError(f"unknown roi_impl {impl!r}; have "
+                             f"{list(ROI_ROUTES)}")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                          f"got {cfg.dtype!r}")
 
 
 class MultiPathNet(nn.Module):
-    """MultiPath detector. In align mode the ROI route is the window
-    kernels (their plain versions on CPU); in max mode `cfg.roi_impl`
-    picks the exact or the windowed max route (module docstring).
+    """MultiPath detector. `cfg.roi_impl` (`cfg.train_roi_impl` in
+    training) picks the ROI route: in align mode the window kernels
+    (their plain versions on CPU), the direct roi_align or the pyramid
+    oracle; in max mode the exact or the windowed max route (module
+    docstring).
     `freeze_stages` stops the gradient after trunk stage N; it leaves the
     parameters as they are, so checkpoints interchange."""
 
@@ -143,21 +156,36 @@ class MultiPathNet(nn.Module):
                 f"unknown foveal_topology {self.cfg.foveal_topology!r}")
         return [((fs[0],), ls), (tuple(fs[1:]), (ls[-1],))]
 
+    def roi_route(self, train: bool = False) -> str:
+        """The route pool_rois takes: "kernels", "direct" or "pyramid" in
+        align mode, "exact" or "windowed" in max mode."""
+        impl = self.cfg.train_roi_impl if train else self.cfg.roi_impl
+        if self.cfg.roi_mode == "max":
+            return "exact" if train or impl == "direct" else "windowed"
+        if impl in KERNEL_ROUTES:
+            return "kernels"
+        return "direct" if train else impl
+
     def pool_rois(self, feats: dict, rois: torch.Tensor, image_hw,
                   train: bool = False, quant_bias=None):
         """feats: level -> (B, Hl, Wl, C); rois (B, R, 4) image coords ->
-        (B, F, R, G, G, C) in the trunk dtype. `train` sends every group
-        through the differentiable K1. With `quant_bias` (the head's skip
-        bias in its dtype; eval only) the kernels' int8 epilogue runs:
-        returns (int8 (B, F, R, G, G, C), float32 scales (B, F, R, 1))."""
-        if self.cfg.roi_mode == "max":
-            if quant_bias is not None:
-                raise ValueError("the int8 pool epilogue needs the align "
-                                 "route; roi_mode='max' pools in plain ops")
-            impl = self.cfg.train_roi_impl if train else self.cfg.roi_impl
-            return self._pool_rois_max(
-                feats, rois, image_hw,
-                exact=train or _MAX_ROUTES[impl] == "exact")
+        (B, F, R, G, G, C): the trunk dtype on the kernel route, float32
+        on "direct" and "pyramid" (roi_route; module docstring). `train`
+        sends every kernel group through the differentiable K1. With
+        `quant_bias` (the head's skip bias in its dtype; eval on the
+        kernel route only) the kernels' int8 epilogue runs: returns (int8
+        (B, F, R, G, G, C), float32 scales (B, F, R, 1))."""
+        route = self.roi_route(train)
+        if quant_bias is not None and route != "kernels":
+            raise ValueError(f"the int8 pool epilogue needs the kernel "
+                             f"route in align mode, not {route!r}")
+        if route in ("exact", "windowed"):
+            return self._pool_rois_max(feats, rois, image_hw,
+                                       exact=route == "exact")
+        if route != "kernels":   # "direct" or "pyramid", float32
+            return torch.cat([pooled for _, _, pooled in self._pool_images(
+                feats, rois, image_hw, route == "direct", "avg", "sum")],
+                dim=1)
         b, r = rois.shape[:2]
         g = self.cfg.roi_output_size
         s = self.cfg.roi_samples_per_bin
@@ -205,6 +233,37 @@ class MultiPathNet(nn.Module):
             return torch.cat(outs, dim=1), torch.cat(scales, dim=1)
         return torch.cat(outs, dim=1)
 
+    def _pool_images(self, feats: dict, rois: torch.Tensor, image_hw,
+                     gather: bool, mode: str, combine: str = "concat"):
+        """The plain routes: [(factors, levels, (B, f, R, G, G, C')
+        pooled)] for each plan group, each image's views pooled on its
+        levels' maps in `mode` and the levels combined, images stacked.
+        gather=True: ops/roi's routes on the maps; else each image's
+        pyramids (max pyramids for mode="exact_max") and the window
+        sampler."""
+        strides = self.backbone.feature_strides
+        scales = {lv: 1.0 / strides[lv] for lv in self.cfg.skip_levels}
+        g = self.cfg.roi_output_size
+        kw = dict(image_hw=image_hw, output_size=g,
+                  samples_per_bin=self.cfg.roi_samples_per_bin, mode=mode,
+                  combine=combine)
+
+        def pool(maps, r, factors):
+            if gather:
+                return roi_ops.multilevel_foveal_roi_features(
+                    maps, r, scales=scales, foveal_factors=factors, **kw)
+            pyramids = {lv: roi_pyramid.build_pyramid(
+                f, scales[lv], output_size=g,
+                mode="max" if mode == "exact_max" else "avg")
+                for lv, f in maps.items()}
+            return roi_pyramid.multilevel_foveal_pyramid_features(
+                pyramids, r, foveal_factors=factors, **kw)
+
+        return [(factors, levels, torch.stack([
+            pool({lv: feats[lv][i] for lv in levels}, rois[i], factors)
+            for i in range(rois.shape[0])]))
+            for factors, levels in self._view_level_plan()]
+
     def _pool_rois_max(self, feats: dict, rois: torch.Tensor, image_hw,
                        exact: bool) -> torch.Tensor:
         """roi_mode="max": each plan group's views max-pooled on the raw
@@ -215,27 +274,10 @@ class MultiPathNet(nn.Module):
         pyramids."""
         b, r = rois.shape[:2]
         g = self.cfg.roi_output_size
-        strides = self.backbone.feature_strides
-        scales = {lv: 1.0 / strides[lv] for lv in self.cfg.skip_levels}
         outs = []
-        for factors, levels in self._view_level_plan():
-            per_image = []
-            for i in range(b):
-                kw = dict(foveal_factors=factors, image_hw=image_hw,
-                          output_size=g)
-                if exact:
-                    per_image.append(roi_ops.multilevel_foveal_roi_features(
-                        {lv: feats[lv][i] for lv in levels}, rois[i],
-                        scales=scales, **kw))
-                    continue
-                pyramids = {lv: roi_pyramid.build_pyramid(
-                    feats[lv][i], scales[lv], output_size=g, mode="max")
-                    for lv in levels}
-                per_image.append(
-                    roi_pyramid.multilevel_foveal_pyramid_features(
-                        pyramids, rois[i], **kw))
-            pooled = torch.stack(per_image)   # (B, f, R, G, G, sum C_l)
-            nf = len(factors)
+        for factors, levels, pooled in self._pool_images(
+                feats, rois, image_hw, exact, "exact_max"):
+            nf = len(factors)    # pooled (B, nf, R, G, G, sum C_l)
             out, lo = None, 0
             for lv in levels:
                 c_l = feats[lv].shape[-1]

@@ -1,10 +1,12 @@
 """ROI pooling in plain ops — port of multipathnet_tpu/ops/roi.py: the
-bilinear gather route (`roi_align`, `batched_roi_align`) and the
+bilinear gather route (`roi_align`, `batched_roi_align`), the
 reference-exact max route (`roi_pool_max`, the reference's inn.ROIPooling
-semantics, and `multilevel_foveal_roi_features` in that mode). The
-detector's align views go through the window kernels (ops/roi_pool.py);
-`roi_align` is the route of the SharpMask network's training pools
-(models/sharpmask.py, impl="direct"), which the reference computes in XLA.
+semantics) and the fused MultiPath feature op over both,
+`multilevel_foveal_roi_features`. The reference computes all of them in
+XLA, outside any Pallas kernel. The detector's align views take the
+gather route under roi_impl="direct" (models/multipath.py) and the window
+kernels (ops/roi_pool.py) otherwise; SharpMask's training pools take it
+too (models/sharpmask.py, impl="direct").
 
 roi_align samples G*S x G*S bilinear points per ROI (offsets (i + (k +
 0.5) / S) bins from the ROI's corner, clamped to the map) and takes the
@@ -13,6 +15,10 @@ neighbours through gather_rows, whose backward is a fixed-order scatter
 (ops/scatter.py): the gradient repeats bit for bit from call to call, on
 the CPU at any thread count and on the card (an autograd gather's
 backward is an accumulating index_put_, which sums in no fixed order).
+ROIs go in chunks so that a chunk's (B, n, G*S, G*S, C) samples stay
+within `max_elements`; the four neighbour gathers and their weighted sum
+are a few more tensors of that size. In training autograd keeps only the
+gather indices and the weights, not the samples.
 
 The max route:
 
@@ -105,7 +111,8 @@ def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor, *,
                       output_size: int = 7,
                       spatial_scale: float = 1.0 / 16.0,
                       samples_per_bin: int = 2,
-                      mode: str = "avg") -> torch.Tensor:
+                      mode: str = "avg",
+                      max_elements: int = MAX_ELEMENTS) -> torch.Tensor:
     """ROI Align over images: feats (B, H, W, C), rois (B, R, 4) image
     coords -> (B, R, G, G, C), float32 (the reference's vmapped
     roi_align). mode: "avg" or "max" over each bin's S x S samples."""
@@ -125,7 +132,18 @@ def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor, *,
           + y1[..., None].double()).float()
     sx = (off.double() * bin_w[..., None].double()
           + x1[..., None].double()).float()
-    vals = _bilinear_gather(feats, sy, sx)          # (B, R, G*S, G*S, C)
+    nb, r, c = rois.shape[0], rois.shape[1], feats.shape[-1]
+    per = max(1, max_elements // max(1, nb * (g * s) ** 2 * c))
+    if r <= per:
+        return _bin_reduce(_bilinear_gather(feats, sy, sx), g, s, mode)
+    return torch.cat([_bin_reduce(_bilinear_gather(
+        feats, sy[:, i:i + per], sx[:, i:i + per]), g, s, mode)
+        for i in range(0, r, per)], dim=1)
+
+
+def _bin_reduce(vals: torch.Tensor, g: int, s: int, mode: str):
+    """(B, n, G*S, G*S, C) samples -> (B, n, G, G, C): the mean or max
+    of each bin's S x S samples."""
     if s == 1:  # one sample per bin: the mean or max of one value
         return vals
     nb, r, c = vals.shape[0], vals.shape[1], vals.shape[-1]
@@ -269,20 +287,36 @@ def roi_pool_max(feat: torch.Tensor, rois: torch.Tensor, *,
 def multilevel_foveal_roi_features(
         feats: dict, rois: torch.Tensor, *, scales: dict,
         foveal_factors=(1.0, 1.5, 2.0, 4.0), image_hw=None,
-        output_size: int = 7,
+        output_size: int = 7, samples_per_bin: int = 2, mode: str = "avg",
+        combine: str = "concat",
         max_elements: int = MAX_ELEMENTS) -> torch.Tensor:
-    """The reference's fused MultiPath feature op in its exact_max mode
-    with combine="concat": for each foveal factor f, expand the ROIs by f
-    (clipped to image_hw when given), max-pool every level and concatenate
-    the levels' channels: feats {level: (H_l, W_l, C_l)} -> (F, R, G, G,
-    sum_l C_l)."""
+    """The reference's fused MultiPath feature op: for each foveal factor
+    f, expand the ROIs by f (clipped to image_hw when given) and pool every
+    level, feats {level: (H_l, W_l, C_l)}. mode "avg" / "max": roi_align
+    (float32, a bf16 map times float32 weights, as jnp promotes it);
+    "exact_max": roi_pool_max (the map's dtype). combine="concat" ->
+    (F, R, G, G, sum_l C_l); combine="sum" (equal-C levels, already 1x1
+    reduced) -> (F, R, G, G, C), the levels summed in level order in the
+    pooled dtype, as the reference's Python sum does."""
+    if mode not in ("avg", "max", "exact_max"):
+        raise ValueError(f"mode must be avg|max|exact_max, got {mode!r}")
+    if combine not in ("concat", "sum"):
+        raise ValueError(f"combine must be concat|sum, got {combine!r}")
     out_per_f = []
     for f in foveal_factors:
         r = (box_ops.expand(rois, f, image_hw[0], image_hw[1])
              if image_hw is not None else box_ops.expand(rois, f))
-        pooled = [roi_pool_max(feats[lv], r, output_size=output_size,
-                               spatial_scale=scales[lv],
-                               max_elements=max_elements)
-                  for lv in feats]
-        out_per_f.append(torch.cat(pooled, dim=-1))
+        if mode == "exact_max":
+            pooled = [roi_pool_max(feats[lv], r, output_size=output_size,
+                                   spatial_scale=scales[lv],
+                                   max_elements=max_elements)
+                      for lv in feats]
+        else:
+            pooled = [roi_align(feats[lv], r, output_size=output_size,
+                                spatial_scale=scales[lv],
+                                samples_per_bin=samples_per_bin, mode=mode,
+                                max_elements=max_elements)
+                      for lv in feats]
+        out_per_f.append(sum(pooled) if combine == "sum"
+                         else torch.cat(pooled, dim=-1))
     return torch.stack(out_per_f, dim=0)

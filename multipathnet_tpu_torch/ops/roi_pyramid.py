@@ -8,7 +8,8 @@ with per-scale row offsets, so scale selection is an offset add.
 
 `pyramid_roi_align(mode="avg"|"max")` is the reference's bilinear window
 sampler at any G and S, in plain ops (the reference computes it in XLA;
-SharpMask's 7 x 7 and 28 x 28 eval pools take it, models/sharpmask.py):
+SharpMask's 7 x 7 and 28 x 28 eval pools take it, models/sharpmask.py, and
+so does the detector's roi_impl="pyramid", models/multipath.py):
 each view's window_sizes(G) window is gathered from its scale and its G*S
 x G*S samples come from two float32 contractions, the bilinear weight rows
 wy (G*S, rows) against the window's rows, then wx (G*S, cols) against its
@@ -277,13 +278,13 @@ def _exact_max_views(pyr: Pyramid, rois: torch.Tensor, g: int):
 
 def pyramid_roi_align(pyr: Pyramid, rois: torch.Tensor, *,
                       output_size: int = 7, samples_per_bin: int = 2,
-                      mode: str = "exact_max",
+                      mode: str = "avg",
                       max_elements: int = 1 << 27) -> torch.Tensor:
     """The reference's pyramid_roi_align: rois (N, 4) image coords -> (N,
-    G, G, C) float32. mode="avg"|"max": the bilinear window sampler on an
-    avg pyramid (module docstring). mode="exact_max" (the default here,
-    the route the detector's max mode takes; the reference defaults to
-    "avg"): the reference's ROIPooling rule on a max pyramid, each view's
+    G, G, C) float32. mode="avg" (the default, as the reference's) |
+    "max": the bilinear window sampler on an avg pyramid (module
+    docstring). mode="exact_max" (the detector's windowed max route): the
+    reference's ROIPooling rule on a max pyramid, each view's
     window read in float32 and reduced rows-into-bins, then
     columns-into-bins; empty bins and values at the padding give 0. Views
     are taken in chunks so the windows stay within `max_elements`."""
@@ -318,7 +319,7 @@ def multilevel_foveal_pyramid_features(
         pyramids: dict, rois: torch.Tensor, *,
         foveal_factors=(1.0, 1.5, 2.0, 4.0), image_hw=None,
         output_size: int = 7, samples_per_bin: int = 2,
-        mode: str = "exact_max", combine: str = "concat") -> torch.Tensor:
+        mode: str = "avg", combine: str = "concat") -> torch.Tensor:
     """ops.roi.multilevel_foveal_roi_features through pyramids ({level:
     Pyramid}; max pyramids for mode="exact_max", avg ones for "avg" and
     "max"): (F, R, G, G, sum_l C_l) float32 with the levels' channels

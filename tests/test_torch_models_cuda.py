@@ -1,7 +1,8 @@
 """The reference's own models on the card: a ResNet-18 model at `tiny`
 widths against the CPU, the reference-exact max route on the card bit for
-bit against the CPU, and a ResNet serving bundle and train checkpoint
-restoring exactly on the card.
+bit against the CPU, a ResNet serving bundle and train checkpoint
+restoring exactly on the card, and the plain align routes (roi_impl
+"direct" and "pyramid") against the CPU, their train step repeating.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (decided inside the fixture, never at import). Run on a GPU machine with
@@ -21,7 +22,7 @@ from multipathnet_tpu_torch.eval.serving import load_detector, save_bundle
 from multipathnet_tpu_torch.models import convert, layers
 from multipathnet_tpu_torch.models.multipath import build_model, init_params_
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import roi_pyramid
+from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import Batch, Trainer
 
@@ -149,8 +150,10 @@ def test_exact_max_route_on_gpu_equals_cpu(cuda, dtype):
     pyr = roi_pyramid.build_pyramid(feat, 0.25, mode="max")
     gpyr = roi_pyramid.build_pyramid(feat.to(cuda), 0.25, mode="max")
     assert torch.equal(gpyr.flat.cpu(), pyr.flat)
-    windowed = roi_pyramid.pyramid_roi_align(gpyr, rois.to(cuda)).cpu()
-    assert torch.equal(windowed, roi_pyramid.pyramid_roi_align(pyr, rois))
+    windowed = roi_pyramid.pyramid_roi_align(gpyr, rois.to(cuda),
+                                             mode="exact_max").cpu()
+    assert torch.equal(windowed, roi_pyramid.pyramid_roi_align(
+        pyr, rois, mode="exact_max"))
     cot = torch.randn(want.shape, generator=gen)
     grads = []
     for dev in ("cpu", cuda):
@@ -215,3 +218,87 @@ def test_resnet_checkpoint_resume_on_gpu(cuda, tmp_path):
     for (n, a), (_, b) in zip(straight.model.state_dict().items(),
                               resumed.model.state_dict().items()):
         assert torch.equal(a, b), n
+
+
+def _align_cfg(impl, dtype="float32", **model):
+    cfg = preset("tiny")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, dtype=dtype, roi_impl=impl, train_roi_impl=impl, **model))
+
+
+def _pool_launches():
+    return [getattr(fn, counter) for fn in (roi_pool.window_pool_multi,
+                                            roi_pool.resident_pool)
+            for counter in ("launches", "quant_launches")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["direct", "pyramid"])
+def test_plain_align_routes_on_gpu_match_cpu(cuda, impl, dtype):
+    """roi_impl "direct" and "pyramid" at `tiny` on the card against the
+    CPU on the same weights: pool_rois on one set of reduced maps within
+    1e-5 x max (float32 out; the bin means and the pyramid's window
+    contractions sum in other orders), then score_batch with ROIs in
+    chunks of roi_chunk = 10 (probabilities atol 1e-4, boxes 1e-2, as
+    test_resnet18_tiny_on_gpu_matches_cpu). No pool kernel launches."""
+    cfg = _align_cfg(impl, dtype)
+    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, roi_chunk=10))
+    cpu_model = build_model(cfg.model, device="cpu")
+    init_params_(cpu_model, torch.Generator().manual_seed(0))
+    cpu_model.eval()
+    gpu_model = build_model(cfg.model, device=cuda).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    feats = {lv: torch.randn(2, 64 // s, 64 // s, 32, generator=gen).to(
+        cpu_model.dtype) for lv, s in (("c3", 4), ("c4", 8), ("c5", 16))}
+    rois = torch.from_numpy(_inputs()[2]) * 1.2
+    before = _pool_launches()
+    with torch.no_grad():
+        want = cpu_model.pool_rois(feats, rois, (64, 64))
+        got = gpu_model.pool_rois({k: v.to(cuda) for k, v in feats.items()},
+                                  rois.to(cuda), (64, 64)).cpu()
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    inputs = _inputs()
+    want = score_batch(cpu_model, cfg, *map(torch.from_numpy, inputs))
+    got = score_batch(gpu_model, cfg, *(torch.from_numpy(x).to(cuda)
+                                        for x in inputs))
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-2)
+    assert _pool_launches() == before
+
+
+@pytest.mark.parametrize("impl", ["direct", "pyramid"])
+def test_direct_train_step_repeats_on_gpu(cuda, impl):
+    """A bf16 `tiny` train step through the direct roi_align (what
+    train_roi_impl "pyramid" trains as too) on the card: two steps from
+    one snapshot equal bit for bit under cudnn.deterministic (the
+    gather's backward sums in a fixed order), the loss finite, no pool
+    or gradient kernel launched."""
+    from multipathnet_tpu_torch.train.loop import (restore_train_state,
+                                                   snapshot_train_state)
+
+    cfg = _align_cfg(impl, "bfloat16")
+    batch = _train_batch(5)
+    before = _pool_launches() + [roi_pool.window_grad.launches,
+                                 roi_pool.window_rmw_grad.launches]
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cfg, device=cuda)
+        state, _ = trainer.step(trainer.init_state(0), batch)
+        saved = snapshot_train_state(trainer, state)
+        runs = []
+        for _ in range(2):
+            _, metrics = trainer.step(restore_train_state(trainer, saved),
+                                      batch)
+            runs.append((metrics["loss"], {
+                n: p.detach().clone()
+                for n, p in trainer.model.named_parameters()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loss_a, a), (loss_b, b) = runs
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    assert _pool_launches() + [roi_pool.window_grad.launches,
+                               roi_pool.window_rmw_grad.launches] == before

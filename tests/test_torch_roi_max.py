@@ -171,7 +171,7 @@ def test_multilevel_foveal_roi_features_matches_reference(dtype):
                            jnp.asarray(rois))
     got = troi.multilevel_foveal_roi_features(
         {k: v[1] for k, v in maps.items()}, torch.from_numpy(rois),
-        scales=scales, image_hw=(64, 64))
+        scales=scales, image_hw=(64, 64), mode="exact_max")
     _same(got, want)
 
 
@@ -196,6 +196,7 @@ def test_max_pyramid_and_windowed_route_match_reference(dtype):
         p, r, mode="exact_max"))(jp, jnp.asarray(rois))
     for max_elements in (7 * 10 * 16 * 5 * 7, 1 << 27):
         got = trp.pyramid_roi_align(tp, torch.from_numpy(rois),
+                                    mode="exact_max",
                                     max_elements=max_elements)
         assert got.dtype == torch.float32
         _same(got, want)
@@ -226,11 +227,12 @@ def test_windowed_route_equals_exact_route_on_small_views():
                                        y1 + wh[:, 1]], -1).astype(np.float32))
     pyr = trp.build_pyramid(f, 0.25, mode="max")
     exact = troi.roi_pool_max(f, small, spatial_scale=0.25)
-    windowed = trp.pyramid_roi_align(pyr, small)
+    windowed = trp.pyramid_roi_align(pyr, small, mode="exact_max")
     np.testing.assert_array_equal(windowed.numpy(), exact.numpy())
     large = small.clone()
     large[:, 2:] += 60.0
-    assert not torch.equal(trp.pyramid_roi_align(pyr, large),
+    assert not torch.equal(trp.pyramid_roi_align(pyr, large,
+                                                 mode="exact_max"),
                            troi.roi_pool_max(f, large, spatial_scale=0.25))
 
 
@@ -248,7 +250,7 @@ def test_multilevel_foveal_pyramid_features_matches_reference():
     got = trp.multilevel_foveal_pyramid_features(
         {lv: trp.build_pyramid(v[1], scales[lv], mode="max")
          for lv, v in maps.items()}, torch.from_numpy(rois),
-        image_hw=(64, 64))
+        image_hw=(64, 64), mode="exact_max")
     _same(got, want)
 
 
