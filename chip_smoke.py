@@ -240,9 +240,20 @@ Phases, each of which raises on failure (nothing is caught):
      3 timed (ms/step, peak memory) beside phase 7's, losses finite, no
      kernel launched, two steps from one state equal under
      cudnn.deterministic.
+ 22. the port's bench (`bench`): `python -m multipathnet_tpu_torch.bench`
+     as a subprocess from the checkout at bench.py's defaults (8 x 1000
+     proposals, 640^2, 20 timed batches; the int8+SVD headline, then the
+     bf16 and int8 companions): exit code 0, exactly one line on stdout,
+     bench.py's keys and both companions; from its stderr each preset's
+     launches of its timed run: the quant K1/K2 in the headline and the
+     int8 run and no K1/K2 without the epilogue, K1/K2 in the bf16 run and
+     no quant kernel; its three img/s beside phases 4, 9 and 10's. Then
+     once more with --backbone resnet101 --no-companions --iters 5 (a trunk
+     whose BN statistics bench.py draws normal * 0.02): exit code 0, one
+     line, the quant K1/K2 launched. The phase's seconds.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21,
-each counted from 0, and their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and
+22, each counted from 0, and their sum),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -262,11 +273,14 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from multipathnet_tpu_torch import bench
 from multipathnet_tpu_torch.cli import common, demo, export_proposals
 from multipathnet_tpu_torch.cli import eval as eval_cli
 from multipathnet_tpu_torch.cli import export_serving
@@ -300,6 +314,7 @@ from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
 from multipathnet_tpu_torch.train.proposal import ProposalTrainer
 from multipathnet_tpu_torch.utils import profiling, tbevents
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # every model path pools in bf16, which runs the tensor-core body; the
 # float32 body (csrc/roi_window_pool.cu) is checked in phases 3, 6, 8, 11
 POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool_wgmma.cu"
@@ -352,18 +367,10 @@ def require(ok, msg: str) -> None:
 
 
 def make_inputs(batch: int, proposals: int, canvas: int, seed: int = 0):
-    """bench.py's generator (make_inputs): uint8 images, full-canvas valid
-    extents, proposals of 16 px to 0.3 x canvas."""
-    rng = np.random.default_rng(seed)
-    b, p_, s = batch, proposals, canvas
-    images = rng.integers(0, 255, (b, s, s, 3), dtype=np.uint8)
-    src_hws = np.full((b, 2), float(s), np.float32)
-    x1 = rng.uniform(0, s * 0.7, (b, p_)).astype(np.float32)
-    y1 = rng.uniform(0, s * 0.7, (b, p_)).astype(np.float32)
-    w = rng.uniform(16, s * 0.3, (b, p_)).astype(np.float32)
-    h = rng.uniform(16, s * 0.3, (b, p_)).astype(np.float32)
-    boxes = np.stack([x1, y1, x1 + w, y1 + h], -1)
-    return images, src_hws, boxes, np.ones((b, p_), bool)
+    """bench.py's generator (the port's bench.make_inputs): uint8 images,
+    full-canvas valid extents, proposals of 16 px to 0.3 x canvas."""
+    return bench.make_inputs(SimpleNamespace(
+        batch=batch, proposals=proposals, canvas=canvas), seed)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -648,6 +655,9 @@ def check_and_time_kernels(gen):
 # bench.py's weights: every parameter normal * 0.02, drawn on the model's
 # device from one seeded generator (the rank bodies of phase 19 draw them so)
 seeded_normal_ = mesh_runs.seeded_normal_
+# bench.py's defaults: the main path's shapes; phases 4, 9 and 10 build their
+# models as the port's bench does (bench.build_preset)
+BENCH_ARGS = SimpleNamespace(batch=8, proposals=1000, canvas=640, backbone="")
 
 
 def profile_once(tag: str, what: str, fn, top: int = 12) -> float:
@@ -687,18 +697,14 @@ def profile_once(tag: str, what: str, fn, top: int = 12) -> float:
 
 
 def main_path():
-    cfg = preset("multipath_vgg16_batched")
-    b, p = 8, cfg.data.max_proposals
-    canvas = cfg.data.image_size[0]
-    require((b, p, canvas) == (8, 1000, 640),
-            f"unexpected main-path shape {(b, p, canvas)}")
     t0 = time.perf_counter()
-    model = build_model(cfg.model, device="cuda")
-    n_params = seeded_normal_(model, 0)
+    det, n_params = bench.build_preset("multipath_vgg16_batched", BENCH_ARGS,
+                                       torch.device("cuda"))
+    model, cfg = det.model, det.cfg
+    b, p, canvas = BENCH_ARGS.batch, BENCH_ARGS.proposals, BENCH_ARGS.canvas
     torch.cuda.synchronize()
     log(f"[main] multipath_vgg16_batched: {n_params / 1e6:.1f}M params "
         f"({cfg.model.dtype}) on the card in {time.perf_counter() - t0:.1f}s")
-    det = Detector(model, cfg, "cuda")
     inputs = make_inputs(b, p, canvas)
 
     reset_launches()
@@ -1305,27 +1311,20 @@ def serving_path(preset_name: str, tag: str):
     bench.py's flow, the preset's own layout (factored at its ranks) drawn
     in float32 on the card, then Detector's load-time transform quantizes
     it. Returns (launches, steady img/s)."""
-    cfg = preset(preset_name)
-    m = cfg.model
-    b, p = 8, cfg.data.max_proposals
-    canvas = cfg.data.image_size[0]
-    require((b, p, canvas, m.head_quant) == (8, 1000, 640, "int8"),
-            f"unexpected {preset_name} shape {(b, p, canvas, m.head_quant)}")
     t0 = time.perf_counter()
-    float_model = build_model(dataclasses.replace(m, head_quant="none"),
-                              param_dtype=torch.float32, device="cuda")
-    n_params = seeded_normal_(float_model, 0)
-    tree = convert.flax_from_state_dict(float_model.state_dict(), host=False)
-    del float_model
-    model = build_model(m, device="cuda")
-    det = Detector(model, cfg, params=tree)
-    del tree
+    det, n_params = bench.build_preset(preset_name, BENCH_ARGS,
+                                       torch.device("cuda"))
+    model, cfg = det.model, det.cfg
+    m = cfg.model
+    b, p, canvas = BENCH_ARGS.batch, BENCH_ARGS.proposals, BENCH_ARGS.canvas
+    require(m.head_quant == "int8", f"{preset_name} is not an int8 preset")
     torch.cuda.synchronize()
     require(bool(model.head.fc6_f0.weight_i8.any()),
             "the int8 head holds no weights")
-    log(f"[{tag}] {preset_name}: {n_params / 1e6:.1f}M float32 params "
-        f"(fc6_rank {m.fc6_rank}, fc7_rank {m.fc7_rank}) drawn on the card "
-        f"and quantized at load in {time.perf_counter() - t0:.1f}s")
+    log(f"[{tag}] {preset_name}: {n_params / 1e6:.1f}M params after the "
+        f"load-time transform (fc6_rank {m.fc6_rank}, fc7_rank {m.fc7_rank}),"
+        f" drawn in float32 on the card and quantized at load in "
+        f"{time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     inputs = make_inputs(b, p, canvas)
 
@@ -1588,7 +1587,7 @@ def probe_path():
 
 # ------------------------------------------------------------ phase 13 ---
 
-BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+BUILD = os.path.join(ROOT, "build")
 
 
 def fresh_dir(name: str) -> str:
@@ -2752,7 +2751,7 @@ def serve_path():
     proc = subprocess.Popen(
         [sys.executable, "-m", "multipathnet_tpu_torch.cli.serve",
          "--bundle", bundle, "--port", "0", "--warmup"],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
+        cwd=ROOT,
         stderr=subprocess.PIPE, text=True)
     errors = []
     try:
@@ -3569,6 +3568,89 @@ def align_routes_path(card: str, bf16_ips: float, int8_ips: float,
     return launches
 
 
+# ------------------------------------------------------------ phase 22 ---
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def run_bench(argv: list, timeout: float = 900):
+    """python -m multipathnet_tpu_torch.bench with argv from the checkout,
+    its stderr logged; -> (its record, {preset: the kernel launches of its
+    timed run}, seconds). Requires exit code 0 and one line on stdout."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multipathnet_tpu_torch.bench", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[bench]   {line}")
+    require(proc.returncode == 0,
+            f"bench {argv} exited with {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    require(len(lines) == 1,
+            f"bench {argv} printed {len(lines)} lines on stdout: "
+            f"{proc.stdout[:2000]!r}")
+    launches = {}
+    for line in proc.stderr.splitlines():
+        head, sep, counts = line.partition("] kernel launches: ")
+        if sep and head.startswith("["):
+            launches[head[1:]] = json.loads(counts)
+    return json.loads(lines[0]), launches, seconds
+
+
+def require_launches(tag: str, counts: dict, quant: bool) -> None:
+    """K1 and K2 launched in their quant instances and not in the others
+    (quant), or the other way round."""
+    on = ("window_pool_multi", "resident_pool")
+    on, off = ([f"{n}_quant" for n in on], on) if quant else (
+        on, [f"{n}_quant" for n in on])
+    require(all(counts[n] > 0 for n in on)
+            and not any(counts[n] for n in off),
+            f"bench {tag}: kernels launched {counts}")
+
+
+def bench_path(card: str, bf16_ips: float, int8_ips: float,
+               svd_ips: float) -> dict:
+    """Phase 22 (`bench`): the port's bench at bench.py's defaults, then
+    with --backbone resnet101; -> the kernels' launches summed over the
+    timed runs of both."""
+    t_phase = time.perf_counter()
+    record, runs, seconds = run_bench([])
+    require(list(record) == BENCH_KEYS + ["companions"]
+            and set(record["companions"]) == {"bf16", "int8"},
+            f"bench record keys {list(record)}")
+    values = {"int8_svd": record["value"], **record["companions"]}
+    require(all(np.isfinite(v) and v > 0 for v in values.values()),
+            f"bench img/s {values}")
+    require(set(runs) == {"multipath_vgg16_int8_svd",
+                          "multipath_vgg16_batched", "multipath_vgg16_int8"},
+            f"bench launch lines for {sorted(runs)}")
+    require_launches("int8_svd", runs["multipath_vgg16_int8_svd"], True)
+    require_launches("int8", runs["multipath_vgg16_int8"], True)
+    require_launches("bf16", runs["multipath_vgg16_batched"], False)
+    log(f"[bench] {json.dumps(record)}")
+    phases = {"int8_svd": (svd_ips, 10), "bf16": (bf16_ips, 4),
+              "int8": (int8_ips, 9)}
+    log(f"[bench] summary ({card}): the bench's img/s in {seconds:.1f} s "
+        f"against this process's phases: " + "; ".join(
+            f"{k} {values[k]:.2f} against {ips:.2f} (phase {n}), ratio "
+            f"{values[k] / ips:.3f}" for k, (ips, n) in phases.items()))
+
+    argv = ["--backbone", "resnet101", "--no-companions", "--iters", "5"]
+    record101, runs101, seconds101 = run_bench(argv)
+    require(list(record101) == BENCH_KEYS and record101["value"] > 0,
+            f"bench {argv} record {record101}")
+    require_launches("resnet101", runs101["multipath_vgg16_int8_svd"], True)
+    log(f"[bench] {' '.join(argv)} in {seconds101:.1f} s: "
+        f"{json.dumps(record101)}")
+    launches = {name: sum(c.get(name, 0) for c in [*runs.values(),
+                                                   *runs101.values()])
+                for name in KERNELS}
+    log(f"[bench] kernel launches of the timed runs: {launches}; phase 22 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -3650,6 +3732,8 @@ def main() -> None:
     del reference_state
     torch.cuda.empty_cache()
     align_launches = align_routes_path(smi, bf16_ips, int8_ips, resident_ms)
+    torch.cuda.empty_cache()
+    bench_launches = bench_path(smi, bf16_ips, int8_ips, svd_ips)
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -3676,7 +3760,8 @@ def main() -> None:
              "serve": {name: serve_launches.get(name, 0) for name in KERNELS},
              "parallel": parallel_launches,
              "tools": tools_launches,
-             "align_routes": align_launches}
+             "align_routes": align_launches,
+             "bench": bench_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}

@@ -217,12 +217,13 @@ def _rank_main(rank, world, backend, device_type, workdir, timeout_s):
 
 
 def spawn(fn, world: int, *, args: Sequence = (), kwargs=None,
-          backend=None, device: str = "cpu", timeout_s: float = 300,
+          backend=None, device: str | None = None, timeout_s: float = 300,
           workdir: str | None = None) -> list:
     """Runs fn(*args, **kwargs) on `world` new processes joined in one
     process group (a file:// rendezvous, so no port is taken) and returns
-    the ranks' results in rank order. `device` "cpu" pins each rank to
-    one CPU thread; "cuda" pins rank r to card r modulo the cards. `backend`
+    the ranks' results in rank order. `device` None or "cuda" pins rank r
+    to card r modulo the cards (None raises where there is no card, before
+    any process starts); "cpu" pins each rank to one CPU thread. `backend`
     defaults to gloo on the CPU and NCCL on the card, which needs a card
     per rank. fn must be importable by name (a module-level function of a
     module that the new processes can import). Raises if any rank raises
@@ -230,6 +231,7 @@ def spawn(fn, world: int, *, args: Sequence = (), kwargs=None,
     seconds; the other ranks are then stopped."""
     import multiprocessing as mp
 
+    device = resolve_device(device).type
     if device == "cuda":
         _check_nccl_devices(backend or "nccl", world)
     workdir = tempfile.mkdtemp(prefix="mpn_spawn_", dir=workdir)

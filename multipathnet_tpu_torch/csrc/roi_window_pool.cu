@@ -70,7 +70,10 @@
 //
 // A view whose window would fall outside its level's buffer (never
 // produced by view_geometry, which clamps) is not read: its output is NaN,
-// or with the epilogue zero codes and a NaN scale.
+// or with the epilogue zero codes and a NaN scale. A view whose y holds a
+// NaN (a NaN in its windows: features NaN upstream) gets the epilogue's
+// zero codes and NaN scale too, as quant_view_ref gives it: the ReLU and
+// the max keep a NaN (fmax_nan), where fmaxf would drop it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,8 +91,9 @@ constexpr int SLICE = THREADS * VEC;      // channels per block
 constexpr int QUANT_THREADS = 256;        // most threads of a quant block
 
 // _quant_view's y in float32: the pool result plus the bias, then ReLU
+// (a NaN stays NaN, as jnp.maximum and torch.relu keep it)
 __device__ __forceinline__ float biased_relu(float acc, float bias) {
-  return fmaxf(acc + bias, 0.f);
+  return fmax_nan(acc + bias, 0.f);
 }
 
 // clip(rint(y / s), -127, 127), y / s as div_rn; rint rounds half to even,
@@ -188,25 +192,28 @@ window_pool_kernel(const PoolParams p) {
       for (int j = 0; j < G; ++j) {
         acc[i][j][0] = biased_relu(acc[i][j][0], b.x);
         acc[i][j][1] = biased_relu(acc[i][j][1], b.y);
-        m = fmaxf(m, fmaxf(acc[i][j][0], acc[i][j][1]));
+        m = fmax_nan(m, fmax_nan(acc[i][j][0], acc[i][j][1]));
       }
     if (!active) m = 0.f;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      m = fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) s_max[warp] = m;
     __syncthreads();
     if (warp == 0) {
       m = lane < (int)(blockDim.x >> 5) ? s_max[lane] : 0.f;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        m = fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
       if (lane == 0) s_max[0] = m;
     }
     __syncthreads();
-    const float s = view_scale(s_max[0]);
-    if (threadIdx.x == 0) p.scale[n] = in_bounds ? s : NAN;
+    const float amax = s_max[0];
+    const float s = view_scale(amax);
+    // a NaN max (a NaN in the view's y): zero codes and a NaN scale
+    const bool finite = in_bounds && !isnan(amax);
+    if (threadIdx.x == 0) p.scale[n] = finite ? s : NAN;
     if (!active) return;
     const float r = view_reciprocal(s);
     signed char* out = static_cast<signed char*>(p.out) +
@@ -216,7 +223,7 @@ window_pool_kernel(const PoolParams p) {
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         char2 q = make_char2(0, 0);
-        if (in_bounds) {
+        if (finite) {
           q.x = quantize(acc[i][j][0], s, r);
           q.y = quantize(acc[i][j][1], s, r);
         }

@@ -48,7 +48,10 @@
 //     both modes, so the quant output is quant_view_ref of the plain
 //     instance's output.
 // A view whose window would fall outside its buffer is not read (TMA would
-// zero-fill it silently): NaN out, or zero codes and a NaN scale.
+// zero-fill it silently): NaN out, or zero codes and a NaN scale. A view
+// whose y holds a NaN gets zero codes and a NaN scale too, as
+// quant_view_ref gives it: the ReLU and the maxima keep a NaN
+// (__hmax2_nan, fmax_nan), where __hmax2 and fmaxf would drop it.
 //
 // What bounds it. Not the tensor cores: the W2 GEMM is 2 * 49 * 160 FLOP
 // per view, level and channel (padded to 64 rows), 0.2 ms at the main path
@@ -217,7 +220,7 @@ constexpr int BAR_TILE_EMPTY = 3;  // epilogue warps -> consumers
 // midpoint)
 __device__ __forceinline__ __nv_bfloat162 biased_relu2(__nv_bfloat162 t,
                                                        __nv_bfloat162 b) {
-  return __hmax2(__hadd2(t, b), __floats2bfloat162_rn(0.f, 0.f));
+  return __hmax2_nan(__hadd2(t, b), __floats2bfloat162_rn(0.f, 0.f));
 }
 
 // the codes clip(rint(y / s), -127, 127) of eight bf16 values y >= 0 (four
@@ -281,10 +284,11 @@ __device__ __forceinline__ void epilogue_warps(const WgmmaParams& w, Smem& sm,
       const int chunks = width / 8;
       const int cc = et & 31;
       float m = 0.f;
-      for (int k = 0; k < 4 * w.n_wg; ++k) m = fmaxf(m, sm.vmax[k]);
-      const bool inside = sm.inside;
+      for (int k = 0; k < 4 * w.n_wg; ++k) m = fmax_nan(m, sm.vmax[k]);
+      // a NaN max (a NaN in the view's y): zero codes and a NaN scale
+      const bool finite = sm.inside && !isnan(m);
       const float sc = view_scale(m);
-      if (et == 0) p.scale[n] = inside ? sc : NAN;
+      if (et == 0) p.scale[n] = finite ? sc : NAN;
       const float r = view_reciprocal(sc);
       signed char* out = static_cast<signed char*>(p.out) +
                          (size_t)n * G * G * c_all + c0;
@@ -294,7 +298,7 @@ __device__ __forceinline__ void epilogue_warps(const WgmmaParams& w, Smem& sm,
           if (cc + 32 * h < chunks) {
             const uint4 v = *reinterpret_cast<const uint4*>(
                 &sm.tile[row][8 * (cc + 32 * h)]);
-            const uint2 q = inside ? quantize_8(v, sc, r) : make_uint2(0, 0);
+            const uint2 q = finite ? quantize_8(v, sc, r) : make_uint2(0, 0);
             __stcs(reinterpret_cast<uint2*>(out + (size_t)row * c_all +
                                             8 * (cc + 32 * h)), q);
           }
@@ -520,8 +524,9 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
         if (c < width) {
           __nv_bfloat162 e[4] = {pair(v, 0), pair(v, 1), pair(v + 1, 0),
                                  pair(v + 1, 1)};
-          vmax = __hmax2(vmax, __hmax2(e[0], e[1]));
-          if (c + 8 < width) vmax = __hmax2(vmax, __hmax2(e[2], e[3]));
+          vmax = __hmax2_nan(vmax, __hmax2_nan(e[0], e[1]));
+          if (c + 8 < width)
+            vmax = __hmax2_nan(vmax, __hmax2_nan(e[2], e[3]));
           if (!inside) e[0] = e[1] = e[2] = e[3] = nan2;
           asm volatile(
               "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, "
@@ -540,7 +545,7 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
         const int c = cw + 8 * v;
         if (c < width && m0 < G * G) {
           const __nv_bfloat162 e = pair(v, 0);
-          vmax = __hmax2(vmax, e);
+          vmax = __hmax2_nan(vmax, e);
           *reinterpret_cast<__nv_bfloat162*>(&sm.tile[m0][c]) =
               inside ? e : nan2;
         }
@@ -548,10 +553,10 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
     }
     if (QUANT) {
       const float2 f = __bfloat1622float2(vmax);
-      float mx = fmaxf(f.x, f.y);
+      float mx = fmax_nan(f.x, f.y);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        mx = fmax_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       if (lane == 0) sm.vmax[tid >> 5] = mx;
     }
     if (tid == 0) sm.inside = inside;

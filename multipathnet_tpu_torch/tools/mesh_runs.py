@@ -8,15 +8,16 @@ as floats, tensors as numpy arrays, the kernels' launch counts of the run.
 chip_smoke.py (phase 19, `parallel`) runs them on the card at full width
 and tests/test_torch_{mesh,dp,tp}.py on the CPU at `tiny`. Each runs on
 the rank's card unless it is given `device="cpu"`, and raises without a
-card:
+card, as `spawn` does; ranks on the CPU take device="cpu" in both places:
 
     from multipathnet_tpu_torch.core.mesh import spawn
     from multipathnet_tpu_torch.tools import mesh_runs
     results = spawn(mesh_runs.train_run, 2, args=(cfg, (2, 1), batch),
-                    kwargs=dict(device="cpu"))
+                    kwargs=dict(device="cpu"), device="cpu")
 
 `run_jobs` runs several of them in order on one set of ranks, each on its
-own mesh, so one launch serves meshes of several shapes:
+own mesh, so one launch serves meshes of several shapes (here on the
+card, ranks and bodies alike):
 
     spawn(mesh_runs.run_jobs, 2, args=([
         (mesh_runs.train_run, (cfg, (2, 1), batch), {}),

@@ -159,7 +159,8 @@ def runs(data, fitted, tmp_path_factory):
              dict(cpu, tree=fitted, compare_unsharded=True)),
             (workers.tester_on_trainer_model, (cfg, (1, 2), split, fitted),
              {})]
-    res = spawn(mesh_runs.run_jobs, 4, args=(jobs,), timeout_s=TIMEOUT,
+    res = spawn(mesh_runs.run_jobs, 4, args=(jobs,), device="cpu",
+                timeout_s=TIMEOUT,
                 workdir=str(tmp_path_factory.mktemp("dp_ranks")))
     return list(zip(*res)), ref_loss
 

@@ -744,6 +744,37 @@ def test_quant_out_of_range_view_is_zero_codes_nan_scale(cuda):
     assert q[0].abs().max() > 0 and not q[1].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [512, 1024])
+def test_quant_epilogue_keeps_a_nan_as_plain(cuda, dtype, c):
+    """A NaN cell in every level's pyramid (features NaN upstream, as
+    bench.py's draw of a ResNet's BN statistics makes them), inside the
+    first view's windows: K1 and K2 with the epilogue give each view whose
+    y holds a NaN zero codes and a NaN scale, as quant_view_ref of their
+    own pooled output does (the ReLU and the max keep a NaN), and every
+    other view its codes and scale bit for bit. C = 1024: the pool, then
+    the epilogue kernel."""
+    k1, k2, bias = _quant_cases(cuda, dtype, c, seed=24)
+    for flat, row0, x0 in zip(*k1[:3]):
+        flat[int(row0[0]) + 1, int(x0[0]) + 1] = float("nan")
+    for kern, args in ((roi_pool.window_pool_multi, k1),
+                       (roi_pool.resident_pool, k2)):
+        q, s = kern(*args, quant_bias=bias)
+        pooled = kern(*args)
+        torch.cuda.synchronize()
+        n = s.numel()
+        want_q, want_s = roi_pool.quant_view_ref(
+            pooled.reshape(n, 7, 7, c), bias)
+        nan = torch.isnan(want_s)
+        assert bool(nan[0]) and 0 < int(nan.sum()) < n, int(nan.sum())
+        s = s.reshape(n)
+        assert torch.equal(torch.isnan(s), nan)
+        assert torch.equal(s[~nan], want_s[~nan])
+        assert torch.equal(q.reshape(n, 7, 7, c), want_q)
+        assert not q.reshape(n, -1)[nan].any()
+
+
 def test_quant_wrappers_check_their_inputs(cuda):
     (flat, meta), = _levels(cuda, torch.bfloat16, 1, 160, 64, 1, seed=23)
     rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]], device=cuda)

@@ -150,15 +150,26 @@ def test_head_layout_matches_reference(mesh_shape, layout):
 def test_spawn_raises_when_a_rank_fails(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 says no"):
         tmesh.spawn(workers.fail_on_rank, 2, args=(1, "rank 1 says no"),
-                    timeout_s=TIMEOUT, workdir=str(tmp_path))
+                    device="cpu", timeout_s=TIMEOUT, workdir=str(tmp_path))
 
 
 def test_spawn_stops_ranks_past_their_timeout(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(TimeoutError):
-        tmesh.spawn(workers.sleep, 2, args=(600,), timeout_s=6,
-                    workdir=str(tmp_path))
+        tmesh.spawn(workers.sleep, 2, args=(600,), device="cpu",
+                    timeout_s=6, workdir=str(tmp_path))
     assert time.monotonic() - t0 < 30
+
+
+def test_spawn_runs_on_the_card_by_default(tmp_path, monkeypatch):
+    """spawn given no device puts its ranks on the card: without one it
+    raises, naming device='cpu', before it starts a process or makes its
+    work directory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.spawn(workers.sleep, 1, args=(0,), timeout_s=TIMEOUT,
+                    workdir=str(tmp_path))
+    assert not list(tmp_path.iterdir())
 
 
 def test_nccl_refuses_ranks_sharing_a_card(tmp_path):
@@ -187,7 +198,8 @@ def test_mesh_groups_and_head_collectives(tmp_path):
     column-parallel, row-parallel, gathered and split chain of layers
     equal to the unsharded chain in loss and every gradient part."""
     res = tmesh.spawn(workers.collectives, 4, args=((2, 2), (1, 2)),
-                      timeout_s=TIMEOUT, workdir=str(tmp_path))
+                      device="cpu", timeout_s=TIMEOUT,
+                      workdir=str(tmp_path))
     assert [r["coord"] for r in res] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert [r["narrow"] for r in res] == [(0, 0), (0, 1), None, None]
     for r in res:
@@ -218,7 +230,8 @@ def test_spawned_ranks_import_no_jax(tmp_path):
             (mesh_runs.detect_run, (cfg, (2, 1), batch[:4]),
              dict(device="cpu", normal_seed=0))]
     res = tmesh.spawn(workers.jobs_then_modules, 2, args=(jobs,),
-                      timeout_s=TIMEOUT, workdir=str(tmp_path))
+                      device="cpu", timeout_s=TIMEOUT,
+                      workdir=str(tmp_path))
     assert res == [[], []]
 
 
@@ -287,8 +300,8 @@ def test_checkpoint_restores_across_meshes(split, tmp_path):
              dict(device="cpu", steps=0, restore_dir=ckpt)),
             (mesh_runs.train_run, (cfg, (2, 4), batch),
              dict(device="cpu", restore_dir=ckpt, return_params=False))]
-    res = tmesh.spawn(mesh_runs.run_jobs, 8, args=(jobs,), timeout_s=TIMEOUT,
-                      workdir=str(tmp_path))
+    res = tmesh.spawn(mesh_runs.run_jobs, 8, args=(jobs,), device="cpu",
+                      timeout_s=TIMEOUT, workdir=str(tmp_path))
     saved, on24, stepped = res[0]
     assert saved["tp_roles"]["fc6_f0"] == "col" and on24["step"] == 1
     for name, want in saved["params"].items():
@@ -315,5 +328,5 @@ def test_checkpoint_save_takes_the_first_ranks_branch(tmp_path):
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"),
                       train=dataclasses.replace(cfg.train, batch_size=2))
     res = tmesh.spawn(workers.save_twice, 2, args=(cfg, str(tmp_path)),
-                      timeout_s=60, workdir=str(tmp_path))
+                      device="cpu", timeout_s=60, workdir=str(tmp_path))
     assert res == [[0], []]

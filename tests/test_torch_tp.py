@@ -125,7 +125,8 @@ def runs(data, tmp_path_factory):
                              images), dict(cpu, tree=trees[layout],
                                            compare_unsharded=True))
              for layout in _SERVING]
-    res = spawn(mesh_runs.run_jobs, 8, args=(jobs,), timeout_s=TIMEOUT,
+    res = spawn(mesh_runs.run_jobs, 8, args=(jobs,), device="cpu",
+                timeout_s=TIMEOUT,
                 workdir=str(tmp_path_factory.mktemp("tp_ranks")))
     by_job = list(zip(*res))
     return by_job[:4], dict(zip(_SERVING, by_job[4:])), trees
