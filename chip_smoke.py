@@ -251,9 +251,41 @@ Phases, each of which raises on failure (nothing is caught):
      once more with --backbone resnet101 --no-companions --iters 5 (a trunk
      whose BN statistics bench.py draws normal * 0.02): exit code 0, one
      line, the quant K1/K2 launched. The phase's seconds.
+ 23. BASELINE configs 1 and 2 and the dense foveal topology (`configs`),
+     through the entry points at full VGG-16 width (weights as the port's
+     bench draws them, or as phase 7's), each run's launches counted from
+     0 and summed; after each run one call more with the kernel calls
+     captured (captured_calls), and every K1/K2/K3/K4 call of it checked
+     and timed against its plain version at those shapes, with its bound
+     (check_pool_call: float32 atol 1e-4 on the inputs cast, bf16 rtol/atol
+     1e-2, the int8 epilogue bit for bit on the kernel's own pooled output
+     and codes within 1 of the plain version; check_grad_kernel: phase 6's
+     rules, bit-equal over two calls, the views per 16 x 16 tile): (a)
+     Detector on `fastrcnn_vgg16_single` (config 1: one 1x view, c5 only,
+     one integral head) at 1 image x 1000 proposals, 640^2: the first
+     call, a warm batch, three windows of 20 timed (ms an image of the
+     median window, the collector run first), peak memory, K2 alone
+     launched; (b) its Trainer step at its batch of 1 (64 sampled ROIs): a
+     first step, 5 timed, K1 at L = 1 and K3 on c5 once a step, losses
+     finite, two steps from one state equal under cudnn.deterministic; (c)
+     `multipath_vgg16_b1` (config 2) as (a), K1 and K2 launched; (d)
+     `multipath_vgg16_batched` and `multipath_vgg16_int8` with
+     foveal_topology="dense" at 8 x 1000, 640^2 (as (a), windows of 10
+     beside phases 4 and 9): one K1 group of 32,000 views x 3 levels, K2
+     never launched; (e) `multipath_vgg16_train` with the dense topology
+     (ms/step beside phase 7): K1 once, K3 on c4 and c5, K4 on c3 a step;
+     (f) right after (a) and after (c), `python -m
+     multipathnet_tpu_torch.bench --preset fastrcnn_vgg16_single --batch 1
+     --no-companions` and the same with `--preset multipath_vgg16_b1` as
+     processes, between three windows of the in-process detector before
+     and three after: one line each, the launches of 20 in-process
+     batches, kernel by kernel; img/s within 10% of the windows' median
+     where those agree within 10%, else reported as unresolved
+     (bench_beside says why). The phase's seconds.
 The line before the last is a JSON object with each kernel's launches (the
-runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and
-22, each counted from 0, and their sum),
+runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+22 and 23, each counted from 0, and their sum; phase 23's checks at its
+shapes as `configs_<case>_*`),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -268,6 +300,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -950,6 +983,59 @@ def grad_close(name, got, want32):
     return err, tol
 
 
+# name -> (the wrapper, its plain version with the output dtype last)
+GRAD_KERNELS = {
+    "window_grad": (roi_pool.window_grad,
+                    lambda *a: roi_pool.window_grad_ref(*a[:-1]).to(a[-1])),
+    "window_rmw_grad": (roi_pool.window_rmw_grad,
+                        roi_pool.window_rmw_grad_ref)}
+
+
+def check_grad_kernel(tag: str, name: str, level: str, args) -> dict:
+    """K3 (window_grad) or K4 (window_rmw_grad) on `args` (the wrapper's
+    arguments without the output dtype): the views per 16 x 16 tile, the
+    kernel against its plain version with a float32 and a bf16 output
+    (grad_close), each output equal bit for bit over two calls, then timed
+    against the plain version with the bf16 output the paths write.
+    Returns {"float32": err, "bfloat16": err, "ms", "plain_ms",
+    "bound_ms", "bound_by", "max_per_tile"}."""
+    kern, plain = GRAD_KERNELS[name]
+    bf16 = torch.bfloat16
+    if name == "window_grad":
+        tiles = views_per_tile(args[1], args[2], args[5], args[6], args[7])
+    else:
+        tiles = views_per_tile(args[1], args[2], 1, *args[5][:2])
+    log(f"[{tag}] {name} on {level}: {tiles[0]} tiles of 16 x 16, "
+        f"{tiles[1]} with a view; views per tile: at most {tiles[2]}, "
+        f"median {tiles[3]:.0f}")
+    want = plain(*args, torch.float32)
+    stats = {"max_per_tile": tiles[2]}
+    for dtype in (torch.float32, bf16):
+        got = kern(*args, dtype)
+        again = kern(*args, dtype)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"{name} on {level}, "
+                f"{dtype}: two calls on the same inputs differ")
+        err, tol = grad_close(f"{name} on {level}", got, want)
+        stats[str(dtype)[6:]] = err
+        log(f"[{tag}] {name} on {level}, {str(dtype)[6:]} output, "
+            f"{args[0].shape[0]} views into {tuple(got.shape)}: max abs "
+            f"err {err:.3e} ({tol}) ok; bit-equal over two calls")
+        del got, again
+    del want
+    ms, plain_ms = alternate_ms(lambda: plain(*args, bf16),
+                                lambda: kern(*args, bf16), 2, 10)
+    if name == "window_grad":    # (batch * rows, wmax, C)
+        numel = args[5] * args[6] * args[7] * args[0].shape[-1]
+    else:                        # the buffer's shape
+        numel = int(np.prod(args[5]))
+    b_ms, b_by = grad_bound(args[0], numel, 2)
+    log(f"[{tag}] {name} on {level}, bf16 output: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return stats
+
+
 def check_and_time_grad_kernels(gen):
     """K1's forward at the train path's two groups (check_train_forward);
     K3 (on c5 and c4) and K4 (on c3) against their plain versions on the
@@ -965,45 +1051,13 @@ def check_and_time_grad_kernels(gen):
     k1_train = check_train_forward(pyr, rois)
     out = {"window_grad": {"extra": {}}, "window_rmw_grad": {}}
     bf16 = torch.bfloat16
-    for name, level, kern, plain, args in (
-            ("window_grad", "c5", roi_pool.window_grad,
-             lambda *a: roi_pool.window_grad_ref(*a[:-1]).to(a[-1]), k3),
-            ("window_grad", "c4", roi_pool.window_grad,
-             lambda *a: roi_pool.window_grad_ref(*a[:-1]).to(a[-1]), k3_c4),
-            ("window_rmw_grad", "c3", roi_pool.window_rmw_grad,
-             roi_pool.window_rmw_grad_ref, k4)):
-        if name == "window_grad":
-            tiles = views_per_tile(args[1], args[2], args[5], args[6],
-                                   args[7])
-        else:
-            tiles = views_per_tile(args[1], args[2], 1, *args[5][:2])
-        log(f"[grad] {name} on {level}: {tiles[0]} tiles of 16 x 16, "
-            f"{tiles[1]} with a view; views per tile: at most {tiles[2]}, "
-            f"median {tiles[3]:.0f}")
-        want = plain(*args, torch.float32)
-        stats = {}
-        for dtype in (torch.float32, bf16):
-            got = kern(*args, dtype)
-            again = kern(*args, dtype)
-            torch.cuda.synchronize()
-            require(torch.equal(got, again), f"{name} on {level}, "
-                    f"{dtype}: two calls on the same inputs differ")
-            err, tol = grad_close(f"{name} on {level}", got, want)
-            stats[str(dtype)[6:]] = err
-            log(f"[grad] {name} on {level}, {str(dtype)[6:]} output, "
-                f"{args[0].shape[0]} views into {tuple(got.shape)}: max abs "
-                f"err {err:.3e} ({tol}) ok; bit-equal over two calls")
-            del got, again
-        del want
-        ms, plain_ms = alternate_ms(lambda: plain(*args, bf16),
-                                    lambda: kern(*args, bf16), 2, 10)
-        if name == "window_grad":    # (batch * rows, wmax, C)
-            numel = args[5] * args[6] * args[7] * args[0].shape[-1]
-        else:                        # the buffer's shape
-            numel = int(np.prod(args[5]))
-        b_ms, b_by = grad_bound(args[0], numel, 2)
-        log(f"[grad] {name} on {level}, bf16 output: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    for name, level, args in (("window_grad", "c5", k3),
+                              ("window_grad", "c4", k3_c4),
+                              ("window_rmw_grad", "c3", k4)):
+        kern = GRAD_KERNELS[name][0]
+        stats = check_grad_kernel("grad", name, level, args)
+        ms, plain_ms, b_ms, b_by = (stats[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by"))
         if level == "c4":
             out[name]["extra"].update(
                 c4_ms=round(ms, 4), c4_plain_ms=round(plain_ms, 4),
@@ -3598,15 +3652,12 @@ def run_bench(argv: list, timeout: float = 900):
     return json.loads(lines[0]), launches, seconds
 
 
-def require_launches(tag: str, counts: dict, quant: bool) -> None:
-    """K1 and K2 launched in their quant instances and not in the others
-    (quant), or the other way round."""
-    on = ("window_pool_multi", "resident_pool")
-    on, off = ([f"{n}_quant" for n in on], on) if quant else (
-        on, [f"{n}_quant" for n in on])
-    require(all(counts[n] > 0 for n in on)
-            and not any(counts[n] for n in off),
-            f"bench {tag}: kernels launched {counts}")
+def require_only(tag: str, launches: dict, expect) -> None:
+    """Exactly the kernels `expect` launched in a run."""
+    require(all((launches.get(name, 0) > 0) == (name in expect)
+                for name in KERNELS),
+            f"[{tag}] kernel launches {launches}, expected only "
+            f"{sorted(expect)}")
 
 
 def bench_path(card: str, bf16_ips: float, int8_ips: float,
@@ -3625,9 +3676,11 @@ def bench_path(card: str, bf16_ips: float, int8_ips: float,
     require(set(runs) == {"multipath_vgg16_int8_svd",
                           "multipath_vgg16_batched", "multipath_vgg16_int8"},
             f"bench launch lines for {sorted(runs)}")
-    require_launches("int8_svd", runs["multipath_vgg16_int8_svd"], True)
-    require_launches("int8", runs["multipath_vgg16_int8"], True)
-    require_launches("bf16", runs["multipath_vgg16_batched"], False)
+    quant = {"window_pool_multi_quant", "resident_pool_quant"}
+    require_only("bench int8_svd", runs["multipath_vgg16_int8_svd"], quant)
+    require_only("bench int8", runs["multipath_vgg16_int8"], quant)
+    require_only("bench bf16", runs["multipath_vgg16_batched"],
+                 {"window_pool_multi", "resident_pool"})
     log(f"[bench] {json.dumps(record)}")
     phases = {"int8_svd": (svd_ips, 10), "bf16": (bf16_ips, 4),
               "int8": (int8_ips, 9)}
@@ -3640,7 +3693,8 @@ def bench_path(card: str, bf16_ips: float, int8_ips: float,
     record101, runs101, seconds101 = run_bench(argv)
     require(list(record101) == BENCH_KEYS and record101["value"] > 0,
             f"bench {argv} record {record101}")
-    require_launches("resnet101", runs101["multipath_vgg16_int8_svd"], True)
+    require_only("bench resnet101", runs101["multipath_vgg16_int8_svd"],
+                 quant)
     log(f"[bench] {' '.join(argv)} in {seconds101:.1f} s: "
         f"{json.dumps(record101)}")
     launches = {name: sum(c.get(name, 0) for c in [*runs.values(),
@@ -3649,6 +3703,448 @@ def bench_path(card: str, bf16_ips: float, int8_ips: float,
     log(f"[bench] kernel launches of the timed runs: {launches}; phase 22 "
         f"took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ------------------------------------------------------------ phase 23 ---
+
+# BASELINE configs 1 and 2 at batch 1, with bench.py's other defaults
+B1_ARGS = SimpleNamespace(batch=1, proposals=1000, canvas=640, backbone="")
+POOL_PLAIN = {"window_pool_multi": roi_pool.window_pool_multi_ref,
+              "resident_pool": roi_pool.resident_pool_ref}
+# views a plain K1 call takes at a time: the plain version gathers every
+# view's windows at once, 10 GB a level at 32,000 views in float32
+PLAIN_CHUNK = 8000
+
+
+@contextlib.contextmanager
+def captured_calls(*names):
+    """The calls of the roi_pool kernel wrappers `names` made inside the
+    block, with the tensors as the path passed them: {name: [(args,
+    kwargs), ...]}. Each wrapper still launches and counts: it counts
+    through its module's name, so the stand-in's counters are carried
+    over and back."""
+    calls = {name: [] for name in names}
+    originals = {name: getattr(roi_pool, name) for name in names}
+    counters = ("launches", "quant_launches")
+    for name, fn in originals.items():
+        def stand_in(*args, _name=name, _fn=fn, **kwargs):
+            calls[_name].append((args, kwargs))
+            return _fn(*args, **kwargs)
+        for counter in counters:
+            if hasattr(fn, counter):
+                setattr(stand_in, counter, getattr(fn, counter))
+        setattr(roi_pool, name, stand_in)
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            for counter in counters:
+                if hasattr(fn, counter):
+                    setattr(fn, counter, getattr(getattr(roi_pool, name),
+                                                 counter))
+            setattr(roi_pool, name, fn)
+
+
+def pool_call_args(name, args, kwargs):
+    """A captured K1 or K2 call -> (its five tensor arguments, the quant
+    bias or None), the pyramids detached."""
+    base = list(args[:5])
+    base[0] = ([f.detach() for f in base[0]] if name == "window_pool_multi"
+               else base[0].detach())
+    quant_bias = args[5] if len(args) > 5 else kwargs.get("quant_bias")
+    return base, None if quant_bias is None else quant_bias.detach()
+
+
+def k1_chunks(args, n):
+    """K1's arguments for views [a, a + PLAIN_CHUNK) at a time."""
+    for a in range(0, n, PLAIN_CHUNK):
+        yield [args[0]] + [[t[a:a + PLAIN_CHUNK] for t in part]
+                           for part in args[1:]]
+
+
+def plain_pool(name, args, quant_bias=None):
+    """The plain version of a K1 or K2 call, K1 in chunks of PLAIN_CHUNK
+    views (the views are independent: the same function)."""
+    ref = POOL_PLAIN[name]
+    if name == "resident_pool":
+        return ref(*args, quant_bias=quant_bias)
+    parts = [ref(*chunk, quant_bias=quant_bias)
+             for chunk in k1_chunks(args, args[1][0].numel())]
+    if quant_bias is None:
+        return torch.cat(parts)
+    return (torch.cat([q for q, _ in parts]), torch.cat([s for _, s in parts]))
+
+
+@torch.no_grad()
+def check_pool_call(tag: str, case: str, name: str, args, kwargs) -> dict:
+    """A K1 or K2 call that a path made (captured_calls), at its shapes:
+    without the epilogue, the kernel against its plain version in the
+    path's dtype (bf16: rtol/atol 1e-2) and on the same inputs cast to
+    float32 (atol 1e-4); with it, bit for bit against the plain epilogue
+    on the kernel's own pooled output and against the fully plain version
+    codes within 1, scales rel 1e-2 (bf16) or 1e-5 (float32). Then timed
+    against the plain version in the path's dtype, with its bound. Returns
+    {"max_abs_err": float32 error or code error, "max_abs_err_bf16", "ms",
+    "plain_ms", "bound_ms", "bound_by"}."""
+    args, qb = pool_call_args(name, args, kwargs)
+    kern = getattr(roi_pool, name)
+    flats = args[0] if name == "window_pool_multi" else [args[0]]
+    row0s = args[1] if name == "window_pool_multi" else [args[1]]
+    x0s = args[2] if name == "window_pool_multi" else [args[2]]
+    dtype = flats[0].dtype
+    n = row0s[0].numel()
+    shape = f"{n} views x {len(flats)} level{'s' * (len(flats) > 1)}"
+    out = {}
+    if qb is None:
+        for dt in (torch.float32, dtype):
+            cast = args
+            if dt != dtype:
+                cast = [([f.to(dt) for f in args[0]]
+                         if name == "window_pool_multi"
+                         else args[0].to(dt)), *args[1:]]
+            got = kern(*cast)
+            torch.cuda.synchronize()
+            err, tol = compare(f"{name} ({case})", dt, got,
+                               plain_pool(name, cast))
+            out["max_abs_err" if dt == torch.float32
+                else "max_abs_err_bf16"] = err
+            log(f"[{tag}] {case}: {name} {str(dt)[6:]}, {shape}, max abs "
+                f"err {err:.3e} ({tol}) ok")
+            del got, cast
+    else:
+        c = flats[0].shape[-1]
+        q, s = kern(*args, quant_bias=qb)
+        own_q, own_s = roi_pool.quant_view_ref(
+            kern(*args).reshape(n, 7, 7, c), qb)
+        torch.cuda.synchronize()
+        require(torch.equal(q.reshape(n, 7, 7, c), own_q)
+                and torch.equal(s.reshape(n), own_s),
+                f"{name} ({case}): not bit-equal to the plain epilogue on "
+                f"its own pooled output")
+        plain_q, plain_s = plain_pool(name, args, qb)
+        code_err = int((q.int() - plain_q.reshape(q.shape).int()).abs().max())
+        scale_err = float(((s.reshape(n) - plain_s.reshape(n)).abs()
+                           / plain_s.reshape(n)).max())
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        require(code_err <= 1 and scale_err <= tol,
+                f"{name} ({case}) disagrees with its plain version: codes "
+                f"{code_err}, scales rel {scale_err}")
+        out["max_abs_err"] = code_err
+        log(f"[{tag}] {case}: {name} with the int8 epilogue, "
+            f"{str(dtype)[6:]}, {shape}: bit-equal to the plain epilogue on "
+            f"its own pooled output; against the plain version max code "
+            f"error {code_err}, scales max rel err {scale_err:.3e} (tol "
+            f"{tol}) ok")
+        del q, s, own_q, own_s, plain_q, plain_s
+    ms, plain_ms = alternate_ms(lambda: plain_pool(name, args, qb),
+                                lambda: kern(*args, quant_bias=qb), 2, 10)
+    b_ms, b_by = pool_bound(flats, row0s, x0s, quant=qb is not None)
+    log(f"[{tag}] {case}: {name}{' (int8 epilogue)' if qb is not None else ''}"
+        f" {str(dtype)[6:]}: kernel {ms:.3f} ms "
+        f"({window_read_gb_s(flats, row0s, ms):.0f} GB/s of window reads), "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def serve_config(tag: str, preset_name: str, args, iters: int, expect,
+                 **model) -> dict:
+    """Detector on a preset built as the port's bench builds it
+    (bench.build_preset, `model` overriding its model fields) at args'
+    batch, proposals and canvas: the first call, one warm batch, three
+    windows of `iters` timed batches on device-resident inputs (host clock
+    between synchronizes; img/s of the median window; "window" times one
+    more, and keeps the model), peak memory, the launches of the run (exactly the
+    kernels `expect`), detections finite with the right shapes; then one
+    batch more with its kernel calls captured. Returns {"ips", "ms",
+    "first_s", "peak_gib", "launches", "calls"}."""
+    det, n_params = bench.build_preset(preset_name, args,
+                                       torch.device("cuda"), **model)
+    model_, cfg = det.model, det.cfg
+    b = args.batch
+    inputs = make_inputs(b, args.proposals, args.canvas)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = det(*inputs)
+    first_s = time.perf_counter() - t0
+    dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
+    detect_batch(model_, cfg, *dev_inputs)
+    torch.cuda.synchronize()
+
+    def window() -> float:
+        """Seconds of `iters` batches (host clock between synchronizes)."""
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            detect_batch(model_, cfg, *dev_inputs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # host-bound at batch 1: the collector's pauses in this long process
+    # would be timed too, so collect first and take the median window
+    gc.collect()
+    windows = [window() for _ in range(3)]
+    dt = sorted(windows)[1]
+    launches = read_launches()
+    res = detect_batch(model_, cfg, *dev_inputs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_detections(tag, out, b=b, d=cfg.eval.max_detections)
+    require(tuple(res["boxes"].shape) == (b, cfg.eval.max_detections, 4),
+            f"[{tag}] boxes {tuple(res['boxes'].shape)}")
+    require_only(tag, launches, expect)
+    ips = b * iters / dt
+    log(f"[{tag}] {preset_name}{' ' + str(model) if model else ''}: "
+        f"{n_params / 1e6:.1f}M params, batch {b} x {args.proposals} "
+        f"proposals, {args.canvas}^2: first call {first_s:.2f} s; three "
+        f"windows of {iters} batches in "
+        f"{', '.join(f'{w:.3f}' for w in windows)} s, the median "
+        f"{ips:.2f} img/s ({1e3 * dt / iters:.2f} "
+        f"ms/batch, {1e3 * dt / (iters * b):.2f} ms/image); peak device "
+        f"memory {peak:.2f} GiB; detections img0: {int(out['valid'][0].sum())}"
+        f"; launches {launches}")
+    with captured_calls("window_pool_multi", "resident_pool") as calls:
+        detect_batch(model_, cfg, *dev_inputs)
+        torch.cuda.synchronize()
+    del det, out, res
+    return {"ips": ips, "ms": 1e3 * dt / iters, "first_s": first_s,
+            "peak_gib": peak, "launches": launches, "calls": calls,
+            "window": window, "iters": iters}
+
+
+def train_config(tag: str, cfg, steps: int, per_step: dict) -> dict:
+    """Trainer.step on cfg at full width (weights normal * 0.02 from seed
+    0 on the card, phase 7's synthetic batch at cfg's batch size): a first
+    step, `steps` timed (ms/step), every loss finite and foreground
+    sampled, exactly `per_step` launches of each kernel a step; two steps
+    from one state equal under cudnn.deterministic (repeat_steps); then
+    one step more with its kernel calls captured. Returns {"ms",
+    "first_s", "peak_gib", "launches", "calls"}."""
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(0)
+    seeded_normal_(trainer.model, 0)
+    batch = trainer.put_batch(train_batch(cfg))
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    history = [metrics]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.step(state, batch)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(h["loss"]) for h in history]
+    require(all(np.isfinite(losses)), f"[{tag}] non-finite loss: {losses}")
+    require(all(float(h["num_fg"]) > 0 for h in history),
+            f"[{tag}] a step sampled no foreground ROI")
+    want = {name: per_step.get(name, 0) * (steps + 1) for name in KERNELS}
+    require(launches == want, f"[{tag}] kernel launches {launches}, "
+            f"expected {want}")
+    b = cfg.train.batch_size
+    log(f"[{tag}] first step {first_s:.2f} s; {steps} steps x {b} images: "
+        f"{ms:.2f} ms/step, {1e3 * b / ms:.2f} img/s; peak device memory "
+        f"{peak:.2f} GiB; launches {launches}; last step: " + ", ".join(
+            f"{k} {float(v):.4g}" for k, v in metrics.items()
+            if k in ("loss", "loss_cls", "loss_bbox", "num_fg")))
+    repeat_steps(trainer, state, batch, iters=2, tag=tag)
+    with captured_calls("window_pool_multi", "window_grad",
+                        "window_rmw_grad") as calls:
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+    del trainer, state, batch
+    return {"ms": ms, "first_s": first_s, "peak_gib": peak,
+            "launches": launches, "calls": calls}
+
+
+def grad_call_args(args):
+    """A captured K3/K4 call's arguments without the output dtype."""
+    return args[:-1] if isinstance(args[-1], torch.dtype) else args
+
+
+def bench_beside(run: dict, preset_name: str) -> dict:
+    """Phase 23 (f): the port's bench as a process on one preset at batch
+    1 (`--preset NAME --batch 1 --no-companions`, its other defaults: 20
+    timed batches), between three windows of the in-process detector of
+    `run` (its "window") before and three after. Required: one stdout
+    line with bench.py's keys, and its timed run's launches those of 20 of
+    the in-process batches, kernel by kernel (the same graph). Its img/s
+    is held within 10% of the windows' median when the windows themselves
+    agree within 10%; at batch 1 the host sets the time, and where the
+    windows spread wider than that (on a shared host: 29-70% within one
+    process on an H100 machine) the comparison is reported as unresolved.
+    Returns {"ips", "median", "lo", "hi", "resolved", "launches"}."""
+    b = B1_ARGS.batch
+    gc.collect()
+    before = [run["window"]() for _ in range(3)]
+    record, runs, seconds = run_bench(["--preset", preset_name, "--batch",
+                                       str(b), "--no-companions"])
+    after = [run["window"]() for _ in range(3)]
+    require(list(record) == BENCH_KEYS and record["value"] > 0,
+            f"bench {preset_name} record {record}")
+    require(set(runs) == {preset_name}, f"bench launch lines {runs}")
+    batches = 2 + 3 * run["iters"]   # the first call, the warm one, windows
+    want = {name: run["launches"][name] * 20 // batches for name in KERNELS}
+    got = {name: runs[preset_name].get(name, 0) for name in KERNELS}
+    require(got == want and all(run["launches"][name] % batches == 0
+                                for name in KERNELS),
+            f"bench {preset_name} launches {got}, 20 in-process batches "
+            f"{want}")
+    rates = [b * run["iters"] / w for w in before + after]
+    ips = sorted(rates)
+    lo, hi, median = ips[0], ips[-1], (ips[2] + ips[3]) / 2
+    value = record["value"]
+    resolved = hi <= 1.1 * lo
+    log(f"[configs] (f) bench --preset {preset_name} --batch {b} in "
+        f"{seconds:.1f} s: {json.dumps(record)}; in-process windows before "
+        f"and after it {', '.join(f'{x:.2f}' for x in rates)} "
+        f"img/s, the bench at {value / median:.3f} of their median; "
+        + ("resolved: the windows agree within 10%" if resolved else
+           f"unresolved: the windows spread {100 * (hi / lo - 1):.0f}%, "
+           f"wider than the 10% bound"))
+    if resolved:
+        require(abs(value / median - 1) <= 0.1,
+                f"bench {preset_name} img/s {value} is not within 10% of "
+                f"the in-process {median:.2f}")
+    del run["window"]
+    return {"ips": value, "median": median, "lo": lo, "hi": hi,
+            "resolved": resolved, "launches": got}
+
+
+def configs_path(card: str, bf16_ips: float, int8_ips: float,
+                 train_ms: float):
+    """Phase 23 (`configs`): BASELINE configs 1 and 2 and the dense
+    topology through the entry points at full VGG-16 width. Returns (the
+    launches of its runs, each counted from 0, summed; {kernel: {case:
+    stats}} of the kernels checked at this phase's shapes)."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    kstats = {}
+
+    def add(launches):
+        for name in KERNELS:
+            total[name] += launches.get(name, 0)
+
+    def note(name, case, stats):
+        for old, new in (("float32", "max_abs_err"),
+                         ("bfloat16", "max_abs_err_bf16")):
+            if old in stats:
+                stats[new] = stats.pop(old)
+        kstats.setdefault(name, {})[case] = stats
+
+    k1, k2 = "window_pool_multi", "resident_pool"
+    k1q = "window_pool_multi_quant"
+    # (a) config 1 serving at batch 1, then (f) its bench process
+    c1 = serve_config("configs", "fastrcnn_vgg16_single", B1_ARGS, 20, {k2})
+    add(c1["launches"])
+    (call,) = c1["calls"][k2]
+    require(not c1["calls"][k1], "config 1 eval launched K1")
+    note(k2, "fastrcnn", check_pool_call("configs", "(a) config 1, batch 1",
+                                         k2, *call))
+    del c1["calls"], call
+    bench1 = bench_beside(c1, "fastrcnn_vgg16_single")
+    add(bench1["launches"])
+    torch.cuda.empty_cache()
+
+    # (b) config 1 train step: K1 at L = 1, K3 on c5
+    cfg1 = preset("fastrcnn_vgg16_single")
+    require((cfg1.train.batch_size, cfg1.model.skip_levels,
+             cfg1.model.foveal_scales, cfg1.model.integral_thresholds)
+            == (1, ("c5",), (1.0,), (0.5,)),
+            f"unexpected config 1 {cfg1.model}")
+    t1 = train_config("configs", cfg1, 5, {k1: 1, "window_grad": 1})
+    add(t1["launches"])
+    (call,) = t1["calls"][k1]
+    require(len(call[0][0]) == 1, "config 1's train group is not one level")
+    note(k1, "fastrcnn_train", check_pool_call(
+        "configs", "(b) config 1 train forward, L = 1", k1, *call))
+    (call,) = t1["calls"]["window_grad"]
+    note("window_grad", "fastrcnn_train", check_grad_kernel(
+        "configs", "window_grad", "c5 (config 1)", grad_call_args(call[0])))
+    require(not t1["calls"]["window_rmw_grad"], "config 1 launched K4")
+    del t1["calls"], call
+    torch.cuda.empty_cache()
+
+    # (c) config 2 serving at batch 1, then (f) its bench process
+    c2 = serve_config("configs", "multipath_vgg16_b1", B1_ARGS, 20, {k1, k2})
+    add(c2["launches"])
+    for name, calls in ((k1, c2["calls"][k1]), (k2, c2["calls"][k2])):
+        (call,) = calls
+        note(name, "b1", check_pool_call("configs", "(c) config 2, batch 1",
+                                         name, *call))
+    del c2["calls"], call, calls
+    bench2 = bench_beside(c2, "multipath_vgg16_b1")
+    add(bench2["launches"])
+    torch.cuda.empty_cache()
+
+    # (d) dense serving, bf16 and int8, at bench.py's defaults
+    dense = {}
+    for preset_name, key, expect in (
+            ("multipath_vgg16_batched", "bf16", {k1}),
+            ("multipath_vgg16_int8", "int8", {k1q})):
+        run = serve_config("configs", preset_name, BENCH_ARGS, 10, expect,
+                           foveal_topology="dense")
+        add(run["launches"])
+        require(not run["calls"][k2], f"dense {key} launched K2")
+        (call,) = run["calls"][k1]
+        views = BENCH_ARGS.batch * BENCH_ARGS.proposals * 4
+        require(len(call[0][0]) == 3 and call[0][1][0].numel() == views,
+                f"dense {key}: K1 over {len(call[0][0])} levels and "
+                f"{call[0][1][0].numel()} views")
+        note(k1q if key == "int8" else k1, "dense", check_pool_call(
+            "configs", f"(d) dense {key}", k1, *call))
+        dense[key] = run
+        del run["calls"], run["window"], call
+        torch.cuda.empty_cache()
+
+    # (e) dense train step
+    cfg_d = with_model(preset("multipath_vgg16_train"),
+                       foveal_topology="dense")
+    td = train_config("configs", cfg_d, 5, {k1: 1, "window_grad": 2,
+                                            "window_rmw_grad": 1})
+    add(td["launches"])
+    (call,) = td["calls"][k1]
+    note(k1, "dense_train", check_pool_call(
+        "configs", "(e) dense train forward", k1, *call))
+    # the group's levels are c3, c4, c5: c3 goes to K4, c4 and c5 to K3
+    for level, call in zip(("c4", "c5"), td["calls"]["window_grad"]):
+        note("window_grad", f"dense_train_{level}", check_grad_kernel(
+            "configs", "window_grad", f"{level} (dense)",
+            grad_call_args(call[0])))
+    require(len(td["calls"]["window_grad"]) == 2,
+            "dense training: K3 not on two levels")
+    (call,) = td["calls"]["window_rmw_grad"]
+    note("window_rmw_grad", "dense_train_c3", check_grad_kernel(
+        "configs", "window_rmw_grad", "c3 (dense)", grad_call_args(call[0])))
+    del td["calls"], call
+    torch.cuda.empty_cache()
+
+    log(f"[configs] summary ({card}): config 1 (fastrcnn_vgg16_single, batch "
+        f"1 x 1000, 640^2) {c1['ms']:.2f} ms/image, {c1['ips']:.2f} img/s, "
+        f"first call {c1['first_s']:.2f} s, peak {c1['peak_gib']:.2f} GiB; "
+        f"its train step {t1['ms']:.2f} ms/step, peak {t1['peak_gib']:.2f} "
+        f"GiB; config 2 (multipath_vgg16_b1, batch 1) {c2['ms']:.2f} "
+        f"ms/image, {c2['ips']:.2f} img/s, first call {c2['first_s']:.2f} s, "
+        f"peak {c2['peak_gib']:.2f} GiB; dense serving 8 x 1000: bf16 "
+        f"{dense['bf16']['ips']:.2f} img/s against {bf16_ips:.2f} (phase 4), "
+        f"int8 {dense['int8']['ips']:.2f} against {int8_ips:.2f} (phase 9); "
+        f"dense train {td['ms']:.2f} ms/step against {train_ms:.2f} (phase "
+        f"7), peak {td['peak_gib']:.2f} GiB; bench config 1 "
+        f"{bench1['ips']:.2f} img/s (in-process windows around it "
+        f"{bench1['lo']:.2f}-{bench1['hi']:.2f}, "
+        f"{'resolved' if bench1['resolved'] else 'unresolved'}), config 2 "
+        f"{bench2['ips']:.2f} ({bench2['lo']:.2f}-{bench2['hi']:.2f}, "
+        f"{'resolved' if bench2['resolved'] else 'unresolved'})")
+    log(f"[configs] kernel launches of the phase's runs: {total}; phase 23 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return total, kstats
 
 
 def split_paths():
@@ -3734,6 +4230,9 @@ def main() -> None:
     align_launches = align_routes_path(smi, bf16_ips, int8_ips, resident_ms)
     torch.cuda.empty_cache()
     bench_launches = bench_path(smi, bf16_ips, int8_ips, svd_ips)
+    torch.cuda.empty_cache()
+    configs_launches, config_stats = configs_path(smi, bf16_ips, int8_ips,
+                                                  resident_ms)
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -3761,10 +4260,18 @@ def main() -> None:
              "parallel": parallel_launches,
              "tools": tools_launches,
              "align_routes": align_launches,
-             "bench": bench_launches}
+             "bench": bench_launches,
+             "configs": configs_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}
+    # phase 23's checks at its configurations' shapes, by case
+    for name, cases in config_stats.items():
+        for case, st in cases.items():
+            extra.setdefault(name, {}).update({
+                f"configs_{case}_{key}": (round(v, 4)
+                                          if isinstance(v, float) else v)
+                for key, v in st.items()})
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,

@@ -97,10 +97,11 @@ def count_params(model) -> int:
     return sum(t.numel() for t in model.state_dict().values())
 
 
-def build_preset(preset_name: str, args, device):
+def build_preset(preset_name: str, args, device, **model):
     """bench.py's serving flow on `device`, for the preset at
     args.canvas^2, args.proposals an image and args.backbone's trunk if
-    given: the preset's float model in its own layout (factor layers
+    given, with the model fields `model` overrides (foveal_topology="dense"
+    for one): the preset's float model in its own layout (factor layers
     included) in float32, drawn by draw_normal_ from seed 0, then
     `Detector`'s load-time transform into the preset's model (int8
     quantization where head_quant="int8"). -> (Detector, parameter count
@@ -111,6 +112,8 @@ def build_preset(preset_name: str, args, device):
 
     cfg = eval_config(preset_name, args.backbone, args.proposals,
                       args.canvas)
+    if model:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model))
     m = cfg.model
     float_model = build_model(dataclasses.replace(m, head_quant="none"),
                               param_dtype=torch.float32, device=device)

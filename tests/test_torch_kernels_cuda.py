@@ -1088,3 +1088,168 @@ def test_window_read_probe_checks_its_inputs(cuda):
     out = probe.window_read_probe(flat, bad, x0)
     torch.cuda.synchronize()
     assert torch.isnan(out[3]).all() and torch.isfinite(out[2]).all()
+
+
+# ------------------------- BASELINE configs 1, 2 and the dense topology ---
+
+FOVEAL = (1.0, 1.5, 2.0, 4.0)
+
+
+def _foveal_views(rois, factors, canvas):
+    """(B, R, 4) ROIs -> each one's views, image-major and view by view
+    within an image (as MultiPathNet.pool_rois stacks them), clipped to
+    the canvas, and each view's image."""
+    from multipathnet_tpu_torch.ops.boxes import expand
+
+    b, r = rois.shape[:2]
+    views = torch.stack([expand(rois, f, canvas, canvas) for f in factors],
+                        dim=1).reshape(-1, 4)
+    img = torch.arange(b, dtype=torch.int32,
+                       device=rois.device).repeat_interleave(len(factors) * r)
+    return views, img
+
+
+def _k1_args(pyrs, views, img):
+    args = [[], [], [], [], []]
+    for flat, meta in pyrs:
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+        row0 = (row0 + img * meta.flat.shape[0]).contiguous()
+        for dst, v in zip(args, (flat, row0, x0, wy, wx)):
+            dst.append(v)
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_resident_pool_at_batch_one(cuda, dtype):
+    """K2 as config 1 (`fastrcnn_vgg16_single`) serves: one image's 1000
+    1x views over its c5 pyramid at 640^2, C = 512; and config 2's 3000
+    context views of one image. Against the plain version."""
+    (flat, meta), = _levels(cuda, dtype, 1, 640, 512, 1, seed=51)
+    rng = np.random.default_rng(51)
+    rois = torch.from_numpy(_rois(rng, 1000, 640)).to(cuda)[None]
+    rows, wmax = meta.flat.shape[:2]
+    for factors in (FOVEAL[:1], FOVEAL[1:]):
+        views, _ = _foveal_views(rois, factors, 640)
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+        v = views.shape[0]
+        args = (flat.reshape(1, rows, wmax, 512), row0.reshape(1, v),
+                x0.reshape(1, v), wy.reshape(1, v, 7, 10),
+                wx.reshape(1, v, 7, 16))
+        n = roi_pool.resident_pool.launches
+        got = roi_pool.resident_pool(*args)
+        torch.cuda.synchronize()
+        assert roi_pool.resident_pool.launches == n + 1
+        want = roi_pool.resident_pool_ref(*args)
+        assert got.shape == (1, v, 7, 7, 512)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def _dense_case(dev, dtype, b=2, r=150, canvas=640, c=256, seed=52):
+    """The dense topology's one K1 group: every ROI's four foveal views
+    (1x, 1.5x, 2x, 4x, the wide ones clipped at the border) over
+    c3 + c4 + c5, so c3 and c4 take context views too."""
+    pyrs = _levels(dev, dtype, b, canvas, c, 3, seed=seed)
+    rng = np.random.default_rng(seed)
+    rois = torch.from_numpy(_rois(rng, b * r, canvas)).to(dev).reshape(
+        b, r, 4)
+    views, img = _foveal_views(rois, FOVEAL, canvas)
+    return pyrs, rois, views, img
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_window_pool_multi_at_dense_geometry(cuda, dtype):
+    """K1 over 4 views x 3 levels (the dense topology), context views on
+    c3 and c4 at every pyramid scale their sizes reach: against the plain
+    version, and with the int8 epilogue bit for bit against the plain
+    epilogue on the kernel's own pooled output (codes within 1 and scales
+    to the pooled tolerance of the fully plain version)."""
+    pyrs, _, views, img = _dense_case(cuda, dtype)
+    args = _k1_args(pyrs, views, img)
+    c3_meta = pyrs[0][1]
+    c3_rows = c3_meta.flat.shape[0]
+    scales = torch.searchsorted(c3_meta.row_offsets.long(),
+                                (args[1][0] % c3_rows).long(),
+                                right=True) - 1
+    assert int(scales.max()) >= 3   # the 4x views reach coarse c3 scales
+    n = roi_pool.window_pool_multi.launches
+    got = roi_pool.window_pool_multi(*args)
+    torch.cuda.synchronize()
+    assert roi_pool.window_pool_multi.launches == n + 1
+    want = roi_pool.window_pool_multi_ref(*args)
+    assert got.shape == (views.shape[0], 7, 7, 256)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    bias = (torch.randn(256, generator=gen, device=cuda) * 0.5).to(dtype)
+    n = roi_pool.window_pool_multi.quant_launches
+    q, s = roi_pool.window_pool_multi(*args, quant_bias=bias)
+    torch.cuda.synchronize()
+    assert roi_pool.window_pool_multi.quant_launches == n + 1
+    own_q, own_s = roi_pool.quant_view_ref(got, bias)
+    assert torch.equal(q, own_q) and torch.equal(s, own_s)
+    plain_q, plain_s = roi_pool.window_pool_multi_ref(*args, quant_bias=bias)
+    assert (q.int() - plain_q.int()).abs().max() <= 1
+    torch.testing.assert_close(
+        s, plain_s, rtol=1e-5 if dtype == torch.float32 else 1e-2, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grad_kernels_at_dense_train_geometry(cuda, dtype):
+    """The dense topology's backward: each level's gradient of all four
+    views of every sampled ROI (2 images x 64 ROIs), K3 on c5 and c4
+    (image-relative rows), K4 on c3 (absolute rows), as the card routes
+    them. Against the plain versions, and bit-equal over two calls."""
+    pyrs, _, views, img = _dense_case(cuda, torch.float32, r=64, c=128,
+                                      seed=54)
+    gen = torch.Generator(device=cuda).manual_seed(55)
+    gout = torch.randn((views.shape[0], 7, 7, 128), generator=gen,
+                       device=cuda)
+    for level, (flat, meta) in zip(("c3", "c4", "c5"), pyrs):
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+        rows, wmax = meta.flat.shape[:2]
+        if level == "c3":
+            absolute = (row0 + img * rows).contiguous()
+            args = (gout, absolute, x0, wy, wx, tuple(flat.shape))
+            runs = [roi_pool.window_rmw_grad(*args, dtype) for _ in range(2)]
+            want = roi_pool.window_rmw_grad_ref(*args, torch.float32)
+        else:
+            args = (gout, row0, x0, wy, wx, 2, rows, wmax)
+            runs = [roi_pool.window_grad(*args, dtype) for _ in range(2)]
+            want = roi_pool.window_grad_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(*runs), level
+        _assert_grad_close(runs[0], want)
+
+
+def test_trainable_k1_at_one_level_with_backward(cuda):
+    """Config 1's training pool: K1 at L = 1 through WindowPoolMulti, one
+    image's 64 1x views over c5 at 640^2, and its backward through K3
+    (the level fits _GRAD_VMEM_BUDGET), against autograd through the
+    plain forward; the forward against the plain version."""
+    (flat, meta), = _levels(cuda, torch.float32, 1, 640, 512, 1, seed=56)
+    flat = flat.detach().requires_grad_()
+    rois = torch.from_numpy(_rois(np.random.default_rng(56), 64, 640)).to(
+        cuda)
+    img = torch.zeros(64, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(57)
+    gout = torch.randn((64, 7, 7, 512), generator=gen, device=cuda)
+    launches = (roi_pool.window_pool_multi.launches,
+                roi_pool.window_grad.launches,
+                roi_pool.window_rmw_grad.launches)
+    out = roi_pool.batched_pyramid_pool_multi([flat], [meta], rois, img,
+                                              trainable=True)
+    (got,) = torch.autograd.grad((out * gout).sum(), [flat])
+    torch.cuda.synchronize()
+    assert (roi_pool.window_pool_multi.launches,
+            roi_pool.window_grad.launches,
+            roi_pool.window_rmw_grad.launches) == (
+                launches[0] + 1, launches[1] + 1, launches[2])
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
+    plain = roi_pool.window_pool_multi_ref([flat], [row0], [x0], [wy], [wx])
+    torch.testing.assert_close(out.detach(), plain.detach(),
+                               **_tol(torch.float32))
+    (want,) = torch.autograd.grad((plain * gout).sum(), [flat])
+    _assert_grad_close(got, want)
