@@ -10,7 +10,8 @@ Phases, each of which raises on failure (nothing is caught):
   2. build: compiles csrc/ with nvcc (ops/_build.py) and prints the time,
      ptxas's report and each pool, gradient and P instance's registers,
      local memory (spills) and static/dynamic shared memory
-     (cudaFuncGetAttributes).
+     (cudaFuncGetAttributes): the float32 pool body and the gradient body
+     have one instance per G (1..7 bins a side), the bf16 body one.
   3. kernels: K1 (window_pool_multi) and K2 (resident_pool) against their
      plain PyTorch versions on random 640^2 c3/c4/c5 maps in float32
      (atol 1e-4) and bfloat16 (rtol 1e-2, atol 1e-2: one bf16 rounding of a
@@ -282,14 +283,29 @@ Phases, each of which raises on failure (nothing is caught):
      batches, kernel by kernel; img/s within 10% of the windows' median
      where those agree within 10%, else reported as unresolved
      (bench_beside says why). The phase's seconds.
+ 24. roi_output_size below 7 (`output_size`), G = 6, the 6 x 6 pool of
+     the AlexNet-family heads, at full VGG-16 width (the kernels take any
+     G in 1..7; phase 2 prints every G's instances): (b) Detector on
+     `multipath_vgg16_batched` and `multipath_vgg16_int8` with
+     roi_output_size=6 at 8 x 1000, 640^2 (as phase 23 (a), windows of 10;
+     fc6 reads 512 x 36), img/s beside phases 4 and 9; (a) every kernel
+     call of those runs held to its plain version and timed against it
+     (K1/K2 and their int8 instances), K5 on the 8000 1x views over c3;
+     (c) `multipath_vgg16_train` at G = 6 (5 timed steps beside phase 7,
+     two from one state equal under cudnn.deterministic), its two K1
+     groups, three K3 and one K4 calls held to their plain versions (each
+     output bit-equal over two calls) and timed; (d) one AlexNet Detector
+     batch at G = 6 (K1 and K2 launched, finite detections). The phase's
+     seconds.
 The line before the last is a JSON object with each kernel's launches (the
 runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
-22 and 23, each counted from 0, and their sum; phase 23's checks at its
-shapes as `configs_<case>_*`),
+22, 23 and 24, each counted from 0, and their sum; phase 23's checks at its
+shapes as `configs_<case>_*`, phase 24's at G = 6 as
+`output_size_<case>_*`),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
-bf16 body's W2 GEMM, 2 x 49 x 160 per view, level and channel, over the
+bf16 body's W2 GEMM, 2 x G^2 x 160 per view, level and channel, over the
 989 TF/s of the bf16 tensor cores); for P the
 distinct cells under its windows and its output over 3.35 TB/s, with the
 int8 numbers and the share of the bound beside the bf16 ones. The last line is {"ok": true, "device": {...}}.
@@ -388,6 +404,8 @@ def read_launches() -> dict:
 
 LEVELS = (("c3", 4), ("c4", 8), ("c5", 16))
 CONTEXT = (1.5, 2.0, 4.0)
+# the bins a side that the pool kernels take (roi_pool.G_MAX)
+BINS = tuple(range(1, roi_pool.G_MAX + 1))
 
 
 def log(msg: str) -> None:
@@ -435,14 +453,27 @@ def alternate_ms(plain, kernel, iters_plain: int, iters_kernel: int):
 HBM_BYTES_PER_MS = 3.35e9     # H100 SXM, 3.35 TB/s
 F32_OPS_PER_MS = 67e9         # H100 SXM float32 on the CUDA cores, 67 TF/s
 BF16_OPS_PER_MS = 989e9       # H100 SXM bf16 dense tensor cores, 989 TF/s
-# per view and level: row0, x0 (int32), wy (7 x 10), wx (7 x 16) float32
-GEOMETRY_BYTES = 4 + 4 + 4 * 7 * 10 + 4 * 7 * 16
-POOL_OPS = 2 * 1610           # per view, level and channel: the separable
-#                               contraction's FMAs (csrc/roi_window_pool.cu)
-W2_OPS = 2 * 49 * 160         # the same for the bf16 body's W2 GEMM
-#                               (csrc/roi_window_pool_wgmma.cu)
 EPILOGUE_OPS = 5              # per output element: bias add, ReLU, max,
 #                               divide, round
+
+
+def geometry_bytes(g: int) -> int:
+    """Per view and level at G bins a side: row0, x0 (int32), wy (G x 10)
+    and wx (G x 16) float32."""
+    return 4 + 4 + 4 * g * 10 + 4 * g * 16
+
+
+def pool_ops(g: int) -> int:
+    """Per view, level and channel: the separable contraction's FMAs over
+    the 10 x 16 window, 10 x (16 G + G^2), two operations each
+    (csrc/roi_window_pool.cu; 1610 FMAs at G = 7)."""
+    return 2 * 10 * (16 * g + g * g)
+
+
+def w2_ops(g: int) -> int:
+    """The same for the bf16 body's W2 GEMM, (G^2, 160) . (160, C)
+    (csrc/roi_window_pool_wgmma.cu)."""
+    return 2 * g * g * 160
 
 
 def bound(n_bytes, n_ops, n_bf16_ops=0):
@@ -455,15 +486,15 @@ def bound(n_bytes, n_ops, n_bf16_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pool_bound(flats, row0s, x0s, quant: bool):
-    """bound() of one K1 or K2 call on these inputs: each pyramid cell
-    under a window read once, the geometry read once, the (N, 7, 7, C)
-    output written once (int8 codes, one float32 scale per view and the
-    bias read with the epilogue); per view, level and channel POOL_OPS
-    float32 operations (the float32 body) or W2_OPS bf16 tensor-core ones
-    (the bf16 body), plus EPILOGUE_OPS float32 operations per output
-    element with the epilogue. K2's per-image pyramids (B, rows, Wmax, C)
-    take image-relative rows."""
+def pool_bound(flats, row0s, x0s, quant: bool, g: int = 7):
+    """bound() of one K1 or K2 call on these inputs at G bins a side (g):
+    each pyramid cell under a window read once, the geometry read once, the
+    (N, G, G, C) output written once (int8 codes, one float32 scale per
+    view and the bias read with the epilogue); per view, level and channel
+    pool_ops(G) float32 operations (the float32 body) or w2_ops(G) bf16
+    tensor-core ones (the bf16 body), plus EPILOGUE_OPS float32 operations
+    per output element with the epilogue. K2's per-image pyramids (B, rows,
+    Wmax, C) take image-relative rows."""
     c, size = flats[0].shape[-1], flats[0].element_size()
     n = row0s[0].numel()
     cells = 0
@@ -474,13 +505,14 @@ def pool_bound(flats, row0s, x0s, quant: bool):
         wmax = flat.shape[-2]
         cells += probe.window_cells(row0.reshape(-1), x0.reshape(-1),
                                     flat.numel() // (wmax * c), wmax)
-    out = n * 49 * c + n * 4 + c * size if quant else n * 49 * c * size
+    bins = g * g
+    out = n * bins * c + n * 4 + c * size if quant else n * bins * c * size
     views = n * len(flats) * c
     bf16 = flats[0].dtype == torch.bfloat16
-    return bound(cells * c * size + n * len(flats) * GEOMETRY_BYTES + out,
-                 (0 if bf16 else views * POOL_OPS)
-                 + (n * 49 * c * EPILOGUE_OPS if quant else 0),
-                 views * W2_OPS if bf16 else 0)
+    return bound(cells * c * size + n * len(flats) * geometry_bytes(g) + out,
+                 (0 if bf16 else views * pool_ops(g))
+                 + (n * bins * c * EPILOGUE_OPS if quant else 0),
+                 views * w2_ops(g) if bf16 else 0)
 
 
 def window_read_gb_s(flats, row0s, ms: float) -> float:
@@ -494,48 +526,51 @@ def window_read_gb_s(flats, row0s, ms: float) -> float:
 def grad_bound(gout, out_numel: int, out_size: int):
     """bound() of one K3 or K4 call: the float32 cotangent and the geometry
     read once, the whole gradient buffer written once in the dtype the
-    path writes (out_size bytes a value); POOL_OPS per view and channel
-    (the transposed contraction)."""
-    n, c = gout.shape[0], gout.shape[-1]
-    return bound(gout.numel() * 4 + n * GEOMETRY_BYTES + out_numel * out_size,
-                 n * c * POOL_OPS)
+    path writes (out_size bytes a value); pool_ops(G) per view and channel
+    (the transposed contraction), G from the cotangent (N, G, G, C)."""
+    n, g, c = gout.shape[0], gout.shape[1], gout.shape[-1]
+    return bound(gout.numel() * 4 + n * geometry_bytes(g)
+                 + out_numel * out_size, n * c * pool_ops(g))
 
 
 def log_pool_instances() -> None:
     """Phase 2: each pool, gradient and P instance's registers, local
     memory (spills) and shared memory, from cudaFuncGetAttributes
-    (mpn_pool_kernel_attrs, mpn_grad_kernel_attrs, mpn_probe_kernel_attrs)."""
+    (mpn_pool_kernel_attrs, mpn_grad_kernel_attrs, mpn_probe_kernel_attrs):
+    the gradient body and the float32 pool body have one instance per G
+    (1..7 bins a side), the bf16 pool body one for every G."""
     attrs = (ctypes.c_int * 5)()
-    for out_bf16 in (0, 1):
-        rc = _build.kernels().mpn_grad_kernel_attrs(out_bf16,
-                                                    ctypes.addressof(attrs))
-        require(rc == 0, f"mpn_grad_kernel_attrs: cudaError {rc}")
+
+    def read(rc, what):
+        require(rc == 0, f"{what}: cudaError {rc}")
         regs, local, static, dynamic, threads = attrs
-        log(f"[build] K3/K4 gradient body, {'bf16' if out_bf16 else 'float32'}"
-            f" output: {regs} registers, {local} B local memory (spills), "
-            f"{static} B static + {dynamic} B dynamic shared memory, at most "
-            f"{threads} threads per block")
+        return (f"{regs} registers, {local} B local memory (spills), "
+                f"{static} B static + {dynamic} B dynamic shared memory, at "
+                f"most {threads} threads per block")
+
+    for g in BINS:
+        for out_bf16 in (0, 1):
+            rc = _build.kernels().mpn_grad_kernel_attrs(
+                out_bf16, g, ctypes.addressof(attrs))
+            log(f"[build] K3/K4 gradient body, G = {g}, "
+                f"{'bf16' if out_bf16 else 'float32'} output: "
+                + read(rc, "mpn_grad_kernel_attrs"))
     for is_int8 in (0, 1):
         rc = _build.kernels().mpn_probe_kernel_attrs(is_int8,
                                                      ctypes.addressof(attrs))
-        require(rc == 0, f"mpn_probe_kernel_attrs: cudaError {rc}")
-        regs, local, static, dynamic, threads = attrs
-        log(f"[build] P body, {'int8' if is_int8 else 'bf16'} windows: {regs}"
-            f" registers, {local} B local memory (spills), {static} B static "
-            f"+ {dynamic} B dynamic shared memory, at most {threads} threads "
-            f"per block")
-    for is_bf16, body in ((1, "bf16 tensor-core"), (0, "float32 CUDA-core")):
-        for levels in (1, 2, 3):
-            for quant in (0, 1):
-                rc = _build.kernels().mpn_pool_kernel_attrs(
-                    is_bf16, levels, quant, ctypes.addressof(attrs))
-                require(rc == 0, f"mpn_pool_kernel_attrs: cudaError {rc}")
-                regs, local, static, dynamic, threads = attrs
-                log(f"[build] pool {body} body, L = {levels}"
-                    f"{', int8 epilogue' if quant else ''}: {regs} registers,"
-                    f" {local} B local memory (spills), {static} B static + "
-                    f"{dynamic} B dynamic shared memory, at most {threads} "
-                    f"threads per block")
+        log(f"[build] P body, {'int8' if is_int8 else 'bf16'} windows: "
+            + read(rc, "mpn_probe_kernel_attrs"))
+    for is_bf16, body, bins in ((1, "bf16 tensor-core", (7,)),
+                                (0, "float32 CUDA-core", BINS)):
+        for g in bins:
+            for levels in (1, 2, 3):
+                for quant in (0, 1):
+                    rc = _build.kernels().mpn_pool_kernel_attrs(
+                        is_bf16, g, levels, quant, ctypes.addressof(attrs))
+                    log(f"[build] pool {body} body"
+                        f"{'' if is_bf16 else f', G = {g}'}, L = {levels}"
+                        f"{', int8 epilogue' if quant else ''}: "
+                        + read(rc, "mpn_pool_kernel_attrs"))
 
 
 # ------------------------------------------------------------- phase 3 ---
@@ -560,14 +595,15 @@ def border_and_scale_rois(n_per_image, batch, canvas, rng):
     return torch.tensor(np.stack(out), dtype=torch.float32, device="cuda")
 
 
-def k1_args(pyr, names, views, img_idx, dtype=None):
+def k1_args(pyr, names, views, img_idx, dtype=None, g=7):
     """window_pool_multi's arguments for `views` (image-major, img_idx their
-    images) over the pyramids `names`, as batched_pyramid_pool_multi builds
-    them; the flats cast to `dtype` if given."""
+    images) over the pyramids `names` at G = g bins, as
+    batched_pyramid_pool_multi builds them; the flats cast to `dtype` if
+    given."""
     args = [[], [], [], [], []]
     for name in names:
         flat, meta = pyr[name]
-        row0, x0, wy, wx = roi_pool.view_geometry(meta, views)
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views, output_size=g)
         row0 = (row0 + img_idx * meta.flat.shape[0]).contiguous()
         flat = flat if dtype is None else flat.to(dtype)
         for dst, v in zip(args, (flat, row0, x0, wy, wx)):
@@ -1429,28 +1465,31 @@ def serving_path(preset_name: str, tag: str):
 # by about 1e-4.
 GRAD_ATOL = 1e-4
 
-def check_and_time_window_pool(pyr, views, img_idx):
+def check_and_time_window_pool(pyr, views, img_idx, g=7, tag="pool_api"):
     """K5 against its plain version on `views` (rows absolute) over the
-    stacked c3 pyramid, float32 (atol 1e-4) and bfloat16 (rtol/atol 1e-2),
-    then timed against it in bf16. Returns {"float32": err, "bfloat16":
-    err, "ms": t, "plain_ms": t, "bound_ms": t, "bound_by": ...}."""
+    stacked c3 pyramid at G = g bins, float32 (atol 1e-4) and bfloat16
+    (rtol/atol 1e-2), then timed against it in bf16. Returns {"float32":
+    err, "bfloat16": err, "ms": t, "plain_ms": t, "bound_ms": t,
+    "bound_by": ...}."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         (flat,), (row0,), (x0,), (wy,), (wx,) = k1_args(pyr, ("c3",), views,
-                                                        img_idx, dtype)
+                                                        img_idx, dtype, g)
         args = (flat, row0, x0, wy, wx)
         got = roi_pool.window_pool(*args)
         torch.cuda.synchronize()
+        require(got.shape == (row0.numel(), g, g, flat.shape[-1]),
+                f"window_pool output {tuple(got.shape)} at G = {g}")
         err, tol = compare("window_pool", dtype, got,
                            roi_pool.window_pool_ref(*args))
         out[str(dtype)[6:]] = err
-        log(f"[pool_api] window_pool {str(dtype)[6:]}, {row0.numel()} views "
-            f"over c3, max abs err {err:.3e} ({tol}) ok")
+        log(f"[{tag}] window_pool {str(dtype)[6:]}, G = {g}, {row0.numel()} "
+            f"views over c3, max abs err {err:.3e} ({tol}) ok")
         del got
     ms, plain_ms = alternate_ms(lambda: roi_pool.window_pool_ref(*args),
                                 lambda: roi_pool.window_pool(*args), 2, 10)
-    b_ms, b_by = pool_bound([flat], [row0], [x0], quant=False)
-    log(f"[pool_api] window_pool bf16 kernel {ms:.3f} ms "
+    b_ms, b_by = pool_bound([flat], [row0], [x0], quant=False, g=g)
+    log(f"[{tag}] window_pool bf16, G = {g}: kernel {ms:.3f} ms "
         f"({window_read_gb_s([flat], [row0], ms):.0f} GB/s of window reads), "
         f"plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
@@ -3791,9 +3830,12 @@ def check_pool_call(tag: str, case: str, name: str, args, kwargs) -> dict:
     flats = args[0] if name == "window_pool_multi" else [args[0]]
     row0s = args[1] if name == "window_pool_multi" else [args[1]]
     x0s = args[2] if name == "window_pool_multi" else [args[2]]
+    wy0 = args[3][0] if name == "window_pool_multi" else args[3]
+    g = wy0.shape[-2]     # the call's bins a side
     dtype = flats[0].dtype
     n = row0s[0].numel()
-    shape = f"{n} views x {len(flats)} level{'s' * (len(flats) > 1)}"
+    shape = (f"{n} views x {len(flats)} level{'s' * (len(flats) > 1)}"
+             f"{'' if g == 7 else f', G = {g}'}")
     out = {}
     if qb is None:
         for dt in (torch.float32, dtype):
@@ -3815,9 +3857,9 @@ def check_pool_call(tag: str, case: str, name: str, args, kwargs) -> dict:
         c = flats[0].shape[-1]
         q, s = kern(*args, quant_bias=qb)
         own_q, own_s = roi_pool.quant_view_ref(
-            kern(*args).reshape(n, 7, 7, c), qb)
+            kern(*args).reshape(n, g, g, c), qb)
         torch.cuda.synchronize()
-        require(torch.equal(q.reshape(n, 7, 7, c), own_q)
+        require(torch.equal(q.reshape(n, g, g, c), own_q)
                 and torch.equal(s.reshape(n), own_s),
                 f"{name} ({case}): not bit-equal to the plain epilogue on "
                 f"its own pooled output")
@@ -3838,7 +3880,7 @@ def check_pool_call(tag: str, case: str, name: str, args, kwargs) -> dict:
         del q, s, own_q, own_s, plain_q, plain_s
     ms, plain_ms = alternate_ms(lambda: plain_pool(name, args, qb),
                                 lambda: kern(*args, quant_bias=qb), 2, 10)
-    b_ms, b_by = pool_bound(flats, row0s, x0s, quant=qb is not None)
+    b_ms, b_by = pool_bound(flats, row0s, x0s, quant=qb is not None, g=g)
     log(f"[{tag}] {case}: {name}{' (int8 epilogue)' if qb is not None else ''}"
         f" {str(dtype)[6:]}: kernel {ms:.3f} ms "
         f"({window_read_gb_s(flats, row0s, ms):.0f} GB/s of window reads), "
@@ -4147,6 +4189,133 @@ def configs_path(card: str, bf16_ips: float, int8_ips: float,
     return total, kstats
 
 
+# ------------------------------------------------------------ phase 24 ---
+
+# roi_output_size below 7: the 6 x 6 pool of the AlexNet-family heads
+G6 = 6
+
+
+def output_size_path(card: str, bf16_ips: float, int8_ips: float,
+                     train_ms: float, gen):
+    """Phase 24 (`output_size`): roi_output_size = 6 through the entry
+    points at full VGG-16 width, (a) every kernel's calls of those runs at
+    G = 6 held to their plain versions and timed against them, at the
+    main path's shapes (8 x 1000 proposals, 640^2, C = 512: K1/K2 from
+    (b)'s bf16 batch, their int8 instances from its int8 batch, K5 on the
+    8000 1x views over c3) and at the train geometry (K1's two groups,
+    K3, K4 from (c)'s step); (b) bf16 and int8 Detector at G = 6, img/s
+    beside phases 4 and 9; (c) a multipath_vgg16_train step at G = 6
+    beside phase 7, two steps from one state equal under
+    cudnn.deterministic; (d) one AlexNet Detector batch at G = 6. Returns
+    (the launches of its runs, each counted from 0, summed; {kernel:
+    {case: stats}} of the kernels checked at G = 6)."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    kstats = {}
+
+    def add(launches):
+        for name in KERNELS:
+            total[name] += launches.get(name, 0)
+
+    def note(name, case, stats):
+        for old, new in (("float32", "max_abs_err"),
+                         ("bfloat16", "max_abs_err_bf16")):
+            if old in stats:
+                stats[new] = stats.pop(old)
+        kstats.setdefault(name, {})[case] = stats
+
+    def bins_of(name, call):
+        wy = call[0][3][0] if name == "window_pool_multi" else call[0][3]
+        return wy.shape[-2]
+
+    k1, k2 = "window_pool_multi", "resident_pool"
+    k1q, k2q = "window_pool_multi_quant", "resident_pool_quant"
+    # (b) serving, and (a) its kernel calls at the main path's shapes
+    served = {}
+    for preset_name, key, expect in (
+            ("multipath_vgg16_batched", "bf16", {k1, k2}),
+            ("multipath_vgg16_int8", "int8", {k1q, k2q})):
+        run = serve_config("output_size", preset_name, BENCH_ARGS, 10,
+                           expect, roi_output_size=G6)
+        add(run["launches"])
+        for name in (k1, k2):
+            (call,) = run["calls"][name]
+            require(bins_of(name, call) == G6, f"{key} {name} at G = "
+                    f"{bins_of(name, call)}")
+            stat = name + ("_quant" if key == "int8" else "")
+            note(stat, "g6", check_pool_call(
+                "output_size", f"(a) {key} serving", name, *call))
+        served[key] = run
+        del run["calls"], run["window"], call
+        torch.cuda.empty_cache()
+
+    # (a) K5 at the main path's 8000 1x views over an 8-image c3 pyramid
+    _, _, boxes, _ = make_inputs(8, 1000, 640)
+    views = torch.from_numpy(boxes).cuda().reshape(-1, 4)
+    img_idx = torch.arange(8, dtype=torch.int32,
+                           device="cuda").repeat_interleave(1000)
+    c3 = torch.randn((8, 160, 160, 512), generator=gen, device="cuda")
+    pyr = {"c3": roi_pyramid.build_pyramid_batch(c3, 0.25, output_size=G6)}
+    note("window_pool", "g6", check_and_time_window_pool(
+        pyr, views, img_idx, g=G6, tag="output_size"))
+    del c3, pyr, views
+    torch.cuda.empty_cache()
+
+    # (c) a train step at G = 6, and (a) its kernel calls
+    cfg_t = with_model(preset("multipath_vgg16_train"), roi_output_size=G6)
+    tr = train_config("output_size", cfg_t, 5, {k1: 2, "window_grad": 3,
+                                                 "window_rmw_grad": 1})
+    add(tr["launches"])
+    require(len(tr["calls"][k1]) == 2, "training: not two K1 groups")
+    for i, call in enumerate(tr["calls"][k1]):
+        require(bins_of(k1, call) == G6, "train K1 not at G = 6")
+        note(k1, f"g6_train{i}", check_pool_call(
+            "output_size", f"(a) train forward, group {i}", k1, *call))
+    require(len(tr["calls"]["window_grad"]) == 3,
+            "training: K3 not on c5 (both groups) and c4")
+    for i, call in enumerate(tr["calls"]["window_grad"]):
+        args = grad_call_args(call[0])
+        require(args[0].shape[1] == G6, "train K3 not at G = 6")
+        note("window_grad", f"g6_train{i}", check_grad_kernel(
+            "output_size", "window_grad",
+            f"{args[0].shape[0]} views, {args[6]} rows an image", args))
+    (call,) = tr["calls"]["window_rmw_grad"]
+    note("window_rmw_grad", "g6_train", check_grad_kernel(
+        "output_size", "window_rmw_grad", "c3", grad_call_args(call[0])))
+    del tr["calls"], call
+    torch.cuda.empty_cache()
+
+    # (d) AlexNet through Detector at G = 6
+    reset_launches()
+    cfg_a = with_model(preset("multipath_vgg16_batched"), backbone="alexnet",
+                       roi_output_size=G6)
+    model = build_model(cfg_a.model, device="cuda")
+    seeded_normal_(model, 0)
+    require(model.head.fc6_f0.weight.shape[-1] == G6 * G6 * 512,
+            f"AlexNet head fc6 {tuple(model.head.fc6_f0.weight.shape)}")
+    out = Detector(model, cfg_a, "cuda")(*make_inputs(8, 1000, 640))
+    torch.cuda.synchronize()
+    check_detections("output_size", out)
+    n_alex = int(out["valid"].sum())
+    alex = read_launches()
+    require_only("output_size", alex, {k1, k2})
+    add(alex)
+    del model, out
+    torch.cuda.empty_cache()
+
+    log(f"[output_size] summary ({card}), roi_output_size = {G6}: bf16 "
+        f"serving {served['bf16']['ips']:.2f} img/s against {bf16_ips:.2f} "
+        f"at G = 7 (phase 4), int8 {served['int8']['ips']:.2f} against "
+        f"{int8_ips:.2f} (phase 9), peak {served['bf16']['peak_gib']:.2f} / "
+        f"{served['int8']['peak_gib']:.2f} GiB; train {tr['ms']:.2f} ms/step "
+        f"against {train_ms:.2f} (phase 7), peak {tr['peak_gib']:.2f} GiB; "
+        f"AlexNet one batch of 8 x 1000, {n_alex} detections, launches "
+        f"{alex}")
+    log(f"[output_size] kernel launches of the phase's runs: {total}; phase "
+        f"24 took {time.perf_counter() - t_phase:.1f} s")
+    return total, kstats
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -4233,6 +4402,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     configs_launches, config_stats = configs_path(smi, bf16_ips, int8_ips,
                                                   resident_ms)
+    torch.cuda.empty_cache()
+    output_size_launches, output_size_stats = output_size_path(
+        smi, bf16_ips, int8_ips, resident_ms, gen)
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -4261,17 +4433,21 @@ def main() -> None:
              "tools": tools_launches,
              "align_routes": align_launches,
              "bench": bench_launches,
-             "configs": configs_launches}
+             "configs": configs_launches,
+             "output_size": output_size_launches}
     extra = {"window_pool_multi": {
         "train_max_abs_err": k1_train["float32"],
         "train_max_abs_err_bf16": k1_train["bfloat16"]}}
-    # phase 23's checks at its configurations' shapes, by case
-    for name, cases in config_stats.items():
-        for case, st in cases.items():
-            extra.setdefault(name, {}).update({
-                f"configs_{case}_{key}": (round(v, 4)
-                                          if isinstance(v, float) else v)
-                for key, v in st.items()})
+    # phase 23's checks at its configurations' shapes and phase 24's at
+    # G = 6, by case
+    for path, path_stats in (("configs", config_stats),
+                             ("output_size", output_size_stats)):
+        for name, cases in path_stats.items():
+            for case, st in cases.items():
+                extra.setdefault(name, {}).update({
+                    f"{path}_{case}_{key}": (round(v, 4)
+                                             if isinstance(v, float) else v)
+                    for key, v in st.items()})
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,

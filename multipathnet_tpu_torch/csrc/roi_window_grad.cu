@@ -14,9 +14,12 @@
 //
 // What it computes. The forward pools, per view, out = wy . win . wx^T over
 // a WIN_Y x WIN_X (10 x 16) window at (row0, x0). Its transpose sends the
-// cotangent g (G x G x C, G = 7) back to the window,
+// cotangent g (G x G x C, G bins a side, 1..7) back to the window,
 //     gwin[y][x][c] = sum_j (sum_i wy[i][y] * g[i][j][c]) * wx[j][x],
-// summed over the views into the gradient at each view's window.
+// summed over the views into the gradient at each view's window. Every G
+// has the same 10 x 16 window (ops/roi_pool.py); G is a template parameter,
+// one instance per G and output dtype, so the per-view sums keep their
+// terms in registers and in the same order at every G.
 //
 // Design: gather, not scatter. The TPU kernels walk the views in grid order
 // and read-modify-write the buffer window by window; blocks on a GPU run in
@@ -38,7 +41,7 @@
 //       order; it stops once it has found the tile's count, and a tile no
 //       view meets skips it. No sort, no host sync.
 //     - Summing: the listed views, in list order, BATCH (4) at a time: the
-//       block copies a batch's cotangent slices (49 x 32 floats a view) and
+//       block copies a batch's cotangent slices (G^2 x 32 floats a view) and
 //       weight rows into shared memory by cp.async while it sums the batch
 //       before (two stages). Per view, each warp whose two rows meet the
 //       window forms, for its rows, m[r][j] = sum_i wy[i][y] * g[i][j] (i
@@ -86,7 +89,7 @@
 
 namespace {
 
-constexpr int G = 7;
+constexpr int G_MAX = 7;         // bins a side: 1..G_MAX
 constexpr int WIN_Y = 10;
 constexpr int WIN_X = 16;
 constexpr int WARPS = 8;
@@ -99,15 +102,16 @@ constexpr int SCAN = 4;          // views each thread checks per scan step
 constexpr int CHUNK = SCAN * THREADS;          // views per scan step
 constexpr int LIST = 2 * CHUNK;  // listed views held before they are summed
 constexpr int BATCH = 4;         // listed views per pipeline stage
-constexpr int GP = 8;            // G padded, for 16-byte loads of a weight row
+constexpr int GP = 8;            // G_MAX padded, for 16-byte loads of a
+                                 // weight row
 
 struct GradParams {
-  const float* gout;  // (n_views, G, G, channels)
+  const float* gout;  // (n_views, g, g, channels)
   const int* row0;    // (n_views,) rows within the view's image (K3) or
                       // within the whole buffer (K4)
   const int* x0;      // (n_views,)
-  const float* wy;    // (n_views, G, WIN_Y)
-  const float* wx;    // (n_views, G, WIN_X)
+  const float* wy;    // (n_views, g, WIN_Y)
+  const float* wx;    // (n_views, g, WIN_X)
   void* out;          // (batch * rows, wmax, channels), float32 or bf16
   int* counts;        // scratch: (batch, row_tiles, col_tiles) views per
                       // tile, then the weights staged as the stages want
@@ -123,27 +127,33 @@ struct GradParams {
   int row_tiles;        // tiles per image: ceil(rows / TILE_Y)
   int col_tiles;        // ceil(wmax / TILE_X)
   int slices;           // channel slices: ceil(channels / TILE_C)
+  int g;                // bins a side
 };
 
-// One pipeline stage: BATCH listed views' cotangent slices (49 x TILE_C
-// floats each) and weight rows, transposed so that a row of 7 weights is
+// One pipeline stage: BATCH listed views' cotangent slices (G^2 x TILE_C
+// floats each) and weight rows, transposed so that a row of G weights is
 // two 16-byte loads, copied in by cp.async while the previous stage is
 // summed.
+template <int G>
 struct Stage {
   float g[BATCH][G * G][TILE_C];
-  float wy[BATCH][WIN_Y][GP];  // [view][y][i]
-  float wx[BATCH][WIN_X][GP];  // [view][x][j]
+  float wy[BATCH][WIN_Y][GP];  // [view][y][i], i >= G: 0
+  float wx[BATCH][WIN_X][GP];  // [view][x][j], j >= G: 0
   int r0[BATCH];
   int x0[BATCH];
 };
 
+template <int G>
 struct Smem {
-  Stage stage[2];
+  union {
+    Stage<G> stage[2];
+    // the finished tile in bf16, written once no stage is read any more
+    // (at G = 7 it lies within the first stage's cotangent slices)
+    __nv_bfloat16 tile[TILE_Y * TILE_X][TILE_C];
+  };
   int list[LIST];        // listed views, in index order
   int count[SCAN][WARPS];
 };
-
-constexpr int SMEM_BYTES = sizeof(Smem);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -176,7 +186,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 // the copies of listed views k0 .. k0 + BATCH (those below n) into `st`:
 // the cotangent rows in 16-byte pieces where C % 4 == 0 and the buffer is
 // 16-byte aligned (so is each 32-channel row then), else value by value
-__device__ __forceinline__ void load_stage(const GradParams& p, Stage& st,
+template <int G>
+__device__ __forceinline__ void load_stage(const GradParams& p, Stage<G>& st,
                                            const int* list, int k0, int n,
                                            int c0) {
   const int nb = min(BATCH, n - k0);
@@ -184,7 +195,7 @@ __device__ __forceinline__ void load_stage(const GradParams& p, Stage& st,
   if (p.channels % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(p.gout) & 15) == 0) {
     for (int e = threadIdx.x; e < nb * G * G * PIECES; e += THREADS) {
-      const int row = e / PIECES, piece = e % PIECES;  // row = q * 49 + bin
+      const int row = e / PIECES, piece = e % PIECES;  // row = q * G^2 + bin
       const int q = row / (G * G), bin = row % (G * G);
       const int c = c0 + 4 * piece;
       const int bytes = 4 * max(0, min(4, p.channels - c));
@@ -231,13 +242,17 @@ using Rows = float[ROWS_PER_WARP][TILE_X];
 // No branch: a row outside the window is computed from a clamped weight
 // row and its add predicated off. x is a constant wherever this is
 // inlined.
+template <int G>
 __device__ __forceinline__ void add_column(Rows& acc, int x,
                                            const float (&m)[ROWS_PER_WARP][G],
                                            const bool (&valid)[ROWS_PER_WARP],
                                            const float* wrow) {
   const float4 lo = *reinterpret_cast<const float4*>(wrow);
   const float4 hi = *reinterpret_cast<const float4*>(wrow + 4);
-  const float w[G] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z};
+  const float w8[GP] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  float w[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) w[j] = w8[j];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     float s = __fmul_rn(m[r][0], w[0]);
@@ -248,7 +263,7 @@ __device__ __forceinline__ void add_column(Rows& acc, int x,
 }
 
 // tile columns X0 .. X0 + N under window columns wc0 .. wc0 + N
-template <int X0, int N>
+template <int G, int X0, int N>
 __device__ __forceinline__ void add_columns(Rows& acc,
                                             const float (&m)[ROWS_PER_WARP][G],
                                             const bool (&valid)[ROWS_PER_WARP],
@@ -260,7 +275,8 @@ __device__ __forceinline__ void add_columns(Rows& acc,
 // one listed view's gwin added to this warp's rows of the tile: dy is the
 // window row of the warp's first row, dx the window column of the tile's
 // first column
-__device__ __forceinline__ void add_view(Rows& acc, const Stage& st, int q,
+template <int G>
+__device__ __forceinline__ void add_view(Rows& acc, const Stage<G>& st, int q,
                                          int dy, int dx, int lane) {
   bool valid[ROWS_PER_WARP];
   int y[ROWS_PER_WARP];
@@ -291,11 +307,11 @@ __device__ __forceinline__ void add_view(Rows& acc, const Stage& st, int q,
   // the tile columns under the window: x0 is a multiple of 8 wherever
   // view_geometry made it, so the window covers the whole tile or one half
   if (dx == 0) {
-    add_columns<0, TILE_X>(acc, m, valid, st.wx[q], 0);
+    add_columns<G, 0, TILE_X>(acc, m, valid, st.wx[q], 0);
   } else if (dx == 8) {
-    add_columns<0, 8>(acc, m, valid, st.wx[q], 8);
+    add_columns<G, 0, 8>(acc, m, valid, st.wx[q], 8);
   } else if (TILE_X == 16 && dx == -8) {
-    add_columns<TILE_X - 8, 8>(acc, m, valid, st.wx[q], 0);
+    add_columns<G, TILE_X - 8, 8>(acc, m, valid, st.wx[q], 0);
   } else {
     // any other offset (a caller's own origins): column by column
 #pragma unroll
@@ -311,8 +327,8 @@ __device__ __forceinline__ void add_view(Rows& acc, const Stage& st, int q,
 // through a shared-memory copy of the tile and 16-byte stores (4 of them a
 // cell) where the channels fill the slice and rows are 16-byte aligned;
 // otherwise, and for float32 (128 bytes a warp already), value by value
-template <typename T>
-__device__ __forceinline__ void write_tile(const GradParams& p, Smem& sm,
+template <typename T, int G>
+__device__ __forceinline__ void write_tile(const GradParams& p, Smem<G>& sm,
                                            const Rows& acc, int img, int tr0,
                                            int tc0, int c0, bool any) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -336,10 +352,8 @@ __device__ __forceinline__ void write_tile(const GradParams& p, Smem& sm,
     }
     return;
   }
-  // [cell][channel] bf16 in the first stage's buffer, which no copy fills
-  // any more
-  __nv_bfloat16(*tile)[TILE_C] =
-      reinterpret_cast<__nv_bfloat16(*)[TILE_C]>(&sm.stage[0].g[0][0][0]);
+  // [cell][channel] bf16 over the stages, which no copy fills any more
+  __nv_bfloat16(*tile)[TILE_C] = sm.tile;
   if (any) {
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r)
@@ -363,11 +377,11 @@ __device__ __forceinline__ void write_tile(const GradParams& p, Smem& sm,
   }
 }
 
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(THREADS)
 window_grad_kernel(const GradParams p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // block order: channel slice, tile column, image, then tile rows from
@@ -451,7 +465,7 @@ window_grad_kernel(const GradParams p) {
       asm volatile("cp.async.commit_group;" ::: "memory");
       asm volatile("cp.async.wait_group 1;" ::: "memory");
       __syncthreads();
-      const Stage& st = sm.stage[b & 1];
+      const Stage<G>& st = sm.stage[b & 1];
       const int nb = min(BATCH, listed - b * BATCH);
       for (int q = 0; q < nb; ++q) {
         const int dy = wr0 - st.r0[q];  // the window row of this warp's row 0
@@ -464,7 +478,7 @@ window_grad_kernel(const GradParams p) {
   }
 
   // ---- the tile, written once
-  write_tile<T>(p, sm, acc, img, tr0, tc0, c0, expected > 0);
+  write_tile<T, G>(p, sm, acc, img, tr0, tc0, c0, expected > 0);
 }
 
 // the views' weight rows transposed, [y][i] and [x][j], padded to GP, so
@@ -478,11 +492,11 @@ __global__ void transpose_kernel(const GradParams p, int n_views) {
   if (r < WIN_Y * GP) {
     const int y = r / GP, i = r % GP;
     p.wyt[(size_t)n * WIN_Y * GP + r] =
-        i < G ? p.wy[((size_t)n * G + i) * WIN_Y + y] : 0.f;
+        i < p.g ? p.wy[((size_t)n * p.g + i) * WIN_Y + y] : 0.f;
   } else {
     const int x = (r - WIN_Y * GP) / GP, j = r % GP;
     p.wxt[(size_t)n * WIN_X * GP + r - WIN_Y * GP] =
-        j < G ? p.wx[((size_t)n * G + j) * WIN_X + x] : 0.f;
+        j < p.g ? p.wx[((size_t)n * p.g + j) * WIN_X + x] : 0.f;
   }
 }
 
@@ -500,20 +514,35 @@ __global__ void count_kernel(const GradParams p, int n_views) {
       atomicAdd(img + rt * p.col_tiles + ct, 1);
 }
 
-template <typename T>
+template <typename T, int G>
 cudaError_t launch_instance(const GradParams& p, dim3 grid,
                             cudaStream_t stream) {
+  constexpr int smem = sizeof(Smem<G>);
   const cudaError_t e = cudaFuncSetAttribute(
-      window_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      window_grad_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
-  window_grad_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(p);
+  window_grad_kernel<T, G><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bins(const GradParams& p, dim3 grid, cudaStream_t s) {
+  switch (p.g) {
+    case 1: return launch_instance<T, 1>(p, grid, s);
+    case 2: return launch_instance<T, 2>(p, grid, s);
+    case 3: return launch_instance<T, 3>(p, grid, s);
+    case 4: return launch_instance<T, 4>(p, grid, s);
+    case 5: return launch_instance<T, 5>(p, grid, s);
+    case 6: return launch_instance<T, 6>(p, grid, s);
+    case 7: return launch_instance<T, 7>(p, grid, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch(const GradParams& p, int out_bf16, void* stream) {
   if (p.batch <= 0 || p.views_per_image < 0 || p.channels <= 0 ||
-      p.rows <= 0 || p.wmax <= 0)
+      p.rows <= 0 || p.wmax <= 0 || p.g < 1 || p.g > G_MAX)
     return cudaErrorInvalidValue;
   const long long blocks =
       (long long)p.batch * p.row_tiles * p.col_tiles * p.slices;
@@ -531,8 +560,23 @@ cudaError_t launch(const GradParams& p, int out_bf16, void* stream) {
         p, n_views);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  return out_bf16 ? launch_instance<__nv_bfloat16>(p, grid, s)
-                  : launch_instance<float>(p, grid, s);
+  return out_bf16 ? launch_bins<__nv_bfloat16>(p, grid, s)
+                  : launch_bins<float>(p, grid, s);
+}
+
+template <int G>
+cudaError_t instance_attrs(int out_bf16, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      out_bf16 ? cudaFuncGetAttributes(&a, window_grad_kernel<__nv_bfloat16, G>)
+               : cudaFuncGetAttributes(&a, window_grad_kernel<float, G>);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = sizeof(Smem<G>);
+  out[4] = a.maxThreadsPerBlock;
+  return cudaSuccess;
 }
 
 // the scratch's parts: the counts, then wyt and wxt, 16-byte aligned
@@ -542,11 +586,12 @@ size_t count_ints(int batch, int rows, int wmax) {
   return (n + 3) / 4 * 4;
 }
 
-GradParams params(const float* gout, const int* row0, const int* x0,
+GradParams params(int g, const float* gout, const int* row0, const int* x0,
                   const float* wy, const float* wx, void* out, void* scratch,
                   int batch, int views_per_image, int rows, int wmax,
                   int channels) {
   GradParams p;
+  p.g = g;
   p.gout = gout; p.row0 = row0; p.x0 = x0; p.wy = wy; p.wx = wx;
   p.out = out;
   p.counts = static_cast<int*>(scratch);
@@ -575,17 +620,18 @@ extern "C" long long mpn_grad_scratch_words(int batch, int rows, int wmax,
 }
 
 // K3: views image-major (n = image * views_per_image + v), rows relative to
-// the view's image; out is (batch * rows, wmax, C), float32 or (out_bf16)
+// the view's image, g bins a side (1..7; gout (n, g, g, C), wy (n, g, 10),
+// wx (n, g, 16)); out is (batch * rows, wmax, C), float32 or (out_bf16)
 // bf16; scratch holds mpn_grad_scratch_words(batch, rows, wmax,
 // batch * views_per_image) words, 16-byte aligned.
 extern "C" int mpn_window_grad(
-    int out_bf16, int batch, int views_per_image, int rows, int wmax,
+    int out_bf16, int g, int batch, int views_per_image, int rows, int wmax,
     int channels, const float* gout, const int* row0, const int* x0,
     const float* wy, const float* wx, void* out, void* scratch,
     void* stream) {
   return static_cast<int>(launch(
-      params(gout, row0, x0, wy, wx, out, scratch, batch, views_per_image,
-             rows, wmax, channels),
+      params(g, gout, row0, x0, wy, wx, out, scratch, batch,
+             views_per_image, rows, wmax, channels),
       out_bf16, stream));
 }
 
@@ -593,29 +639,28 @@ extern "C" int mpn_window_grad(
 // scratch holds mpn_grad_scratch_words(1, rows, wmax, n_views) words,
 // 16-byte aligned.
 extern "C" int mpn_window_rmw_grad(
-    int out_bf16, int n_views, int rows, int wmax, int channels,
+    int out_bf16, int g, int n_views, int rows, int wmax, int channels,
     const float* gout, const int* row0, const int* x0, const float* wy,
     const float* wx, void* out, void* scratch, void* stream) {
   return static_cast<int>(launch(
-      params(gout, row0, x0, wy, wx, out, scratch, 1, n_views, rows, wmax,
-             channels),
+      params(g, gout, row0, x0, wy, wx, out, scratch, 1, n_views, rows,
+             wmax, channels),
       out_bf16, stream));
 }
 
-// The kernel's attributes into out[5], float32 (out_bf16 = 0) or bf16
-// output: registers per thread, local (spill) bytes per thread, static
-// shared bytes, the dynamic shared bytes it launches with, max threads per
-// block.
-extern "C" int mpn_grad_kernel_attrs(int out_bf16, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e =
-      out_bf16 ? cudaFuncGetAttributes(&a, window_grad_kernel<__nv_bfloat16>)
-               : cudaFuncGetAttributes(&a, window_grad_kernel<float>);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = SMEM_BYTES;
-  out[4] = a.maxThreadsPerBlock;
-  return 0;
+// The attributes of the instance for g bins a side and a float32 (out_bf16
+// = 0) or bf16 output into out[5]: registers per thread, local (spill)
+// bytes per thread, static shared bytes, the dynamic shared bytes it
+// launches with, max threads per block.
+extern "C" int mpn_grad_kernel_attrs(int out_bf16, int g, int* out) {
+  switch (g) {
+    case 1: return static_cast<int>(instance_attrs<1>(out_bf16, out));
+    case 2: return static_cast<int>(instance_attrs<2>(out_bf16, out));
+    case 3: return static_cast<int>(instance_attrs<3>(out_bf16, out));
+    case 4: return static_cast<int>(instance_attrs<4>(out_bf16, out));
+    case 5: return static_cast<int>(instance_attrs<5>(out_bf16, out));
+    case 6: return static_cast<int>(instance_attrs<6>(out_bf16, out));
+    case 7: return static_cast<int>(instance_attrs<7>(out_bf16, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

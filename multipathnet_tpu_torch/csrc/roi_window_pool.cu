@@ -22,10 +22,15 @@
 //
 // What it computes. Per view n and level l, a WIN_Y x WIN_X (10 x 16)
 // window win_l at (row0_l, x0_l) of level l's stacked avg pyramid, and the
-// folded bilinear weights wy_l (G x 10) and wx_l (G x 16), G = 7:
+// folded bilinear weights wy_l (G x 10) and wx_l (G x 16), G bins a side,
+// 1 <= G <= 7 (the Pallas kernels take every G with G + 3 <= 10; the
+// detector's default is 7, AlexNet-family heads take 6):
 //     out[i][j][c] = sum_l sum_y sum_x W2_l[i][j][y][x] * win_l[y][x][c]
 //     W2_l[i][j][y][x] = round_T(wy_l[i][y] * wx_l[j][x])
-// The Pallas kernels build W2 (49 x 160) in float32, round it once to the
+// Every G reads the same 10 x 16 window: a G-bin view's samples need G + 3
+// rows, and the pyramids give every level at least 10 rows, so the window
+// of a coarse level shorter than that stays inside its buffer.
+// The Pallas kernels build W2 (G^2 x 160) in float32, round it once to the
 // pyramid dtype T (roi_pallas.py:156, :534, :975) and run ONE GEMM per view
 // with float32 accumulation. In float32 the rounding is a no-op and the sum
 // may be taken in any order; in bf16 it is not, and the bf16 body computes
@@ -33,9 +38,10 @@
 //
 // The float32 body: the contraction evaluated separably in float32 on the
 // CUDA cores, x first,
-//     tmp[j]     = sum_x wx[j][x] * win[y][x][c]       (16 * 7 FMA per row y)
-//     out[i][j] += wy[i][y] * tmp[j]                   (7 * 7 FMA per row y)
-// 1610 FMA per channel per level instead of 49 * 160 = 7840 for the W2 form
+//     tmp[j]     = sum_x wx[j][x] * win[y][x][c]       (16 * G FMA per row y)
+//     out[i][j] += wy[i][y] * tmp[j]                   (G * G FMA per row y)
+// 1610 FMA per channel per level at G = 7 (10 x (16 G + G^2)) instead of
+// 49 * 160 = 7840 for the W2 form
 // (TF32 tensor cores would round the windows). Without the epilogue, one
 // thread block per (view, 128-channel slice); each of its 64 threads owns 2
 // adjacent channels, so every load of win[y][x][c..c+1] is one 8-byte
@@ -43,12 +49,13 @@
 // stages the view's wy/wx rows, transposed and padded to 8, in shared
 // memory (832 bytes per level); the window itself is read straight from
 // global memory into registers, because each element is used by exactly
-// one thread. The 49 x 2 accumulators stay in registers; one store of the
-// view's (49, C) output closes the block. Every instance uses about 255
-// registers at 8 warps per SM; it is bounded by its per-view body (PERF.md).
+// one thread. The G^2 x 2 accumulators stay in registers, so G is a
+// template parameter, one instance per G; one store of the view's (G^2, C)
+// output closes the block. The G = 7 instances use about 255 registers at
+// 8 warps per SM; they are bounded by their per-view body (PERF.md).
 //
 // The int8 epilogue. _quant_view's scale is ONE absolute max over a whole
-// view's 49 * C values, so in quant mode one block owns a whole view: C / 2
+// view's G^2 * C values, so in quant mode one block owns a whole view: C / 2
 // threads (256 at C = 512, so C <= 512), each still owning 2 channels and
 // accumulating in exactly the order of the instance without the epilogue.
 // Then, from the registers that hold the accumulators:
@@ -103,7 +110,7 @@ __device__ __forceinline__ signed char quantize(float y, float s, float r) {
       fminf(fmaxf(rintf(div_rn(y, s, r)), -127.f), 127.f));
 }
 
-template <int L, bool QUANT>
+template <int G, int L, bool QUANT>
 __global__ void __launch_bounds__(QUANT ? QUANT_THREADS : THREADS)
 window_pool_kernel(const PoolParams p) {
   __shared__ __align__(16) float s_wy[L][WIN_Y][GP];  // [level][y][i]
@@ -244,8 +251,8 @@ window_pool_kernel(const PoolParams p) {
 }
 
 // The int8 epilogue as a kernel of its own, for views wider than a pool
-// block takes (C > 512): one block per view reads the pool kernel's (49, C)
-// output in the pyramid dtype T twice, first for the amax of y =
+// block takes (C > 512): one block per view reads the pool kernel's
+// (G^2, C) output in the pyramid dtype T twice, first for the amax of y =
 // relu(pooled + bias) (the sum rounded to T, as quant_view_ref computes it
 // in torch), then for the codes, in the arithmetic of the fused epilogue.
 // A view whose pooled values hold a NaN (the pool kernels' out-of-range
@@ -264,11 +271,11 @@ constexpr int EPILOGUE_THREADS = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(EPILOGUE_THREADS)
-quant_view_kernel(const T* pooled, const T* bias, int channels,
+quant_view_kernel(const T* pooled, const T* bias, int g, int channels,
                   signed char* out, float* scale) {
   __shared__ float s_max[EPILOGUE_THREADS / 32];
   const int n = blockIdx.x;
-  const int per_view = G * G * channels;
+  const int per_view = g * g * channels;
   const T* src = pooled + (size_t)n * per_view;
   float m = 0.f;
   int has_nan = 0;
@@ -298,39 +305,54 @@ quant_view_kernel(const T* pooled, const T* bias, int channels,
                             s, r);
 }
 
-template <int L>
+template <int G, int L>
 cudaError_t launch_levels(const PoolParams& p, cudaStream_t stream) {
   if (p.bias != nullptr) {
     const int threads = ((p.channels / VEC + 31) / 32) * 32;
     if (threads > QUANT_THREADS || p.scale == nullptr)
       return cudaErrorInvalidValue;
-    window_pool_kernel<L, true><<<p.n_views, threads, 0, stream>>>(p);
+    window_pool_kernel<G, L, true><<<p.n_views, threads, 0, stream>>>(p);
   } else {
     const dim3 grid(p.n_views, (p.channels + SLICE - 1) / SLICE);
-    window_pool_kernel<L, false><<<grid, THREADS, 0, stream>>>(p);
+    window_pool_kernel<G, L, false><<<grid, THREADS, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_f32(const PoolParams& p, int n_levels, cudaStream_t s) {
+  switch (n_levels) {
+    case 1: return launch_levels<G, 1>(p, s);
+    case 2: return launch_levels<G, 2>(p, s);
+    case 3: return launch_levels<G, 3>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t dispatch(const PoolParams& p, int is_bf16, int n_levels,
                      void* stream) {
   if (p.n_views <= 0 || p.channels <= 0 || p.channels % VEC != 0 ||
-      p.views_per_image <= 0)
+      p.views_per_image <= 0 || p.g < 1 || p.g > G_MAX)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_wgmma_pool(p, n_levels, s);
-  switch (n_levels) {
-    case 1: return launch_levels<1>(p, s);
-    case 2: return launch_levels<2>(p, s);
-    case 3: return launch_levels<3>(p, s);
+  switch (p.g) {
+    case 1: return launch_f32<1>(p, n_levels, s);
+    case 2: return launch_f32<2>(p, n_levels, s);
+    case 3: return launch_f32<3>(p, n_levels, s);
+    case 4: return launch_f32<4>(p, n_levels, s);
+    case 5: return launch_f32<5>(p, n_levels, s);
+    case 6: return launch_f32<6>(p, n_levels, s);
+    case 7: return launch_f32<7>(p, n_levels, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int L, bool QUANT>
+template <int G, int L, bool QUANT>
 cudaError_t attrs(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, window_pool_kernel<L, QUANT>);
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, window_pool_kernel<G, L, QUANT>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -340,16 +362,30 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
+template <int G>
+cudaError_t f32_attrs(int n_levels, int quant, int* out) {
+  switch (n_levels * 2 + (quant ? 1 : 0)) {
+    case 2: return attrs<G, 1, false>(out);
+    case 3: return attrs<G, 1, true>(out);
+    case 4: return attrs<G, 2, false>(out);
+    case 5: return attrs<G, 2, true>(out);
+    case 6: return attrs<G, 3, false>(out);
+    case 7: return attrs<G, 3, true>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace mpn
 
 using mpn::PoolParams;
 
-// K1: level-summed pooling, rows absolute in each level's stacked buffer.
-// bias == NULL: out is (n_views, G, G, channels) in the pyramid dtype;
+// K1: level-summed pooling, rows absolute in each level's stacked buffer,
+// g bins a side (1..7; wy (n_levels, n_views, g, 10), wx (.., g, 16)).
+// bias == NULL: out is (n_views, g, g, channels) in the pyramid dtype;
 // otherwise the int8 epilogue: out int8, scale (n_views,) float32.
 extern "C" int mpn_window_pool_multi(
-    int is_bf16, int n_levels, int n_views, int channels,
+    int is_bf16, int g, int n_levels, int n_views, int channels,
     const void* flat0, const void* flat1, const void* flat2,
     int rows0, int rows1, int rows2, int wmax0, int wmax1, int wmax2,
     const int* row0, const int* x0, const float* wy, const float* wx,
@@ -362,15 +398,17 @@ extern "C" int mpn_window_pool_multi(
   p.bias = bias; p.scale = scale;
   p.n_views = n_views;
   p.channels = channels;
+  p.g = g;
   p.views_per_image = n_views;
   p.rows_per_image = 0;
   return static_cast<int>(mpn::dispatch(p, is_bf16, n_levels, stream));
 }
 
 // K2: one level, image-relative rows into a batch of per-image pyramids,
-// views image-major (n = image * views + v); bias, out and scale as K1's.
+// views image-major (n = image * views + v); g, bias, out and scale as K1's.
 extern "C" int mpn_resident_pool(
-    int is_bf16, int batch, int views, int rows, int wmax, int channels,
+    int is_bf16, int g, int batch, int views, int rows, int wmax,
+    int channels,
     const void* flat, const int* row0, const int* x0, const float* wy,
     const float* wx, const void* bias, void* out, float* scale,
     void* stream) {
@@ -382,47 +420,51 @@ extern "C" int mpn_resident_pool(
   p.bias = bias; p.scale = scale;
   p.n_views = batch * views;
   p.channels = channels;
+  p.g = g;
   p.views_per_image = views;
   p.rows_per_image = rows;
   return static_cast<int>(mpn::dispatch(p, is_bf16, 1, stream));
 }
 
-// The int8 epilogue of n_views pooled (G, G, channels) views in the
+// The int8 epilogue of n_views pooled (g, g, channels) views in the
 // pyramid dtype (is_bf16: bf16, else float32) with the (channels,) skip
-// bias: out int8 (n_views, G, G, channels), scale (n_views,) float32.
-extern "C" int mpn_quant_view(int is_bf16, int n_views, int channels,
+// bias: out int8 (n_views, g, g, channels), scale (n_views,) float32.
+extern "C" int mpn_quant_view(int is_bf16, int g, int n_views, int channels,
                               const void* pooled, const void* bias,
                               signed char* out, float* scale, void* stream) {
-  if (n_views <= 0 || channels <= 0) return static_cast<int>(
-      cudaErrorInvalidValue);
+  if (n_views <= 0 || channels <= 0 || g < 1 || g > mpn::G_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     mpn::quant_view_kernel<__nv_bfloat16>
         <<<n_views, mpn::EPILOGUE_THREADS, 0, s>>>(
             static_cast<const __nv_bfloat16*>(pooled),
-            static_cast<const __nv_bfloat16*>(bias), channels, out, scale);
+            static_cast<const __nv_bfloat16*>(bias), g, channels, out,
+            scale);
   else
     mpn::quant_view_kernel<float><<<n_views, mpn::EPILOGUE_THREADS, 0, s>>>(
         static_cast<const float*>(pooled), static_cast<const float*>(bias),
-        channels, out, scale);
+        g, channels, out, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The attributes of the pool instance for (dtype, levels, epilogue) into
+// The attributes of the pool instance for (dtype, G, levels, epilogue) into
 // out[5]: registers per thread, local (spill) bytes per thread, static
 // shared bytes, the dynamic shared bytes it launches with, max threads per
-// block.
-extern "C" int mpn_pool_kernel_attrs(int is_bf16, int n_levels, int quant,
-                                     int* out) {
+// block. The bf16 body is one instance for every G.
+extern "C" int mpn_pool_kernel_attrs(int is_bf16, int g, int n_levels,
+                                     int quant, int* out) {
+  if (g < 1 || g > mpn::G_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) return static_cast<int>(mpn::wgmma_pool_attrs(n_levels,
                                                               quant, out));
-  switch (n_levels * 2 + (quant ? 1 : 0)) {
-    case 2: return static_cast<int>(mpn::attrs<1, false>(out));
-    case 3: return static_cast<int>(mpn::attrs<1, true>(out));
-    case 4: return static_cast<int>(mpn::attrs<2, false>(out));
-    case 5: return static_cast<int>(mpn::attrs<2, true>(out));
-    case 6: return static_cast<int>(mpn::attrs<3, false>(out));
-    case 7: return static_cast<int>(mpn::attrs<3, true>(out));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  switch (g) {
+    case 1: return static_cast<int>(mpn::f32_attrs<1>(n_levels, quant, out));
+    case 2: return static_cast<int>(mpn::f32_attrs<2>(n_levels, quant, out));
+    case 3: return static_cast<int>(mpn::f32_attrs<3>(n_levels, quant, out));
+    case 4: return static_cast<int>(mpn::f32_attrs<4>(n_levels, quant, out));
+    case 5: return static_cast<int>(mpn::f32_attrs<5>(n_levels, quant, out));
+    case 6: return static_cast<int>(mpn::f32_attrs<6>(n_levels, quant, out));
+    default: return static_cast<int>(mpn::f32_attrs<7>(n_levels, quant, out));
   }
 }

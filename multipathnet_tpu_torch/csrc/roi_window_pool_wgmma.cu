@@ -9,12 +9,15 @@
 // routes every bf16 launch here; there is no other bf16 route.
 //
 // What it computes: the reference's GEMM, per view and 512-channel tile,
-//     out (49, C) = W2 (49, L * 160) . win (L * 160, C),
-//     W2[i * 7 + j][l, y, x] = bf16(wy_l[i][y] * wx_l[j][x])
+//     out (G^2, C) = W2 (G^2, L * 160) . win (L * 160, C),
+//     W2[i * G + j][l, y, x] = bf16(wy_l[i][y] * wx_l[j][x])
 // with the float32 product rounded once to bf16 (roi_pallas.py:156, :534,
 // :975) and the products summed in float32: exactly what wgmma computes
 // from a bf16 A and B into float32 accumulators. The L windows are stacked
-// along K, so the level sum happens in the accumulators.
+// along K, so the level sum happens in the accumulators. G, the bins a
+// side, is 1..7 and read at run time (PoolParams::g): every G reads the
+// same 10-row windows, and its G^2 bins are the first rows of the one m64
+// tile, whose other rows have zero weights.
 //
 // Layout. One persistent block per SM walks the views in launch order
 // (image-major), so the views in flight at one time share their image's
@@ -31,16 +34,18 @@
 //     ring stages by window rows; each stage ends in one wgmma wait, so
 //     stages are made as large as two fit.
 //   - each consumer warpgroup waits for the stage, builds A = W2 in
-//     registers (one k16 step is one window row: 16 x cells; M = 49 bins
-//     padded to 64 with zero rows), issues one m64n256k16 wgmma per window
-//     row on the stage and frees it. K1 is 30 k-steps per view, K2 10. The
-//     view's wy/wx rows (182 floats per level) are fetched into registers
-//     one view ahead and staged in shared memory, double buffered.
+//     registers (one k16 step is one window row: 16 x cells; M = G^2 <= 49
+//     bins padded to 64 with zero rows), issues one m64n256k16 wgmma per
+//     window row on the stage and frees it. K1 is 30 k-steps per view, K2
+//     10. The view's wy/wx rows (26 G floats per level) are fetched into
+//     registers one view ahead and staged in shared memory, double
+//     buffered.
 //   - at the view's end the consumers round their accumulators to bf16 into
-//     a (49, 512) tile in shared memory (stmatrix: the accumulator layout
-//     is its fragment layout) and go on to the next view; the producer's
-//     other three warps empty the tile meanwhile by 49 bulk copies to the
-//     output rows. In quant mode the consumers store
+//     a (G^2, 512) tile in shared memory (stmatrix for rows 0-47: the
+//     accumulator layout is its fragment layout) and go on to the next
+//     view; the producer's other three warps empty the tile
+//     meanwhile by G^2 bulk copies to the output rows. In quant mode the
+//     consumers store
 //     _quant_view's y = relu(round(round(acc) + bias)) instead, with each
 //     warp's max, and the three warps write one float32 scale per view and
 //     the int8 codes (8-byte streaming stores), with the helpers of
@@ -54,10 +59,11 @@
 // (__hmax2_nan, fmax_nan), where __hmax2 and fmaxf would drop it.
 //
 // What bounds it. Not the tensor cores: the W2 GEMM is 2 * 49 * 160 FLOP
-// per view, level and channel (padded to 64 rows), 0.2 ms at the main path
-// at the bf16 rate. Every view reads its whole windows (160 KB per level at
-// C = 512) through L2, since TMA does not cache in L1: K2's c5 pyramids sit
-// in L2, and K1's overlapping c3 windows mostly do. On an H100 K1 and K2
+// per view, level and channel at G = 7 (2 * 64 * 160 issued: the m64
+// tile), 0.2 ms at the main path at the bf16 rate. Every view reads its
+// whole windows (160 KB per level at C = 512, at every G) through L2,
+// since TMA does not cache in L1: K2's c5 pyramids sit in L2, and K1's
+// overlapping c3 windows mostly do. On an H100 K1 and K2
 // move 7-8 TB/s of window reads and output writes through L2 (PERF.md), so
 // the L2 rate bounds them, not HBM. The quant instances add the epilogue's
 // arithmetic, which shares the SMs' issue slots with the consumers; the
@@ -89,9 +95,10 @@ constexpr int STAGE_BYTES = CHUNKS * CHUNK_BYTES;
 constexpr int MAX_THREADS = 3 * 128;
 constexpr int EPI_THREADS = 96;              // the producer group's warps 1-3
 constexpr int TILE_PITCH = TILE_C + 8;       // staged row: 16 bytes of pad
-constexpr int WY_FLOATS = G * WIN_Y;
-constexpr int WX_FLOATS = G * WIN_X;
-constexpr int W_FLOATS = WY_FLOATS + WX_FLOATS;          // per level
+constexpr int BINS_MAX = G_MAX * G_MAX;      // A rows that can be bins
+// a view's wy rows of a level (g * WIN_Y floats) and its wx rows (g *
+// WIN_X) fit one warpgroup, one float a thread each
+static_assert(G_MAX * WIN_X <= 128 && G_MAX * WIN_Y <= 128, "");
 
 struct __align__(64) WgmmaParams {
   CUtensorMap map[MAX_LEVELS];
@@ -103,13 +110,13 @@ struct __align__(64) WgmmaParams {
 
 struct Smem {
   uint8_t ring[RING][STAGE_BYTES];  // 1024-aligned: the swizzle's atoms
-  // the view's pool result, bf16, for the epilogue warps; the pad puts the
-  // 8 rows of an stmatrix fragment on distinct banks
-  __align__(16) __nv_bfloat16 tile[G * G][TILE_PITCH];
+  // the view's pool result, bf16, for the epilogue warps (rows 0..G^2);
+  // the pad puts the 8 rows of an stmatrix fragment on distinct banks
+  __align__(16) __nv_bfloat16 tile[BINS_MAX][TILE_PITCH];
   uint64_t full[RING];
   uint64_t empty[RING];
-  float wy[2][MAX_LEVELS][WIN_Y][GP];  // [buffer][level][y][i], i = G: 0
-  float wx[2][MAX_LEVELS][WIN_X][GP];  // [buffer][level][x][j], j = G: 0
+  float wy[2][MAX_LEVELS][WIN_Y][GP];  // [buffer][level][y][i], i >= G: 0
+  float wx[2][MAX_LEVELS][WIN_X][GP];  // [buffer][level][x][j], j >= G: 0
   __nv_bfloat162 bias[TILE_C / 2];     // quant mode: the skip bias
   float vmax[8];                       // quant mode: each consumer warp's max
   int inside;                          // whether the staged view was read
@@ -255,6 +262,7 @@ __device__ __forceinline__ void epilogue_warps(const WgmmaParams& w, Smem& sm,
                                                int et, int n_tile) {
   const PoolParams& p = w.p;
   const int c_all = p.channels;
+  const int bins = p.g * p.g;
   bar_arrive(BAR_TILE_EMPTY, n_tile);  // the tile starts empty
   for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
     const int n = item / w.n_tiles;
@@ -264,10 +272,10 @@ __device__ __forceinline__ void epilogue_warps(const WgmmaParams& w, Smem& sm,
     if constexpr (!QUANT) {
       if (et == 0) {
         __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
-                             (size_t)n * G * G * c_all + c0;
+                             (size_t)n * bins * c_all + c0;
         // the output must not push the pyramids out of L2
         const uint64_t policy = l2_evict_first();
-        for (int m = 0; m < G * G; ++m)
+        for (int m = 0; m < bins; ++m)
           asm volatile(
               "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
               " [%0], [%1], %2, %3;" ::"l"(out + (size_t)m * c_all),
@@ -291,8 +299,8 @@ __device__ __forceinline__ void epilogue_warps(const WgmmaParams& w, Smem& sm,
       if (et == 0) p.scale[n] = finite ? sc : NAN;
       const float r = view_reciprocal(sc);
       signed char* out = static_cast<signed char*>(p.out) +
-                         (size_t)n * G * G * c_all + c0;
-      for (int row = et >> 5; row < G * G; row += EPI_THREADS / 32) {
+                         (size_t)n * bins * c_all + c0;
+      for (int row = et >> 5; row < bins; row += EPI_THREADS / 32) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (cc + 32 * h < chunks) {
@@ -331,7 +339,7 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
   }
   float* wzero = &sm.wy[0][0][0][0];
   for (int t = tid; t < 2 * MAX_LEVELS * (WIN_Y + WIN_X) * GP; t += blockDim.x)
-    wzero[t] = 0.f;  // wy and wx are adjacent; their pads stay zero
+    wzero[t] = 0.f;  // wy and wx are adjacent; their pads (i, j >= G) stay 0
   if (QUANT)  // C <= 512, one channel tile
     for (int t = tid; t < p.channels / 2; t += blockDim.x)
       sm.bias[t] = static_cast<const __nv_bfloat162*>(p.bias)[t];
@@ -383,36 +391,30 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
   // ---- consumers: warpgroup wg owns channels c0 + wg * 256 + [0, 256) ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  // this thread's two A rows (bins m = i * 7 + j) and four x columns
+  const int g = p.g, bins = g * g;
+  // this thread's two A rows (bins m = i * G + j; a row past the bins
+  // reads the zero weights at index GP - 1 >= G) and four x columns
   const int m0 = warp * 16 + (lane >> 2), m1 = m0 + 8;
-  const int i0 = m0 < G * G ? m0 / G : G, j0 = m0 < G * G ? m0 % G : G;
-  const int i1 = m1 < G * G ? m1 / G : G, j1 = m1 < G * G ? m1 % G : G;
+  const int i0 = m0 < bins ? m0 / g : GP - 1, j0 = m0 < bins ? m0 % g : GP - 1;
+  const int i1 = m1 < bins ? m1 / g : GP - 1, j1 = m1 < bins ? m1 % g : GP - 1;
   const int xa = 2 * (lane & 3);
   // the tile column of accumulator pair v: cw + 8 v
   const int cw = wg * WG_C + xa;
 
-  // one view's wy/wx rows, fetched a view ahead: thread t holds elements
-  // t, t + n_cons, ... of the (L, 182) floats
-  constexpr int PER_THREAD = (L * W_FLOATS + 127) / 128;
-  float wreg[PER_THREAD];
+  // one view's wy/wx rows, fetched a view ahead: thread t < g * WIN_Y holds
+  // element t of each level's wy rows, thread t < g * WIN_X element t of
+  // its wx rows
+  const int wy_floats = g * WIN_Y, wx_floats = g * WIN_X;
+  float wyreg[L], wxreg[L];
   int rreg[L], xreg[L];
   auto fetch = [&](int item) {
     const int n = item / w.n_tiles;
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int e = tid + k * n_cons;
-      if (e < L * WY_FLOATS) {
-        const int l = e / WY_FLOATS;
-        wreg[k] = p.wy[((size_t)l * p.n_views + n) * WY_FLOATS +
-                       e % WY_FLOATS];
-      } else if (e < L * W_FLOATS) {
-        const int l = (e - L * WY_FLOATS) / WX_FLOATS;
-        wreg[k] = p.wx[((size_t)l * p.n_views + n) * WX_FLOATS +
-                       (e - L * WY_FLOATS) % WX_FLOATS];
-      }
-    }
-#pragma unroll
     for (int l = 0; l < L; ++l) {
+      if (tid < wy_floats)
+        wyreg[l] = p.wy[((size_t)l * p.n_views + n) * wy_floats + tid];
+      if (tid < wx_floats)
+        wxreg[l] = p.wx[((size_t)l * p.n_views + n) * wx_floats + tid];
       rreg[l] = p.row0[(size_t)l * p.n_views + n];
       xreg[l] = p.x0[(size_t)l * p.n_views + n];
     }
@@ -426,16 +428,9 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
     const int c0 = (item % w.n_tiles) * TILE_C;
     // stage this view's weights, transposed: [y][i] and [x][j]
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int e = tid + k * n_cons;
-      if (e < L * WY_FLOATS) {
-        const int l = e / WY_FLOATS, r = e % WY_FLOATS;
-        sm.wy[buf][l][r % WIN_Y][r / WIN_Y] = wreg[k];
-      } else if (e < L * W_FLOATS) {
-        const int l = (e - L * WY_FLOATS) / WX_FLOATS;
-        const int r = (e - L * WY_FLOATS) % WX_FLOATS;
-        sm.wx[buf][l][r % WIN_X][r / WIN_X] = wreg[k];
-      }
+    for (int l = 0; l < L; ++l) {
+      if (tid < wy_floats) sm.wy[buf][l][tid % WIN_Y][tid / WIN_Y] = wyreg[l];
+      if (tid < wx_floats) sm.wx[buf][l][tid % WIN_X][tid / WIN_X] = wxreg[l];
     }
     bool inside = true;
 #pragma unroll
@@ -512,9 +507,14 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
       return e;
     };
     if (warp < 3) {
-      // rows 0-47: stmatrix.x4 stores the four 8 x 8 fragments (rows m0 /
-      // m1, 8 channels v / v + 1) of pairs v, v + 1 at once; lane l gives
-      // the address of row l % 8 of fragment l / 8
+      // rows 0-47, all inside the tile's BINS_MAX rows: stmatrix.x4 stores
+      // the four 8 x 8 fragments (rows m0 / m1, 8 channels v / v + 1) of
+      // pairs v, v + 1 at once; lane l gives the address of row l % 8 of
+      // fragment l / 8. Rows past the bins (G < 7) are stored but never
+      // read, and stay out of the view's max (in quant mode they hold
+      // relu(bias))
+      const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+      const bool bin0 = m0 < bins, bin1 = m1 < bins;
       const uint32_t dst = smem_u32(
           &sm.tile[warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)]
                   [wg * WG_C + 8 * (lane >> 4)]);
@@ -524,9 +524,11 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
         if (c < width) {
           __nv_bfloat162 e[4] = {pair(v, 0), pair(v, 1), pair(v + 1, 0),
                                  pair(v + 1, 1)};
-          vmax = __hmax2_nan(vmax, __hmax2_nan(e[0], e[1]));
+          vmax = __hmax2_nan(vmax, __hmax2_nan(bin0 ? e[0] : zero2,
+                                               bin1 ? e[1] : zero2));
           if (c + 8 < width)
-            vmax = __hmax2_nan(vmax, __hmax2_nan(e[2], e[3]));
+            vmax = __hmax2_nan(vmax, __hmax2_nan(bin0 ? e[2] : zero2,
+                                                 bin1 ? e[3] : zero2));
           if (!inside) e[0] = e[1] = e[2] = e[3] = nan2;
           asm volatile(
               "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, "
@@ -539,11 +541,11 @@ window_pool_wgmma_kernel(const __grid_constant__ WgmmaParams w) {
         }
       }
     } else {
-      // rows 48-63, of which only 48 exists: pair by pair
+      // rows 48-63, of which only 48 can be a bin (G = 7): pair by pair
 #pragma unroll
       for (int v = 0; v < 32; ++v) {
         const int c = cw + 8 * v;
-        if (c < width && m0 < G * G) {
+        if (c < width && m0 < bins) {
           const __nv_bfloat162 e = pair(v, 0);
           vmax = __hmax2_nan(vmax, e);
           *reinterpret_cast<__nv_bfloat162*>(&sm.tile[m0][c]) =

@@ -37,18 +37,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu,
 # csrc/window_read_probe.cu)
 _SIGNATURES = {
-    "mpn_window_pool_multi": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+    "mpn_window_pool_multi": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P],
-    "mpn_pool_kernel_attrs": [_I, _I, _I, _P],
-    "mpn_quant_view": [_I, _I, _I, _P, _P, _P, _P, _P],
+    "mpn_resident_pool": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P],
+    "mpn_pool_kernel_attrs": [_I, _I, _I, _I, _P],
+    "mpn_quant_view": [_I, _I, _I, _I, _P, _P, _P, _P, _P],
     "mpn_grad_scratch_words": [_I, _I, _I, _I],
-    "mpn_window_grad": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    "mpn_window_grad": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                         _P, _P],
-    "mpn_window_rmw_grad": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    "mpn_window_rmw_grad": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                             _P, _P],
-    "mpn_grad_kernel_attrs": [_I, _P],
+    "mpn_grad_kernel_attrs": [_I, _I, _P],
     "mpn_window_read_probe": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mpn_window_read_probe_scratch_words": [_I, _I],
     "mpn_probe_kernel_attrs": [_I, _P],

@@ -8,6 +8,11 @@ and the bilinear weight rows wy (G, 10) and wx (G, 16) with the S samples
 per bin averaged in (bilinear interpolation is linear, so the sample axis
 folds into the weights). The pool is then
     out[i, j, c] = sum_l sum_{y,x} wy_l[i, y] * wx_l[j, x] * win_l[y, x, c].
+G, the bins a side, is any of 1..G_MAX (7), as the reference's kernels take
+it: a G-bin view's samples need G + 3 rows, and every G reads the one 10 x
+16 window, which lies inside every pyramid scale because the builders give
+each scale at least WINDOW rows (roi_pyramid.scale_rows). The kernels
+refuse any other G and any other window; nothing falls back.
 
 As the reference's kernels compute it, the weights are combined first:
 W2 = wy (x) wx, the float32 product rounded once to the pyramid dtype, then
@@ -60,6 +65,8 @@ from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
 from multipathnet_tpu_torch.ops.scatter import scatter_rows
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the most bins a side: G + 3 window rows must fit the WINDOW-row window
+G_MAX = WINDOW - 3
 # the pool kernels' own int8 epilogue gives one block a whole view: the bf16
 # body's 512-channel tile, the float32 body's 256 threads x 2 channels;
 # wider views take the epilogue kernel in a second launch
@@ -75,9 +82,7 @@ def view_geometry(pyr: Pyramid, rois: torch.Tensor, *, output_size: int = 7,
     f32. Same arithmetic, in float32, as roi_pallas.view_geometry.
     """
     g, s = output_size, samples_per_bin
-    if g + 3 > WINDOW:
-        raise ValueError(f"output_size={g} exceeds the pool kernels' "
-                         f"{WINDOW}-row window (G <= {WINDOW - 3})")
+    _check_bins(g)
     f32 = torch.float32
     dev = rois.device
     b = rois.to(f32) * pyr.base_scale
@@ -192,6 +197,23 @@ def resident_pool_ref(flat, row0, x0, wy, wx, quant_bias=None):
     return q.reshape(b, v, g, g, c), s.reshape(b, v)
 
 
+def _check_bins(g) -> None:
+    """The kernels take G = 1..G_MAX bins a side (the reference's
+    view_geometry asserts G + 3 <= WINDOW)."""
+    if not 1 <= g <= G_MAX:
+        raise ValueError(f"the pool kernels take 1 to {G_MAX} bins a side "
+                         f"(G + 3 rows in their {WINDOW}-row window), got "
+                         f"{g}")
+
+
+def _check_holds_window(name, rows, wmax) -> None:
+    """A buffer (or a K2 image's pyramid) the kernels read must hold one
+    WINDOW x WINDOW_X window: the builders give every scale WINDOW rows."""
+    if rows < WINDOW or wmax < WINDOW_X:
+        raise ValueError(f"{name}: ({rows}, {wmax}) cannot hold a "
+                         f"{WINDOW} x {WINDOW_X} window")
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -260,9 +282,9 @@ def _launch_pool(name, launch, flat, out, scales, quant_bias) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     rc = _build.kernels().mpn_quant_view(
-        _KERNEL_DTYPES[flat.dtype], scales.numel(), flat.shape[-1],
-        pooled.data_ptr(), quant_bias.data_ptr(), out.data_ptr(),
-        scales.data_ptr(), _stream(out.device))
+        _KERNEL_DTYPES[flat.dtype], out.shape[-2], scales.numel(),
+        flat.shape[-1], pooled.data_ptr(), quant_bias.data_ptr(),
+        out.data_ptr(), scales.data_ptr(), _stream(out.device))
     if rc != 0:
         raise RuntimeError(f"quant_view launch failed: cudaError {rc}")
 
@@ -272,10 +294,10 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
 
     flats: L (rows_l, Wmax_l, C) stacked pyramids (same C and dtype, L <= 3);
     row0s/x0s: L (N,) int32 absolute window origins; wys/wxs: L (N, G, 10) /
-    (N, G, 16) float32 weight rows. Returns (N, G, G, C) in the pyramid
-    dtype. With `quant_bias`, the (C,) skip bias in the pyramid dtype (the
-    head's), it runs the int8 epilogue and returns (int8
-    (N, G, G, C), float32 (N,) scales). Replaces
+    (N, G, 16) float32 weight rows, 1 <= G <= 7. Returns (N, G, G, C) in
+    the pyramid dtype. With `quant_bias`, the (C,) skip bias in the
+    pyramid dtype (the head's), it runs the int8 epilogue and returns
+    (int8 (N, G, G, C), float32 (N,) scales). Replaces
     roi_pallas.pallas_window_pool_multi.
     """
     if flats[0].device.type == "cpu":
@@ -331,8 +353,8 @@ def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
                              f"{tuple(flat.shape)}")
         if flat.dtype != flat0.dtype or flat.shape[-1] != c:
             raise ValueError("all levels must share dtype and channels")
-    if g != 7:
-        raise ValueError(f"the kernel is written for G=7 bins, got {g}")
+        _check_holds_window(f"flats[{lv}]", flat.shape[0], flat.shape[1])
+    _check_bins(g)
     row0 = torch.stack(list(row0s))
     x0 = torch.stack(list(x0s))
     wy = torch.stack(list(wys))
@@ -353,8 +375,8 @@ def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
     with torch.cuda.device(dev):
         _launch_pool("window_pool_kernel", lambda bias, dst, scale: (
             _build.kernels().mpn_window_pool_multi(
-                _KERNEL_DTYPES[flat0.dtype], nl, n, c, *ptrs, *rows, *wmax,
-                row0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+                _KERNEL_DTYPES[flat0.dtype], g, nl, n, c, *ptrs, *rows,
+                *wmax, row0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
                 wx.data_ptr(), bias, dst, scale, _stream(dev))), flat0, out,
             scales, quant_bias)
     return out, scales, 1
@@ -378,8 +400,8 @@ def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
                          f"{tuple(flat.shape)}")
     b, rows, wmax, c = flat.shape
     v, g = wy.shape[1:3]
-    if g != 7:
-        raise ValueError(f"the kernel is written for G=7 bins, got {g}")
+    _check_bins(g)
+    _check_holds_window("flat", rows, wmax)
     _check("row0", row0, (b, v), torch.int32, dev)
     _check("x0", x0, (b, v), torch.int32, dev)
     _check("wy", wy, (b, v, g, WINDOW), torch.float32, dev)
@@ -392,7 +414,7 @@ def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
     with torch.cuda.device(dev):
         _launch_pool("resident_pool", lambda bias, dst, scale: (
             _build.kernels().mpn_resident_pool(
-                _KERNEL_DTYPES[flat.dtype], b, v, rows, wmax, c,
+                _KERNEL_DTYPES[flat.dtype], g, b, v, rows, wmax, c,
                 flat.data_ptr(), row0.data_ptr(), x0.data_ptr(),
                 wy.data_ptr(), wx.data_ptr(), bias, dst, scale,
                 _stream(dev))), flat, out, scales, quant_bias)
@@ -487,15 +509,14 @@ def _check_grad_args(gout, row0, x0, wy, wx, dtype, dev):
     if dtype not in _GRAD_OUT_DTYPES:
         raise TypeError(f"the kernel writes float32 or bfloat16, got {dtype}")
     n, g = wy.shape[:2]
-    if g != 7:
-        raise ValueError(f"the kernel is written for G=7 bins, got {g}")
+    _check_bins(g)
     c = gout.shape[-1]
     _check("gout", gout, (n, g, g, c), torch.float32, dev)
     _check("row0", row0, (n,), torch.int32, dev)
     _check("x0", x0, (n,), torch.int32, dev)
     _check("wy", wy, (n, g, WINDOW), torch.float32, dev)
     _check("wx", wx, (n, g, WINDOW_X), torch.float32, dev)
-    return n, c
+    return n, g, c
 
 
 def _grad_kernels():
@@ -528,7 +549,7 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
         return window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows,
                                wmax).to(dtype)
     dev = gout.device
-    n, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dtype, dev)
+    n, g, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dtype, dev)
     _check_windows(row0_rel, x0, rows, wmax)
     if n % batch:
         raise ValueError(f"{n} views do not split over {batch} images")
@@ -536,7 +557,7 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
     scratch = _grad_scratch(batch, rows, wmax, n, dev)
     with torch.cuda.device(dev):
         rc = _grad_kernels().mpn_window_grad(
-            _GRAD_OUT_DTYPES[dtype], batch, n // batch, rows, wmax, c,
+            _GRAD_OUT_DTYPES[dtype], g, batch, n // batch, rows, wmax, c,
             gout.data_ptr(), row0_rel.data_ptr(), x0.data_ptr(),
             wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), _stream(dev))
@@ -563,7 +584,7 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
         _check_windows(row0, x0, rows, wmax)
         return window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype)
     dev = gout.device
-    n, gc = _check_grad_args(gout, row0, x0, wy, wx, dtype, dev)
+    n, g, gc = _check_grad_args(gout, row0, x0, wy, wx, dtype, dev)
     if gc != c:
         raise ValueError(f"gout has {gc} channels, the buffer {c}")
     _check_windows(row0, x0, rows, wmax)
@@ -571,7 +592,7 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
     scratch = _grad_scratch(1, rows, wmax, n, dev)
     with torch.cuda.device(dev):
         rc = _grad_kernels().mpn_window_rmw_grad(
-            _GRAD_OUT_DTYPES[dtype], n, rows, wmax, c, gout.data_ptr(),
+            _GRAD_OUT_DTYPES[dtype], g, n, rows, wmax, c, gout.data_ptr(),
             row0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), _stream(dev))
     if rc != 0:

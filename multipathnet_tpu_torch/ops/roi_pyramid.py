@@ -2,9 +2,14 @@
 
 Average pyramids feed the align route: each (ROI, foveal) view picks the
 pyramid scale where its G bins span (0.5, 1] cell, so all of its bilinear
-samples fall in one fixed WINDOW x WINDOW_X window (ops/roi_pool.py). Each
-level's scales are stacked along rows in ONE (sum_rows, Wmax, C) buffer
-with per-scale row offsets, so scale selection is an offset add.
+samples fall in G + 3 rows, inside the one fixed WINDOW x WINDOW_X (10 x
+16) window that the pool kernels read at every G <= 7 (ops/roi_pool.py).
+Each level's scales are stacked along rows in ONE (sum_rows, Wmax, C)
+buffer with per-scale row offsets, so scale selection is an offset add.
+Every scale takes at least max(window_sizes(G)[0], WINDOW) rows, so a
+kernel window of a scale shorter than that stays inside its buffer (the
+reference gives a scale window_sizes(G)[0] rows, which at G < 7 is fewer
+than its own kernels' window: C12, ROADMAP.md).
 
 `pyramid_roi_align(mode="avg"|"max")` is the reference's bilinear window
 sampler at any G and S, in plain ops (the reference computes it in XLA;
@@ -43,8 +48,15 @@ def window_sizes(output_size: int) -> tuple:
     return output_size + 3, -(-(output_size + 9) // 8) * 8
 
 
-# The G=7 window the pool kernels are written for.
+# The pool kernels' window, G = 7's, which they read at every G <= 7.
 WINDOW, WINDOW_X = window_sizes(7)
+
+
+def scale_rows(output_size: int) -> int:
+    """The fewest rows a pyramid scale takes: the sampling window's, and at
+    least the pool kernels' WINDOW, so that their window at any G <= 7
+    lies inside every scale (G >= 7: window_sizes(G)[0], the reference's)."""
+    return max(window_sizes(output_size)[0], WINDOW)
 
 
 class Pyramid(NamedTuple):
@@ -75,23 +87,24 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
     mode="avg": 2x area pooling that divides by the count of valid cells
     (an odd dimension's last cell pools alone), zero padding. Sums run in
     the feature dtype, as in the reference. mode="max": 2x max pooling,
-    _NEG padding. meta describes ONE image's pyramid; its flat is image
-    0's rows (a view). The slice assignments into the buffers are
-    differentiable: the pyramid's gradient flows back to feats.
+    _NEG padding. Each scale takes max(its height, scale_rows(G)) rows.
+    meta describes ONE image's pyramid; its flat is image 0's rows (a
+    view). The slice assignments into the buffers are differentiable: the
+    pyramid's gradient flows back to feats.
     """
     if mode not in ("avg", "max"):
         raise ValueError(f"mode must be avg|max, got {mode!r}")
     b, h, w, c = feats.shape
     if num_scales is None:
         num_scales = num_scales_for(h, w, output_size)
-    win_y, win_x = window_sizes(output_size)
-    wmax = max(-(-w // 8) * 8, win_x)
+    min_rows = scale_rows(output_size)
+    wmax = max(-(-w // 8) * 8, window_sizes(output_size)[1])
     heights, widths, rows = [], [], []
     ch, cw = h, w
     for _ in range(num_scales):
         heights.append(ch)
         widths.append(cw)
-        rows.append(max(ch, win_y))
+        rows.append(max(ch, min_rows))
         ch, cw = (ch + ch % 2) // 2, (cw + cw % 2) // 2
     offsets = [sum(rows[:i]) for i in range(num_scales)]
     total = sum(rows)

@@ -156,8 +156,9 @@ def test_npz_loaders_and_install(tmp_path):
 
 # ------------------------------------------------------------ .t7 graph ---
 
-def _graph_bytes(seed):
-    """A whole MultiPath nn graph in the reference's container layout:
+def _graph_bytes(seed, g=7):
+    """A whole MultiPath nn graph in the reference's container layout, its
+    ROI pools g x g:
     DataParallelTable (two trunk replicas; only the first is read) of a
     VGG-16 trunk in SpatialConvolutionMM's flattened layout, a
     cudnn.SpatialConvolution 1x1 reduce, a ParallelTable foveal bank of
@@ -186,13 +187,13 @@ def _graph_bytes(seed):
         gw.container("nn.Sequential", trunk),
         gw.container("nn.Sequential", replica)])
     skip = {"c3": 256, "c4": 512, "c5": 512}
-    head = _head_state(rng, skip, d=16, fc=24, n_k=3, ncls=5)
+    head = _head_state(rng, skip, d=16, g=g, fc=24, n_k=3, ncls=5)
     state.update(head)
     reduce_mod = gw.module("cudnn.SpatialConvolution",
                            {"weight": head["reduce.weight"],
                             "bias": head["reduce.bias"]})
     branches = [gw.container("nn.Sequential", [
-        gw.module("inn.ROIPooling", scalars={"W": 7, "H": 7}),
+        gw.module("inn.ROIPooling", scalars={"W": g, "H": g}),
         gw.module("nn.Linear", {"weight": head[f"fc6.{i}.weight"],
                                 "bias": head[f"fc6.{i}.bias"]}),
         gw.module("nn.Dropout", scalars={"p": 0.5}),

@@ -1253,3 +1253,188 @@ def test_trainable_k1_at_one_level_with_backward(cuda):
                                **_tol(torch.float32))
     (want,) = torch.autograd.grad((plain * gout).sum(), [flat])
     _assert_grad_close(got, want)
+
+
+# ----------------------------------------------- G = 1..7 bins a side ---
+
+BINS = [1, 2, 3, 4, 5, 6, 7]
+
+
+def _bins_case(dev, dtype, g, c, seed, b=2, canvas=256, n=240):
+    """c3/c4/c5 pyramids built for G bins (output_size=g) on a 256^2
+    canvas, whose coarsest c5 scale has fewer than 10 rows (4 at G = 6),
+    and image-major views at every scale, a third of them over the
+    border: -> (pyramids, views, each view's image). Some views must land
+    on c5's coarsest scale, where a window of G + 3 rows would do but
+    the kernels read 10."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pyrs = []
+    for s in (4, 8, 16):
+        f = torch.randn((b, canvas // s, canvas // s, c), generator=gen,
+                        device=dev).to(dtype)
+        pyrs.append(roi_pyramid.build_pyramid_batch(f, 1.0 / s,
+                                                    output_size=g))
+    rng = np.random.default_rng(seed)
+    views = torch.from_numpy(_rois(rng, n, canvas)).to(dev)
+    views[: n // 8] = torch.tensor([0.0, 0.0, canvas, canvas], device=dev)
+    img = torch.arange(b, dtype=torch.int32,
+                       device=dev).repeat_interleave(n // b)
+    meta = pyrs[-1][1]
+    row0 = roi_pool.view_geometry(meta, views, output_size=g)[0]
+    last = int(meta.row_offsets[-1])
+    assert int(meta.heights[-1]) < 10 <= meta.flat.shape[0] - last
+    assert int((row0 >= last).sum()) > 0
+    return pyrs, views, img
+
+
+def _bins_args(pyrs, views, img, g):
+    """K1's arguments over every level of `pyrs` at G bins."""
+    args = [[], [], [], [], []]
+    for flat, meta in pyrs:
+        row0, x0, wy, wx = roi_pool.view_geometry(meta, views,
+                                                  output_size=g)
+        row0 = (row0 + img * meta.flat.shape[0]).contiguous()
+        for dst, v in zip(args, (flat, row0, x0, wy, wx)):
+            dst.append(v)
+    return args
+
+
+def _bins_k2_args(pyrs, views, b, g):
+    """K2's arguments over the last level of `pyrs` at G bins."""
+    flat, meta = pyrs[-1]
+    row0, x0, wy, wx = roi_pool.view_geometry(meta, views, output_size=g)
+    rows, wmax, c = meta.flat.shape
+    v = views.shape[0] // b
+    return [flat.reshape(b, rows, wmax, c), row0.reshape(b, v),
+            x0.reshape(b, v), wy.reshape(b, v, g, 10),
+            wx.reshape(b, v, g, 16)]
+
+
+@pytest.mark.parametrize("c", [512, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", BINS)
+def test_pool_kernels_take_every_bin_count(cuda, g, dtype, c):
+    """K1 (c3 + c4 + c5), K2 (c5) and K5 (c3) at G bins a side, 1..7,
+    against their plain versions at the existing tolerances: (N, G, G, C)
+    in the pyramid dtype, border views on c5's coarsest scale included."""
+    b = 2
+    pyrs, views, img = _bins_case(cuda, dtype, g, c, seed=60 + g)
+    k1 = _bins_args(pyrs, views, img, g)
+    k2 = _bins_k2_args(pyrs, views, b, g)
+    k5 = [t[0] for t in k1]
+    n = views.shape[0]
+    for kern, ref, args, shape in (
+            (roi_pool.window_pool_multi, roi_pool.window_pool_multi_ref,
+             k1, (n, g, g, c)),
+            (roi_pool.resident_pool, roi_pool.resident_pool_ref, k2,
+             (b, n // b, g, g, c)),
+            (roi_pool.window_pool, roi_pool.window_pool_ref, k5,
+             (n, g, g, c))):
+        launches = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == launches + 1
+        want = ref(*args)
+        assert got.dtype == want.dtype == dtype and got.shape == shape
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("c", [512, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", BINS)
+def test_quant_epilogue_takes_every_bin_count(cuda, g, dtype, c):
+    """The int8 instances of K1 and K2 at G bins: each view's scale over
+    its G^2 x C values, bit for bit against quant_view_ref of the same
+    kernel's pooled output; codes within 1 and scales to the pooled
+    tolerance against the fully plain version. C = 1024: the pool, then
+    the epilogue kernel."""
+    b = 2
+    pyrs, views, img = _bins_case(cuda, dtype, g, c, seed=70 + g)
+    gen = torch.Generator(device=cuda).manual_seed(70 + g)
+    bias = (torch.randn(c, generator=gen, device=cuda) * 0.5).to(dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    for kern, ref, args in (
+            (roi_pool.window_pool_multi, roi_pool.window_pool_multi_ref,
+             _bins_args(pyrs, views, img, g)),
+            (roi_pool.resident_pool, roi_pool.resident_pool_ref,
+             _bins_k2_args(pyrs, views, b, g))):
+        launches = kern.quant_launches
+        q, s = kern(*args, quant_bias=bias)
+        pooled = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.quant_launches == launches + 1
+        n = s.numel()
+        assert q.shape == pooled.shape and q.shape[-3:] == (g, g, c)
+        own_q, own_s = roi_pool.quant_view_ref(pooled.reshape(n, g, g, c),
+                                               bias)
+        assert torch.equal(q.reshape(n, g, g, c), own_q)
+        assert torch.equal(s.reshape(n), own_s)
+        plain_q, plain_s = ref(*args, quant_bias=bias)
+        assert (q.int() - plain_q.int()).abs().max() <= 1
+        torch.testing.assert_close(s, plain_s, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", BINS)
+def test_grad_kernels_take_every_bin_count(cuda, g, dtype):
+    """K3 (c5, image-relative rows) and K4 (c3, absolute rows) at G bins
+    a side against their plain versions, each output bit-equal over two
+    calls (the fixed order holds at every G)."""
+    b, c = 2, 200
+    pyrs, views, img = _bins_case(cuda, torch.float32, g, c, seed=80 + g)
+    gen = torch.Generator(device=cuda).manual_seed(80 + g)
+    gout = torch.randn((views.shape[0], g, g, c), generator=gen,
+                       device=cuda)
+    (c3, c3_meta), (c5, c5_meta) = pyrs[0], pyrs[-1]
+    row0, x0, wy, wx = roi_pool.view_geometry(c5_meta, views, output_size=g)
+    rows, wmax = c5_meta.flat.shape[:2]
+    args = (gout, row0, x0, wy, wx, b, rows, wmax)
+    k3 = [roi_pool.window_grad(*args, dtype) for _ in range(2)]
+    want3 = roi_pool.window_grad_ref(*args)
+    row0, x0, wy, wx = roi_pool.view_geometry(c3_meta, views, output_size=g)
+    absolute = (row0 + img * c3_meta.flat.shape[0]).contiguous()
+    args = (gout, absolute, x0, wy, wx, tuple(c3.shape))
+    k4 = [roi_pool.window_rmw_grad(*args, dtype) for _ in range(2)]
+    want4 = roi_pool.window_rmw_grad_ref(*args, torch.float32)
+    torch.cuda.synchronize()
+    for runs, want in ((k3, want3), (k4, want4)):
+        assert torch.equal(*runs)
+        assert runs[0].dtype == dtype
+        _assert_grad_close(runs[0], want)
+
+
+def test_kernels_refuse_bins_outside_1_to_7(cuda):
+    """G = 0 or 8, a weight row of another window's width, or a buffer
+    shorter than the 10-row window raises before any launch; nothing
+    falls back to the plain version."""
+    pyrs, views, img = _bins_case(cuda, torch.bfloat16, 6, 64, seed=90)
+    k1 = _bins_args(pyrs, views, img, 6)
+    flat, row0, x0, wy, wx = (t[0] for t in k1)
+    n = row0.numel()
+    counts = roi_pool.launch_counts()
+    for g in (0, 8):
+        bad_wy = torch.zeros((n, g, 10), device=cuda)
+        bad_wx = torch.zeros((n, g, 16), device=cuda)
+        with pytest.raises(ValueError, match="bins a side"):
+            roi_pool.window_pool_multi([flat], [row0], [x0], [bad_wy],
+                                       [bad_wx])
+        with pytest.raises(ValueError, match="bins a side"):
+            roi_pool.window_grad(torch.zeros((n, g, g, 64), device=cuda),
+                                 row0 % 10, x0, bad_wy, bad_wx, 1,
+                                 flat.shape[0], flat.shape[1])
+        with pytest.raises(ValueError, match="bins a side"):
+            roi_pool.view_geometry(pyrs[0][1], views, output_size=g)
+    with pytest.raises(ValueError, match="wys"):
+        roi_pool.window_pool_multi([flat], [row0], [x0], [wy[..., :9]
+                                                          .contiguous()],
+                                   [wx])
+    with pytest.raises(ValueError, match="cannot hold"):
+        roi_pool.window_pool_multi([flat[:9]], [row0], [x0], [wy], [wx])
+    with pytest.raises(ValueError, match="cannot hold"):
+        roi_pool.resident_pool(flat[:9][None], row0[None] * 0, x0[None],
+                               wy[None], wx[None])
+    assert roi_pool.launch_counts() == counts
