@@ -370,36 +370,32 @@ POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool_wgmma.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
 PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
-# name -> (source, the TPU kernel it replaces, wrapper, its launch counter)
+# name -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "window_pool_multi": (POOL_SOURCE, f"{PALLAS}:472",
-                          roi_pool.window_pool_multi, "launches"),
-    "resident_pool": (POOL_SOURCE, f"{PALLAS}:940", roi_pool.resident_pool,
-                      "launches"),
-    "window_pool_multi_quant": (POOL_SOURCE, f"{PALLAS}:536",
-                                roi_pool.window_pool_multi,
-                                "quant_launches"),
-    "resident_pool_quant": (POOL_SOURCE, f"{PALLAS}:977",
-                            roi_pool.resident_pool, "quant_launches"),
-    "window_grad": (GRAD_SOURCE, f"{PALLAS}:659", roi_pool.window_grad,
-                    "launches"),
-    "window_rmw_grad": (GRAD_SOURCE, f"{PALLAS}:745",
-                        roi_pool.window_rmw_grad, "launches"),
-    "window_pool": (POOL_SOURCE, f"{PALLAS}:113", roi_pool.window_pool,
-                    "launches"),
-    "window_read_probe": (PROBE_SOURCE, "tools/probe_int8_window_dma.py:30",
-                          probe.window_read_probe, "launches"),
+    "window_pool_multi": (POOL_SOURCE, f"{PALLAS}:472"),
+    "resident_pool": (POOL_SOURCE, f"{PALLAS}:940"),
+    "window_pool_multi_quant": (POOL_SOURCE, f"{PALLAS}:536"),
+    "resident_pool_quant": (POOL_SOURCE, f"{PALLAS}:977"),
+    "window_grad": (GRAD_SOURCE, f"{PALLAS}:659"),
+    "window_rmw_grad": (GRAD_SOURCE, f"{PALLAS}:745"),
+    "window_pool": (POOL_SOURCE, f"{PALLAS}:113"),
+    "window_read_probe": (PROBE_SOURCE, "tools/probe_int8_window_dma.py:30"),
 }
 
 
 def reset_launches() -> None:
-    for _, _, fn, counter in KERNELS.values():
-        setattr(fn, counter, 0)
+    """Zeroes the pool kernels' counts (roi_pool.reset_launch_counts) and
+    the probe's."""
+    roi_pool.reset_launch_counts()
+    probe.window_read_probe.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: getattr(fn, counter)
-            for name, (_, _, fn, counter) in KERNELS.items()}
+    """The launches of each kernel of KERNELS: roi_pool.launch_counts()
+    (placements left out) and the probe's."""
+    counts = {**roi_pool.launch_counts(),
+              "window_read_probe": probe.window_read_probe.launches}
+    return {name: counts[name] for name in KERNELS}
 
 
 LEVELS = (("c3", 4), ("c4", 8), ("c5", 16))
@@ -4464,7 +4460,7 @@ def main() -> None:
         "bound_by": stats[name]["bound_by"],
         "library_ms": None,   # no single PyTorch call computes the function
         **extra.get(name, {}), **stats[name].get("extra", {}),
-    } for name, (source, replaces, _, _) in KERNELS.items()]
+    } for name, (source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,9 +132,7 @@ def measure(preset_name: str, args, raw_inputs, device) -> float:
     released on return so the presets run back to back in one process."""
     from multipathnet_tpu_torch.core.config import preset
     from multipathnet_tpu_torch.eval.detect import detect_batch
-    from multipathnet_tpu_torch.ops import _build
-    from multipathnet_tpu_torch.tools.mesh_runs import (read_launches,
-                                                        reset_launches)
+    from multipathnet_tpu_torch.ops import _build, roi_pool
     from multipathnet_tpu_torch.utils.profiling import synchronize
 
     log(f"[{preset_name}] init "
@@ -160,13 +158,13 @@ def measure(preset_name: str, args, raw_inputs, device) -> float:
         f"{int(out['valid'][0].sum())}")
     synchronize(detect_batch(model, cfg, *inputs))
 
-    reset_launches()
+    roi_pool.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(args.iters):
         out = detect_batch(model, cfg, *inputs)
     synchronize(out)
     dt = time.perf_counter() - t0
-    launches = read_launches()
+    launches = roi_pool.launch_counts()
     ips = args.batch * args.iters / dt
     log(f"[{preset_name}] {args.iters} iters x {args.batch} imgs in "
         f"{dt:.2f}s = {ips:.1f} img/s")

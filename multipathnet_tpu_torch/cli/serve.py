@@ -21,7 +21,12 @@ Protocol (JSON in, JSON out):
   {"error": "..."}.
 
   GET /healthz -> {"ok": true, "config": "<preset name>", ...,
-                   "kernel_launches": {kernel: launches so far}}
+                   "kernel_launches": {kernel: launches so far},
+                   "counters": {counter: count so far}}
+  `counters` is utils/profiling.counters(): the host's blocking waits on
+  the card by site (sync.<site>), NMS rounds (nms.rounds), bytes put on
+  the card (h2d.bytes) and copied back (d2h.bytes), the kernels' launches
+  (launches.<kernel>).
 
 Images may be any size up to the bundle's canvas; each request is padded
 to the bundle's batch, canvas and proposal count, and split into batches
@@ -123,6 +128,7 @@ def make_handler(service: DetectionService):
     from http.server import BaseHTTPRequestHandler
 
     from multipathnet_tpu_torch.ops import roi_pool
+    from multipathnet_tpu_torch.utils import profiling
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict) -> None:
@@ -147,6 +153,7 @@ def make_handler(service: DetectionService):
                 "canvas": list(service.canvas),
                 "max_proposals": service.max_proposals,
                 "kernel_launches": roi_pool.launch_counts(),
+                "counters": profiling.counters(),
             })
 
         def do_POST(self):

@@ -1,9 +1,14 @@
-"""The device an entry point runs on when its caller names none, and the
-host-to-device copy that prefetching consumers use."""
+"""The device an entry point runs on when its caller names none, the
+synchronous put of a host array, and the host-to-device copy that
+prefetching consumers use. Both count the bytes they take from the host
+(counter h2d.bytes, utils/profiling); `put` counts its wait on the card
+(sync.put)."""
 
 from __future__ import annotations
 
 import torch
+
+from multipathnet_tpu_torch.utils import profiling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -17,6 +22,24 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on an NVIDIA GPU by default; "
             "pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def _host_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def put(x, dtype, device) -> torch.Tensor:
+    """x (numpy, a host tensor, or a tensor already on a device) -> a
+    tensor of `dtype` on `device`. Host data is copied synchronously
+    (from pageable memory the copy waits for the card's stream), and its
+    bytes are counted even on the CPU, where the tensor may share the
+    array's memory; a tensor on a device is used as it is or converted
+    there."""
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
+        profiling.count("h2d.bytes", _host_bytes(t))
+        profiling.count_sync("put", t.device)
+    return t
 
 
 class HostToDevice:
@@ -39,13 +62,14 @@ class HostToDevice:
         """Host arrays (numpy or CPU tensors; None passes through) -> one
         tensor of the paired dtype each, on the device."""
         if self.stream is None:
-            return [None if x is None
-                    else torch.as_tensor(x, dtype=dt, device=self.device)
+            return [None if x is None else put(x, dt, self.device)
                     for x, dt in zip(arrays, dtypes)]
         consumer = torch.cuda.current_stream(self.device)
         host = [None if x is None
                 else torch.as_tensor(x, dtype=dt).pin_memory()
                 for x, dt in zip(arrays, dtypes)]
+        profiling.count("h2d.bytes", sum(_host_bytes(h) for h in host
+                                         if h is not None))
         with torch.cuda.stream(self.stream):
             out = [None if h is None
                    else h.to(self.device, non_blocking=True) for h in host]

@@ -22,6 +22,7 @@ import torch
 
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops.nms import _top_k
+from multipathnet_tpu_torch.utils import profiling
 
 
 class RoiSample(NamedTuple):
@@ -122,6 +123,7 @@ def integral_labels(matched_class, max_iou, is_fg, thresholds
     """Per-head labels of the integral loss (MultiPath §3.3): head k labels
     a sampled ROI with its matched class iff IoU >= threshold_k, else
     background. (..., S) inputs -> (..., S, K) int32."""
+    profiling.count_sync("integral_thresholds", max_iou.device)
     thr = torch.tensor(thresholds, dtype=torch.float32, device=max_iou.device)
     fg_k = is_fg[..., None] & (max_iou[..., None] >= thr)
     return torch.where(fg_k, matched_class[..., None],

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from multipathnet_tpu_torch.utils import profiling
+
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
 # Caffe-origin trunks (the reference's converted VGG/ResNet .t7s): pixels in
@@ -27,11 +29,13 @@ def normalize(image_u8: torch.Tensor, preprocess: str = "rgb_unit"
     float32, with no scale ("caffe_bgr")."""
     if preprocess == "caffe_bgr":
         x = image_u8.to(torch.float32).flip(-1)  # RGB -> BGR
+        profiling.count_sync("normalize", x.device)
         return x - torch.tensor(CAFFE_BGR_MEAN, dtype=torch.float32,
                                 device=x.device)
     if preprocess != "rgb_unit":
         raise ValueError(f"unknown preprocess {preprocess!r}")
     x = image_u8.to(torch.float32) / 255.0
+    profiling.count_sync("normalize", x.device, 2)
     mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
@@ -113,6 +117,7 @@ def resize_to_canvas(image_u8: torch.Tensor, canvas_hw, src_hw=None,
         return canvas[0], scale[0]
     (ch, cw), (h, w) = canvas_hw, image_u8.shape[:2]
     dev = image_u8.device
+    profiling.count_sync("resize_scale", dev, 3)
     scale = torch.tensor([min(ch / h, cw / w)], dtype=torch.float32,
                          device=dev)
     sh = torch.tensor([float(h)], device=dev)

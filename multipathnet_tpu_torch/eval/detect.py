@@ -29,6 +29,12 @@ batch; the images are independent, so the split is exact. On a model
 axis wider than one the head is tensor-parallel (models/heads.
 shard_head_), which leaves the int8 head's outputs bit for bit the
 unsharded ones.
+
+`Detector.__call__` is the root span "detect" (utils/profiling): its
+children are detect.put (the inputs' copies), detect.resize, the model's
+features, pool_rois and predict_rois, detect.decode (softmax mean, delta
+decode, clip), multiclass_nms and detect.fetch (the outputs' copies back,
+counted as sync.fetch and d2h.bytes).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from multipathnet_tpu_torch.core.config import Config, ModelConfig
+from multipathnet_tpu_torch.core.device import put
 from multipathnet_tpu_torch.core.mesh import all_gather_cat
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert
@@ -45,6 +52,7 @@ from multipathnet_tpu_torch.models.multipath import (KERNEL_ROUTES,
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops import lowrank, quant
 from multipathnet_tpu_torch.ops import nms as nms_ops
+from multipathnet_tpu_torch.utils import profiling
 
 
 @torch.inference_mode()
@@ -57,9 +65,10 @@ def score_batch(model: MultiPathNet, cfg: Config,
     Returns (boxes (B, P, C, 4), probs (B, P, C))."""
     canvas_hw = cfg.data.image_size
     b, p = proposals.shape[:2]
-    canvases, scales = transforms.batch_resize_to_canvas(
-        images_u8, canvas_hw, src_hws, preprocess=cfg.model.preprocess)
-    rois = proposals.to(torch.float32) * scales[:, None, None]
+    with profiling.span("detect.resize"):
+        canvases, scales = transforms.batch_resize_to_canvas(
+            images_u8, canvas_hw, src_hws, preprocess=cfg.model.preprocess)
+        rois = proposals.to(torch.float32) * scales[:, None, None]
 
     feats = model.features(canvases)
     m = cfg.model
@@ -84,22 +93,25 @@ def score_batch(model: MultiPathNet, cfg: Config,
         scores = torch.cat([s_ for s_, _ in parts], dim=1)[:, :p]
         deltas = torch.cat([d_ for _, d_ in parts], dim=1)[:, :p]
 
-    # integral heads: average the K softmaxes (MultiPath §3.3 test protocol)
-    probs = torch.softmax(scores, dim=-1).mean(dim=2)   # (B, P, C)
-    num_classes = probs.shape[-1]
+    with profiling.span("detect.decode"):
+        # integral heads: average the K softmaxes (MultiPath §3.3 test
+        # protocol)
+        probs = torch.softmax(scores, dim=-1).mean(dim=2)   # (B, P, C)
+        num_classes = probs.shape[-1]
 
-    if m.class_specific_bbox:
-        d = deltas.reshape(b, p, num_classes, 4)
-    else:
-        d = deltas[:, :, None, :].expand(b, p, num_classes, 4)
-    boxes = box_ops.decode(rois[:, :, None, :], d, means=m.bbox_reg_means,
-                           stds=m.bbox_reg_stds)
-    # clip to each image's scaled valid extent, then back to original coords
-    lim = src_hws.to(torch.float32) * scales[:, None]    # (B, 2) = (h, w)*s
-    hi = torch.stack([lim[:, 1], lim[:, 0], lim[:, 1], lim[:, 0]], -1)
-    boxes = torch.minimum(torch.clamp(boxes, min=0.0),
-                          hi[:, None, None, :])
-    return boxes / scales[:, None, None, None], probs
+        if m.class_specific_bbox:
+            d = deltas.reshape(b, p, num_classes, 4)
+        else:
+            d = deltas[:, :, None, :].expand(b, p, num_classes, 4)
+        boxes = box_ops.decode(rois[:, :, None, :], d,
+                               means=m.bbox_reg_means, stds=m.bbox_reg_stds)
+        # clip to each image's scaled valid extent, then back to original
+        # coords
+        lim = src_hws.to(torch.float32) * scales[:, None]  # (B, 2) (h, w)*s
+        hi = torch.stack([lim[:, 1], lim[:, 0], lim[:, 1], lim[:, 0]], -1)
+        boxes = torch.minimum(torch.clamp(boxes, min=0.0),
+                              hi[:, None, None, :])
+        return boxes / scales[:, None, None, None], probs
 
 
 @torch.inference_mode()
@@ -173,6 +185,7 @@ class Detector:
         if mesh is not None:
             shard_head_(self.model.head, mesh)
 
+    @profiling.span("detect")
     def __call__(self, images_u8, src_hws, proposals, prop_mask) -> dict:
         """A batch (numpy or tensors) -> its detections as numpy arrays;
         on a mesh each rank detects its rows and returns the whole
@@ -186,15 +199,23 @@ class Detector:
     def detect_rows(self, images_u8, src_hws, proposals, prop_mask) -> dict:
         """This rank's rows of a batch -> the whole batch's detections
         (all-gathered over the mesh's data axis), as numpy arrays."""
-        def put(x, dtype):
-            return torch.as_tensor(x, dtype=dtype, device=self.device)
-
-        out = detect_batch(self.model, self.cfg,
-                           put(images_u8, torch.uint8),
-                           put(src_hws, torch.float32),
-                           put(proposals, torch.float32),
-                           put(prop_mask, torch.bool))
+        dev = self.device
+        with profiling.span("detect.put"):
+            inputs = (put(images_u8, torch.uint8, dev),
+                      put(src_hws, torch.float32, dev),
+                      put(proposals, torch.float32, dev),
+                      put(prop_mask, torch.bool, dev))
+        out = detect_batch(self.model, self.cfg, *inputs)
         if self.mesh is not None:
             out = {k: all_gather_cat(v, self.mesh.data_group)
                    for k, v in out.items()}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with profiling.span("detect.fetch"):
+            return {k: _fetch(v) for k, v in out.items()}
+
+
+def _fetch(t: torch.Tensor):
+    """A result tensor -> numpy on the host: a blocking copy on the card
+    (sync.fetch), its bytes counted (d2h.bytes)."""
+    profiling.count_sync("fetch", t.device)
+    profiling.count("d2h.bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()

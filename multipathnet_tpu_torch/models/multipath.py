@@ -52,6 +52,9 @@ the kernel route in align mode pools through `pool_rois_quantized`: the
 head's skip bias, ReLU and the per-view int8 quantization run in the pool
 kernels' epilogue. On every other route it pools through `pool_rois` and
 the head quantizes its rows.
+
+`features`, `pool_rois` and `predict_rois` are the spans of those names
+(utils/profiling), and no other span opens inside them.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from multipathnet_tpu_torch.models.heads import MultiPathHead
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
+from multipathnet_tpu_torch.utils import profiling
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ROI_ROUTES = ("auto", "direct", "pallas", "pyramid")
@@ -128,6 +132,7 @@ class MultiPathNet(nn.Module):
             quant=cfg.head_quant, fc6_rank=cfg.fc6_rank,
             fc7_rank=cfg.fc7_rank)
 
+    @profiling.span("features")
     def features(self, images: torch.Tensor) -> dict:
         """images (B, H, W, 3) normalized float -> {level: (B, Hl, Wl, C)}
         NHWC, each 1x1-reduced to skip_reduce_dim channels; in max mode the
@@ -166,6 +171,7 @@ class MultiPathNet(nn.Module):
             return "kernels"
         return "direct" if train else impl
 
+    @profiling.span("pool_rois")
     def pool_rois(self, feats: dict, rois: torch.Tensor, image_hw,
                   train: bool = False, quant_bias=None):
         """feats: level -> (B, Hl, Wl, C); rois (B, R, 4) image coords ->
@@ -299,6 +305,7 @@ class MultiPathNet(nn.Module):
         return self.pool_rois(feats, rois, image_hw, train=False,
                               quant_bias=skip_bias.to(self.head.dtype))
 
+    @profiling.span("predict_rois")
     def predict_rois(self, pooled: torch.Tensor, train: bool = False,
                      generator: torch.Generator | None = None,
                      pooled_scale: torch.Tensor | None = None,

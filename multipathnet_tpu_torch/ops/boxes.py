@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from multipathnet_tpu_torch.utils import profiling
+
 # Clamp on tw/th deltas before exp: exp(4.14) ~ 63x growth (log(1000/16));
 # keeps garbage padded rows from overflowing.
 BBOX_XFORM_CLIP = 4.135166556742356
@@ -55,6 +57,10 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _row(values, like: torch.Tensor) -> torch.Tensor:
+    """Host values put beside `like`: on the card a blocking copy
+    (sync.box_consts)."""
+    if not isinstance(values, torch.Tensor):
+        profiling.count_sync("box_consts", like.device)
     return torch.as_tensor(values, dtype=like.dtype, device=like.device)
 
 
@@ -113,6 +119,8 @@ def expand(boxes: torch.Tensor, factor, height=None, width=None
     """Foveal context expansion (MultiPath §3.1): scale each box by
     `factor` about its center; optionally clip to the image."""
     c = to_center_form(boxes)
+    if not isinstance(factor, torch.Tensor):
+        profiling.count_sync("expand", boxes.device)
     f = torch.as_tensor(factor, dtype=boxes.dtype, device=boxes.device)
     wh = c[..., 2:4] * f[..., None]
     out = from_center_form(torch.cat([c[..., 0:2], wh], dim=-1))

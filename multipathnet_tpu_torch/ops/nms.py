@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from multipathnet_tpu_torch.ops import boxes as box_ops
+from multipathnet_tpu_torch.utils import profiling
 
 _NEG = -1e10
 
@@ -70,7 +71,9 @@ def nms_sorted(boxes: torch.Tensor, scores: torch.Tensor,
         keep_i = ok_i and not exists j < i: keep_j and iou(j, i) > t;
     start from keep = ok and recompute every row at once until nothing
     changes (at most N rounds, 3-6 in practice). Problems along the leading
-    axes iterate together; a converged problem stays fixed.
+    axes iterate together; a converged problem stays fixed. Each round,
+    the last one that changes nothing included, is counted (nms.rounds)
+    and reads one flag back from the device (sync.nms_round).
     """
     n = boxes.shape[-2]
     iou = box_ops.iou_matrix(boxes, boxes)
@@ -81,6 +84,8 @@ def nms_sorted(boxes: torch.Tensor, scores: torch.Tensor,
     for _ in range(max(n, 1)):
         kill = torch.any(sup & keep[..., :, None], dim=-2)
         new = ok & ~kill
+        profiling.count("nms.rounds")
+        profiling.count_sync("nms_round", keep.device)
         changed = bool(torch.any(new != keep))
         keep = new
         if not changed:
@@ -88,6 +93,7 @@ def nms_sorted(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
+@profiling.span("multiclass_nms")
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
                    valid: torch.Tensor, *, score_threshold: float,
                    iou_threshold: float, pre_nms_per_class: int,

@@ -53,7 +53,11 @@ kernel for tensors on a CUDA device, and raises for anything else. A
 kernel launches on its input's card (under torch.cuda.device of it, since
 the ctypes launchers take a stream and no device), so a rank pinned to
 cuda:1 never launches on card 0. `launches` on each wrapper counts its
-kernel launches.
+kernel launches; `launch_counts` reads them all (also as the counters
+`launches.<kernel>` of utils/profiling.counters) and `reset_launch_counts`
+zeroes them. The backward of each differentiable form is the span
+"pool_rois.backward"; WindowPoolMulti checks its levels' windows in one
+read before it.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ import torch
 from multipathnet_tpu_torch.ops import quant
 from multipathnet_tpu_torch.ops.roi_pyramid import WINDOW, WINDOW_X, Pyramid
 from multipathnet_tpu_torch.ops.scatter import scatter_rows
+from multipathnet_tpu_torch.utils import profiling
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the most bins a side: G + 3 window rows must fit the WINDOW-row window
@@ -471,17 +476,23 @@ def _image_rows(n, batch, rows, device) -> torch.Tensor:
             * rows).repeat_interleave(n // batch)
 
 
-def _check_windows(row0, x0, rows, wmax) -> None:
+def _check_windows(*buffers) -> None:
     """Every window must lie inside its buffer: view_geometry clamps, and
-    the backward has no counterpart of the forward's NaN rule."""
-    if row0.numel() == 0:
+    the backward has no counterpart of the forward's NaN rule. buffers:
+    (row0, x0, rows, wmax) each, all read from the card at once."""
+    buffers = [b for b in buffers if b[0].numel()]
+    if not buffers:
         return
-    r_lo, r_hi, x_lo, x_hi = torch.stack(
-        [row0.min(), row0.max(), x0.min(), x0.max()]).tolist()
-    if r_lo < 0 or r_hi + WINDOW > rows or x_lo < 0 or x_hi + WINDOW_X > wmax:
-        raise ValueError(
-            f"a window falls outside its ({rows}, {wmax}) buffer: rows "
-            f"{r_lo}..{r_hi}+{WINDOW}, columns {x_lo}..{x_hi}+{WINDOW_X}")
+    profiling.count_sync("check_windows", buffers[0][0].device)
+    bounds = torch.stack([
+        torch.stack([row0.min(), row0.max(), x0.min(), x0.max()])
+        for row0, x0, _, _ in buffers]).tolist()
+    for (r_lo, r_hi, x_lo, x_hi), (_, _, rows, wmax) in zip(bounds, buffers):
+        if (r_lo < 0 or r_hi + WINDOW > rows or x_lo < 0
+                or x_hi + WINDOW_X > wmax):
+            raise ValueError(
+                f"a window falls outside its ({rows}, {wmax}) buffer: rows "
+                f"{r_lo}..{r_hi}+{WINDOW}, columns {x_lo}..{x_hi}+{WINDOW_X}")
 
 
 def window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows, wmax
@@ -533,7 +544,8 @@ def _grad_scratch(batch, rows, wmax, n_views, dev) -> torch.Tensor:
 
 
 def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
-                wmax: int, dtype=torch.float32) -> torch.Tensor:
+                wmax: int, dtype=torch.float32, *,
+                check: bool = True) -> torch.Tensor:
     """K3: the pyramid gradient of one level, image-relative rows.
 
     gout (N, G, G, C) float32 cotangent, views image-major (N = batch * V,
@@ -541,16 +553,19 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
     wy/wx the forward's weight rows. Returns the (batch * rows, wmax, C)
     gradient in `dtype`: float32, as roi_pallas.pallas_window_grad returns
     it, or the pyramid dtype that its caller casts to (float32 or bfloat16
-    on the card), the float32 sum rounded once. Replaces
+    on the card), the float32 sum rounded once. check=False: the caller
+    has checked the windows (_check_windows). Replaces
     roi_pallas.pallas_window_grad.
     """
     if gout.device.type == "cpu":
-        _check_windows(row0_rel, x0, rows, wmax)
+        if check:
+            _check_windows((row0_rel, x0, rows, wmax))
         return window_grad_ref(gout, row0_rel, x0, wy, wx, batch, rows,
                                wmax).to(dtype)
     dev = gout.device
     n, g, c = _check_grad_args(gout, row0_rel, x0, wy, wx, dtype, dev)
-    _check_windows(row0_rel, x0, rows, wmax)
+    if check:
+        _check_windows((row0_rel, x0, rows, wmax))
     if n % batch:
         raise ValueError(f"{n} views do not split over {batch} images")
     out = torch.empty((batch * rows, wmax, c), dtype=dtype, device=dev)
@@ -570,24 +585,28 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
 window_grad.launches = 0
 
 
-def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype) -> torch.Tensor:
+def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype, *,
+                    check: bool = True) -> torch.Tensor:
     """K4: the pyramid gradient of one level, absolute rows.
 
     gout (N, G, G, C) float32; row0/x0 (N,) int32 absolute window origins
     into the stacked (shape[0], shape[1], C) buffer. Returns that buffer in
     `dtype` (float32 or bfloat16 on the card), written once. The TPU kernel
     accumulates in the buffer's dtype one view at a time; this one sums in
-    float32 and rounds once. Replaces roi_pallas.pallas_window_rmw_grad.
+    float32 and rounds once. check=False: the caller has checked the
+    windows. Replaces roi_pallas.pallas_window_rmw_grad.
     """
     rows, wmax, c = shape
     if gout.device.type == "cpu":
-        _check_windows(row0, x0, rows, wmax)
+        if check:
+            _check_windows((row0, x0, rows, wmax))
         return window_rmw_grad_ref(gout, row0, x0, wy, wx, shape, dtype)
     dev = gout.device
     n, g, gc = _check_grad_args(gout, row0, x0, wy, wx, dtype, dev)
     if gc != c:
         raise ValueError(f"gout has {gc} channels, the buffer {c}")
-    _check_windows(row0, x0, rows, wmax)
+    if check:
+        _check_windows((row0, x0, rows, wmax))
     out = torch.empty((rows, wmax, c), dtype=dtype, device=dev)
     scratch = _grad_scratch(1, rows, wmax, n, dev)
     with torch.cuda.device(dev):
@@ -644,6 +663,7 @@ class WindowPool(torch.autograd.Function):
         return window_pool(flat, row0, x0, wy, wx)
 
     @staticmethod
+    @profiling.span("pool_rois.backward")
     def backward(ctx, gout):
         row0, x0, wy, wx = ctx.saved_tensors
         shape, dtype = ctx.flat_meta
@@ -671,6 +691,7 @@ class ResidentPool(torch.autograd.Function):
         return resident_pool(flat, row0, x0, wy, wx)
 
     @staticmethod
+    @profiling.span("pool_rois.backward")
     def backward(ctx, gout):
         row0, x0, wy, wx = ctx.saved_tensors
         (b, rows, wmax, c), dtype = ctx.flat_meta
@@ -721,9 +742,11 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
 place_windows_per_image.calls = 0
 
 
-def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
+def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch, *,
+                check: bool = True):
     """One level's pyramid gradient; without the level's rows per image or
-    the image count, accumulate_windows.
+    the image count, accumulate_windows. check=False: the caller has
+    checked that each image's windows lie inside its rows.
 
     On the CPU it is routed as roi_pallas._mwpt_bwd routes it: K3 within
     _GRAD_VMEM_BUDGET, K4 above _PLACE_PER_IMAGE_MAX_CELLS cells per image,
@@ -739,10 +762,12 @@ def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch):
     n = g.shape[0]
     to_k3 = rows * wmax * c * 4 <= _GRAD_VMEM_BUDGET
     if not to_k3 and rows * wmax > _PLACE_PER_IMAGE_MAX_CELLS:
-        return window_rmw_grad(g, row0, x0, wy, wx, shape, dtype)
+        return window_rmw_grad(g, row0, x0, wy, wx, shape, dtype,
+                               check=check)
     row0_rel = (row0 - _image_rows(n, batch, rows, g.device)).contiguous()
     if to_k3 or g.device.type == "cuda":
-        return window_grad(g, row0_rel, x0, wy, wx, batch, rows, wmax, dtype)
+        return window_grad(g, row0_rel, x0, wy, wx, batch, rows, wmax, dtype,
+                           check=check)
     return place_windows_per_image(row0_rel, x0, window_cotangent(g, wy, wx),
                                    batch, rows, wmax, dtype)
 
@@ -773,11 +798,20 @@ class WindowPoolMulti(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        g = gout.float().contiguous()
-        grads = [
-            _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, ctx.batch)
-            for row0, x0, wy, wx, (shape, dtype), rows in zip(
-                *ctx.geometry, ctx.flat_meta, ctx.rows_list)]
+        levels = list(zip(*ctx.geometry, ctx.flat_meta, ctx.rows_list))
+        # the windows of the levels routed by rows, each inside its image's
+        # rows, in one read before the span, so the span's device interval
+        # starts on a drained stream and holds no wait of the host
+        _check_windows(*[
+            (row0 - _image_rows(len(row0), ctx.batch, rows, row0.device), x0,
+             rows, shape[1])
+            for row0, x0, _, _, (shape, _), rows in levels
+            if rows and ctx.batch])
+        with profiling.span("pool_rois.backward"):
+            g = gout.float().contiguous()
+            grads = [_level_grad(g, row0, x0, wy, wx, shape, dtype, rows,
+                                 ctx.batch, check=False)
+                     for row0, x0, wy, wx, (shape, dtype), rows in levels]
         return (None, None, None, *grads)
 
 
@@ -867,7 +901,8 @@ def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
 
 def launch_counts() -> dict:
     """Every wrapper's kernel launches in this process so far, by kernel
-    (the int8-epilogue instances apart): what a service reports, so a
+    (the int8-epilogue instances apart), and the per-image placement
+    GEMMs run on the card (`placements`): what a service reports, so a
     caller can see that its requests went through the kernels."""
     return {"window_pool_multi": window_pool_multi.launches,
             "window_pool_multi_quant": window_pool_multi.quant_launches,
@@ -875,4 +910,18 @@ def launch_counts() -> dict:
             "resident_pool_quant": resident_pool.quant_launches,
             "window_pool": window_pool.launches,
             "window_grad": window_grad.launches,
-            "window_rmw_grad": window_rmw_grad.launches}
+            "window_rmw_grad": window_rmw_grad.launches,
+            "placements": place_windows_per_image.calls}
+
+
+def reset_launch_counts() -> None:
+    """Zeroes every count launch_counts reads."""
+    for fn in (window_pool_multi, resident_pool):
+        fn.launches = fn.quant_launches = 0
+    for fn in (window_pool, window_grad, window_rmw_grad):
+        fn.launches = 0
+    place_windows_per_image.calls = 0
+
+
+profiling.register_source(lambda: {
+    "launches." + k: v for k, v in launch_counts().items()})

@@ -39,6 +39,7 @@ import torch
 
 from multipathnet_tpu_torch.ops import boxes as box_ops
 from multipathnet_tpu_torch.ops.roi import fma32, inv
+from multipathnet_tpu_torch.utils import profiling
 
 
 def window_sizes(output_size: int) -> tuple:
@@ -130,6 +131,7 @@ def build_pyramid_batch(feats: torch.Tensor, spatial_scale: float,
         cur = pooled / torch.clamp(norm, min=1.0)
 
     def ints(v):
+        profiling.count_sync("pyramid_meta", feats.device)
         return torch.tensor(v, dtype=torch.int32, device=feats.device)
 
     meta = Pyramid(flat[0], ints(offsets), ints(heights), ints(widths),

@@ -48,29 +48,6 @@ from multipathnet_tpu_torch.train.loop import (Trainer, restore_train_state,
                                                snapshot_train_state)
 from multipathnet_tpu_torch.train.proposal import ProposalTrainer
 
-_COUNTERS = ((roi_pool.window_pool_multi, "launches", "window_pool_multi"),
-             (roi_pool.window_pool_multi, "quant_launches",
-              "window_pool_multi_quant"),
-             (roi_pool.resident_pool, "launches", "resident_pool"),
-             (roi_pool.resident_pool, "quant_launches",
-              "resident_pool_quant"),
-             (roi_pool.window_pool, "launches", "window_pool"),
-             (roi_pool.window_grad, "launches", "window_grad"),
-             (roi_pool.window_rmw_grad, "launches", "window_rmw_grad"))
-
-
-def reset_launches() -> None:
-    for fn, counter, _ in _COUNTERS:
-        setattr(fn, counter, 0)
-    roi_pool.place_windows_per_image.calls = 0
-
-
-def read_launches() -> dict:
-    out = {name: getattr(fn, counter) for fn, counter, name in _COUNTERS}
-    out["placements"] = roi_pool.place_windows_per_image.calls
-    return out
-
-
 @torch.no_grad()
 def seeded_normal_(model, seed: int, std: float = 0.02) -> int:
     """bench.py's weights: every parameter normal * std, drawn on the
@@ -166,7 +143,7 @@ def train_run(cfg, shape, batch, *, device=None, seed=0, steps=1,
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
+    roi_pool.reset_launch_counts()
     t0 = time.perf_counter()
     history = []
     for _ in range(steps):
@@ -174,7 +151,7 @@ def train_run(cfg, shape, batch, *, device=None, seed=0, steps=1,
         history.append({k: float(v) for k, v in m.items()})
     _sync(dev)
     out = {"coord": (mesh.data_rank, mesh.model_rank),
-           "metrics": history, "launches": read_launches(),
+           "metrics": history, "launches": roi_pool.launch_counts(),
            "first_s": time.perf_counter() - t0, "step": state.step,
            "tp_roles": dict(trainer.model.head.tp_roles),
            "head_shapes": {n: tuple(p.shape) for n, p in
@@ -267,9 +244,9 @@ def detect_run(cfg, shape, inputs, *, device=None, tree=None,
     def run(det):
         """-> (detections of the batch, score_batch of this rank's rows,
         the launches of the detection)."""
-        reset_launches()
+        roi_pool.reset_launch_counts()
         res = det(*inputs)
-        launches = read_launches()
+        launches = roi_pool.launch_counts()
         rows = slice(None)
         if det.mesh is not None and det.mesh.n_data > 1:
             rows = det.mesh.rows(len(inputs[0]))
@@ -319,13 +296,13 @@ def tester_run(cfg, shape, split, *, device=None, tree=None,
     loader = CocoLoader(split[0], split[1])
     tester = Tester(model, cfg, loader, ProposalStore.load(split[2]),
                     params=tree, batch_size=batch_size, mesh=mesh)
-    reset_launches()
+    roi_pool.reset_launch_counts()
     t0 = time.perf_counter()
     metrics = tester.test()
     seconds = time.perf_counter() - t0
     out = {"coord": (mesh.data_rank, mesh.model_rank), "metrics": metrics,
            "decoded": tester.pipeline.examples_decoded,
-           "launches": read_launches(), "seconds": seconds}
+           "launches": roi_pool.launch_counts(), "seconds": seconds}
     if collect:
         out["detections"] = tester.collect_detections()
     return out

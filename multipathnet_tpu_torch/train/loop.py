@@ -24,6 +24,13 @@ summed over the data axis in one fixed-order all-reduce, and the metrics
 are the global ones on every rank. On a model axis wider than one the
 head is tensor-parallel (models/heads.shard_head_). With no mesh, or a 1 x
 1 one, the step is the one-device step, draw for draw.
+
+`Trainer.step` is the root span "train.step" (utils/profiling): its
+children are train.put (the batch's copy), train.augment (flip, resize,
+box scaling), train.sample, the model's features, pool_rois and
+predict_rois, train.loss, train.backward (with the pool's backward,
+pool_rois.backward, under it, on whatever thread autograd runs it) and
+train.optimizer (`Optimizer.step`, the gradient norm included).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch.distributed as dist
 
 from multipathnet_tpu_torch.core import mesh as mesh_lib
 from multipathnet_tpu_torch.core.config import Config
-from multipathnet_tpu_torch.core.device import HostToDevice, resolve_device
+from multipathnet_tpu_torch.core.device import (HostToDevice, put,
+                                                resolve_device)
 from multipathnet_tpu_torch.data import sampler as sampler_lib
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models.heads import shard_head_, tp_dims
@@ -48,6 +56,7 @@ from multipathnet_tpu_torch.train.losses import detection_loss
 from multipathnet_tpu_torch.train.schedule import (Optimizer,
                                                    make_lr_schedule,
                                                    make_optimizer)
+from multipathnet_tpu_torch.utils import profiling
 
 
 class Batch(NamedTuple):
@@ -98,6 +107,7 @@ def _hflip_images(images, widths, do_flip):
     reference's roll(flip(img), w - w0) (truncating w - w0 to an int)."""
     w0 = images.shape[2]
     out = []
+    profiling.count_sync("hflip_widths", widths.device)
     for img, w, f in zip(images, widths.tolist(), do_flip):
         flipped = torch.roll(torch.flip(img, dims=(1,)), int(w - w0), dims=1)
         out.append(torch.where(f, flipped, img))
@@ -126,38 +136,42 @@ def make_train_step(model: MultiPathNet, cfg: Config, mesh=None):
         gen = state.generator
         b = batch.images.shape[0]
         dev = batch.images.device
-        do_flip = (torch.rand(b * count, generator=gen, device=dev)
-                   < d.hflip_prob)[index * b:(index + 1) * b]
-        widths = batch.src_hws[:, 1]
-        images = _hflip_images(batch.images, widths, do_flip)
-        flip = do_flip[:, None, None]
-        proposals = torch.where(
-            flip, box_ops.hflip(batch.proposals, widths[:, None]),
-            batch.proposals)
-        gt_boxes = torch.where(
-            flip, box_ops.hflip(batch.gt_boxes, widths[:, None]),
-            batch.gt_boxes)
+        with profiling.span("train.augment"):
+            do_flip = (torch.rand(b * count, generator=gen, device=dev)
+                       < d.hflip_prob)[index * b:(index + 1) * b]
+            widths = batch.src_hws[:, 1]
+            images = _hflip_images(batch.images, widths, do_flip)
+            flip = do_flip[:, None, None]
+            proposals = torch.where(
+                flip, box_ops.hflip(batch.proposals, widths[:, None]),
+                batch.proposals)
+            gt_boxes = torch.where(
+                flip, box_ops.hflip(batch.gt_boxes, widths[:, None]),
+                batch.gt_boxes)
 
-        canvases, scales = transforms.batch_resize_to_canvas(
-            images, d.image_size, batch.src_hws, preprocess=m.preprocess)
-        proposals = proposals * scales[:, None, None]
-        gt_boxes = gt_boxes * scales[:, None, None]
+            canvases, scales = transforms.batch_resize_to_canvas(
+                images, d.image_size, batch.src_hws, preprocess=m.preprocess)
+            proposals = proposals * scales[:, None, None]
+            gt_boxes = gt_boxes * scales[:, None, None]
 
-        sample = sampler_lib.sample_batch(
-            gen, proposals, batch.prop_mask, gt_boxes, batch.gt_classes,
-            batch.gt_mask, rois_per_image=d.rois_per_image,
-            fg_fraction=d.fg_fraction, fg_iou_threshold=d.fg_iou_threshold,
-            bg_iou_range=d.bg_iou_range, bbox_reg_means=m.bbox_reg_means,
-            bbox_reg_stds=m.bbox_reg_stds, shard=shard)
+        with profiling.span("train.sample"):
+            sample = sampler_lib.sample_batch(
+                gen, proposals, batch.prop_mask, gt_boxes, batch.gt_classes,
+                batch.gt_mask, rois_per_image=d.rois_per_image,
+                fg_fraction=d.fg_fraction,
+                fg_iou_threshold=d.fg_iou_threshold,
+                bg_iou_range=d.bg_iou_range, bbox_reg_means=m.bbox_reg_means,
+                bbox_reg_stds=m.bbox_reg_stds, shard=shard)
 
         scores, deltas = model(canvases, sample.rois, train=True,
                                generator=gen, shard=shard)
-        loss, metrics = detection_loss(
-            scores, deltas, sample,
-            integral_thresholds=m.integral_thresholds,
-            num_classes=m.num_classes,
-            class_specific_bbox=m.class_specific_bbox,
-            integral_agg=m.integral_loss_agg, group=group)
+        with profiling.span("train.loss"):
+            loss, metrics = detection_loss(
+                scores, deltas, sample,
+                integral_thresholds=m.integral_thresholds,
+                num_classes=m.num_classes,
+                class_specific_bbox=m.class_specific_bbox,
+                integral_agg=m.integral_loss_agg, group=group)
         return TrainState(state.step + 1, state.optimizer, gen), \
             optimizer_step(state.optimizer, loss, metrics, group)
 
@@ -170,7 +184,8 @@ def optimizer_step(opt, loss, metrics: dict, group, zero_missing=False):
     the global gradient norm. zero_missing: a parameter the loss does not
     reach gets a zero gradient (weight decay and momentum still move it)."""
     opt.zero_grad()
-    loss.backward()
+    with profiling.span("train.backward", adopt=True):
+        loss.backward()
     if zero_missing:
         for p in opt.params:
             if p.grad is None:
@@ -178,7 +193,8 @@ def optimizer_step(opt, loss, metrics: dict, group, zero_missing=False):
     mesh_lib.all_sum_grads_(opt.params, group)
     metrics = mesh_lib.sum_metrics(
         {k: v.detach() for k, v in metrics.items()}, group)
-    metrics["grad_norm"] = opt.step()
+    with profiling.span("train.optimizer"):
+        metrics["grad_norm"] = opt.step()
     return metrics
 
 
@@ -210,8 +226,7 @@ class BatchFeeder:
     def put_batch(self, batch) -> Batch:
         """numpy arrays or tensors -> a Batch on the trainer's device,
         copied synchronously (a batch already there is used as it is)."""
-        return Batch(*(None if x is None
-                       else torch.as_tensor(x, dtype=dt, device=self.device)
+        return Batch(*(None if x is None else put(x, dt, self.device)
                        for x, dt in zip(self._rows(batch), _BATCH_DTYPES)))
 
     def stream_batch(self, batch) -> Batch:
@@ -330,10 +345,13 @@ class Trainer(BatchFeeder):
         return TrainState(0, opt,
                           torch.Generator(self.device).manual_seed(seed + 1))
 
+    @profiling.span("train.step")
     def step(self, state: TrainState, batch):
         """One optimizer step; returns (new state, metrics of 0-d
         tensors)."""
-        return self._step(state, self.put_batch(batch))
+        with profiling.span("train.put"):
+            batch = self.put_batch(batch)
+        return self._step(state, batch)
 
 
 def snapshot_train_state(trainer, state: TrainState) -> dict:

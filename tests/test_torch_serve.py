@@ -132,6 +132,8 @@ def test_http_endpoints(bundle):
         assert set(health["kernel_launches"]) >= {
             "window_pool_multi_quant", "resident_pool_quant"}
         assert not any(health["kernel_launches"].values())
+        assert {f"launches.{k}" for k in health["kernel_launches"]} <= set(
+            health["counters"])
 
         images, props = _images_and_props(2)
         out = _post(port, json.dumps({"images": [im.tolist()

@@ -56,8 +56,7 @@ def test_tiny_int8_max_mode_on_gpu_matches_cpu(cuda, ranks):
     xy = rng.uniform(0, 40, (2, 24, 2))
     wh = rng.uniform(6, 24, (2, 24, 2))
     props = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    kernels = (roi_pool.window_pool_multi, roi_pool.resident_pool)
-    before = [(k.launches, k.quant_launches) for k in kernels]
+    before = roi_pool.launch_counts()
     outs = []
     for dev in ("cpu", cuda):
         det = Detector(build_model(qcfg.model, device=dev), qcfg,
@@ -66,7 +65,7 @@ def test_tiny_int8_max_mode_on_gpu_matches_cpu(cuda, ranks):
             torch.from_numpy(x).to(dev) for x in (images, hws, props))))
         dets = det(images, hws, props, np.ones((2, 24), bool))
         assert dets["boxes"].shape == (2, qcfg.eval.max_detections, 4)
-    assert [(k.launches, k.quant_launches) for k in kernels] == before
+    assert roi_pool.launch_counts() == before
     (want_b, want_p), (got_b, got_p) = outs
     assert torch.isfinite(got_p).all() and torch.isfinite(got_b).all()
     torch.testing.assert_close(got_p.cpu(), want_p, rtol=0, atol=2e-3)
