@@ -72,8 +72,11 @@ Phases, each of which raises on failure (nothing is caught):
      from a seeded generator, quantized by Detector's load-time transform
      (bench.py's flow); first-call time, steady img/s over 10 batches, peak
      device memory, a profiler breakdown of one batch. The quant K1/K2 must
-     have launched and K1/K2 without the epilogue not; outputs finite with
-     shapes (8, 100, 4) / (8, 100).
+     have launched and K1/K2 without the epilogue not; the head's kernels
+     (csrc/int8_head.cu) once a batch for each int8 layer's epilogue and
+     for each input quantize but each view's first layer's (9 and 5 a
+     batch here, 17 and 13 in phase 10); outputs finite with shapes (8,
+     100, 4) / (8, 100).
  10. int8 + truncated-SVD serving: the same on `multipath_vgg16_int8_svd`,
      the factored layout (fc6 rank 1024, fc7 rank 256) drawn directly in
      float32, as bench.py does (the load-time SVD is tested on the CPU).
@@ -235,12 +238,13 @@ Phases, each of which raises on failure (nothing is caught):
      eval.roi_chunk = 512) on `multipath_vgg16_batched` and
      `multipath_vgg16_int8` (weights as phases 4 and 9): one warm batch, 2
      timed (ms/batch, img/s, peak memory), one profiled bf16 batch,
-     detections finite, no kernel launched (the int8 head quantizes its
-     own rows); (c) Trainer on `multipath_vgg16_train` with
-     train_roi_impl="direct" (phase 7's weights and batch): a first step,
-     3 timed (ms/step, peak memory) beside phase 7's, losses finite, no
-     kernel launched, two steps from one state equal under
-     cudnn.deterministic.
+     detections finite, no window kernel launched (the int8 head quantizes
+     its own rows), the head's kernels of phase 25 in the int8 run (they
+     launch on every route on the card) and not in the bf16 one; (c)
+     Trainer on `multipath_vgg16_train` with train_roi_impl="direct"
+     (phase 7's weights and batch): a first step, 3 timed (ms/step, peak
+     memory) beside phase 7's, losses finite, no kernel launched, two
+     steps from one state equal under cudnn.deterministic.
  22. the port's bench (`bench`): `python -m multipathnet_tpu_torch.bench`
      as a subprocess from the checkout at bench.py's defaults (8 x 1000
      proposals, 640^2, 20 timed batches; the int8+SVD headline, then the
@@ -297,18 +301,32 @@ Phases, each of which raises on failure (nothing is caught):
      output bit-equal over two calls) and timed; (d) one AlexNet Detector
      batch at G = 6 (K1 and K2 launched, finite detections). The phase's
      seconds.
+ 25. the int8 head's kernels (`int8_head`, csrc/int8_head.cu): their
+     instances' registers and spills (cudaFuncGetAttributes), then every
+     row quantize and epilogue of one batch of the serving cell
+     (`multipath_vgg16_int8_svd` at 8 x 1000: per view fc6_u 25088 ->
+     1024, fc6 1024 -> 4096, fc7_u 4096 -> 256, fc7 256 -> 4096, then
+     cls_bbox 16384 -> 810) on random bf16 rows and int32 products: codes
+     and scales bit for bit against the plain versions, float32 epilogue
+     values bit for bit but for one-ulp ties of the plain float64 sum, the
+     bf16 output its float32 one rounded; each timed in turns with its
+     plain version, with its byte bound (bf16 input, codes and scales; the
+     int32 products, the bf16 output, the vectors), and summed over the
+     batch's 17 epilogues and 13 quantizes.
 The line before the last is a JSON object with each kernel's launches (the
 runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
-22, 23 and 24, each counted from 0, and their sum; phase 23's checks at its
-shapes as `configs_<case>_*`, phase 24's at G = 6 as
-`output_size_<case>_*`),
+22, 23 and 24, each counted from 0, and their sum; the head's kernels only
+in this process; phase 23's checks at its shapes as `configs_<case>_*`,
+phase 24's at G = 6 as `output_size_<case>_*`),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
 bf16 body's W2 GEMM, 2 x G^2 x 160 per view, level and channel, over the
 989 TF/s of the bf16 tensor cores); for P the
 distinct cells under its windows and its output over 3.35 TB/s, with the
-int8 numbers and the share of the bound beside the bf16 ones. The last line is {"ok": true, "device": {...}}.
+int8 numbers and the share of the bound beside the bf16 ones; for the
+head's kernels one batch's instances summed (phase 25). The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -347,11 +365,12 @@ from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
                                                 groundtruth_to_coco)
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert, import_weights, layers
+from multipathnet_tpu_torch.models.heads import Int8Linear
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.models.sharpmask import generate_proposals
 from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import lowrank, roi_pool, roi_pyramid
+from multipathnet_tpu_torch.ops import lowrank, quant, roi_pool, roi_pyramid
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import (mesh_runs, prof_eval, prof_train,
                                          prop_quality_scale, soak_svd_decay)
@@ -369,9 +388,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool_wgmma.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
 PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
+HEAD_SOURCE = "multipathnet_tpu_torch/csrc/int8_head.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
-# name -> (source, the TPU kernel it replaces)
-KERNELS = {
+# the window kernels (the pools, their backward, the probe): name ->
+# (source, the TPU kernel it replaces). read_launches() and every launch
+# check of a path count these.
+WINDOW_KERNELS = {
     "window_pool_multi": (POOL_SOURCE, f"{PALLAS}:472"),
     "resident_pool": (POOL_SOURCE, f"{PALLAS}:940"),
     "window_pool_multi_quant": (POOL_SOURCE, f"{PALLAS}:536"),
@@ -381,21 +403,30 @@ KERNELS = {
     "window_pool": (POOL_SOURCE, f"{PALLAS}:113"),
     "window_read_probe": (PROBE_SOURCE, "tools/probe_int8_window_dma.py:30"),
 }
+# the int8 serving head's kernels (ops/quant.py), which replace no TPU
+# kernel (XLA fused these passes); quant.launch_counts() counts them, in
+# this process only
+HEAD_KERNELS = {
+    "int8_epilogue": (HEAD_SOURCE, None),
+    "quantize_rows": (HEAD_SOURCE, None),
+}
+KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS}
 
 
 def reset_launches() -> None:
-    """Zeroes the pool kernels' counts (roi_pool.reset_launch_counts) and
-    the probe's."""
+    """Zeroes the window kernels' counts (roi_pool.reset_launch_counts and
+    the probe's). The head kernels' counts only grow: main() reads each
+    path's share as a difference."""
     roi_pool.reset_launch_counts()
     probe.window_read_probe.launches = 0
 
 
 def read_launches() -> dict:
-    """The launches of each kernel of KERNELS: roi_pool.launch_counts()
-    (placements left out) and the probe's."""
+    """The launches of each kernel of WINDOW_KERNELS:
+    roi_pool.launch_counts() (placements left out) and the probe's."""
     counts = {**roi_pool.launch_counts(),
               "window_read_probe": probe.window_read_probe.launches}
-    return {name: counts[name] for name in KERNELS}
+    return {name: counts[name] for name in WINDOW_KERNELS}
 
 
 LEVELS = (("c3", 4), ("c4", 8), ("c5", 16))
@@ -434,13 +465,31 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def alternate_ms(plain, kernel, iters_plain: int, iters_kernel: int):
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of fn over `iters` runs queued behind a device
+    sleep of about 10 ms, so that the host has launched them all before
+    the first starts and a short kernel's time is not its launch's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def alternate_ms(plain, kernel, iters_plain: int, iters_kernel: int,
+                 timer=cuda_ms):
     """Time plain and kernel in turns (plain, kernel, kernel, plain) and
     average each one's two readings."""
-    p1 = cuda_ms(plain, iters_plain)
-    k1 = cuda_ms(kernel, iters_kernel)
-    k2 = cuda_ms(kernel, iters_kernel)
-    p2 = cuda_ms(plain, iters_plain)
+    p1 = timer(plain, iters_plain)
+    k1 = timer(kernel, iters_kernel)
+    k2 = timer(kernel, iters_kernel)
+    p2 = timer(plain, iters_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1415,6 +1464,7 @@ def serving_path(preset_name: str, tag: str):
     inputs = make_inputs(b, p, canvas)
 
     reset_launches()
+    head0 = quant.launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = det(*inputs)
@@ -1429,7 +1479,18 @@ def serving_path(preset_name: str, tag: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    head = {k: v - head0[k] for k, v in quant.launch_counts().items()}
     ips = b * iters / dt
+    # every Int8Linear rescales once a batch; all but each view's first
+    # layer, which takes the pool kernels' codes, quantizes its input
+    n_int8 = sum(isinstance(mod, Int8Linear)
+                 for mod in model.head.children())
+    per_batch = {"int8_epilogue": n_int8,
+                 "quantize_rows": n_int8 - len(m.foveal_scales)}
+    require(head == {k: v * (iters + 2) for k, v in per_batch.items()},
+            f"[{tag}] head kernel launches {head} over {iters + 2} batches,"
+            f" expected {per_batch} a batch")
+    log(f"[{tag}] head kernel launches: {per_batch} a batch")
     log(f"[{tag}] first call {first_s:.2f} s; steady: {iters} batches x {b} "
         f"images in {dt:.3f} s = {ips:.2f} img/s ({1e3 * dt / iters:.2f} "
         f"ms/batch); peak device memory "
@@ -3003,7 +3064,7 @@ def parallel_path(phase13, resident_ms):
     t_split = split_paths()
     ecfg = bcfg.replace(eval=dataclasses.replace(bcfg.eval,
                                                  score_threshold=0.0))
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in WINDOW_KERNELS}
 
     def count(results):
         for r in results:
@@ -3619,12 +3680,16 @@ def align_routes_path(card: str, bf16_ips: float, int8_ips: float,
     serving = {}
     for name, tag in (("multipath_vgg16_batched", "bf16"),
                       ("multipath_vgg16_int8", "int8")):
-        before = read_launches()
+        before, head = read_launches(), quant.launch_counts()
         res = direct_serving(with_model(preset(name), roi_impl="direct"),
                              inputs, tag)
         require(read_launches() == before,
-                f"a kernel launched on the direct {tag} route: "
+                f"a window kernel launched on the direct {tag} route: "
                 f"{read_launches()} after {before}")
+        head = {k: v - head[k] for k, v in quant.launch_counts().items()}
+        require(all(head.values()) if tag == "int8"
+                else not any(head.values()),
+                f"head kernel launches on the direct {tag} route: {head}")
         if tag == "bf16":
             profile_once("align_routes", "one direct bf16 batch",
                          lambda: detect_batch(res["model"], res["cfg"],
@@ -3690,7 +3755,7 @@ def run_bench(argv: list, timeout: float = 900):
 def require_only(tag: str, launches: dict, expect) -> None:
     """Exactly the kernels `expect` launched in a run."""
     require(all((launches.get(name, 0) > 0) == (name in expect)
-                for name in KERNELS),
+                for name in WINDOW_KERNELS),
             f"[{tag}] kernel launches {launches}, expected only "
             f"{sorted(expect)}")
 
@@ -3734,7 +3799,7 @@ def bench_path(card: str, bf16_ips: float, int8_ips: float,
         f"{json.dumps(record101)}")
     launches = {name: sum(c.get(name, 0) for c in [*runs.values(),
                                                    *runs101.values()])
-                for name in KERNELS}
+                for name in WINDOW_KERNELS}
     log(f"[bench] kernel launches of the timed runs: {launches}; phase 22 "
         f"took {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -3983,7 +4048,8 @@ def train_config(tag: str, cfg, steps: int, per_step: dict) -> dict:
     require(all(np.isfinite(losses)), f"[{tag}] non-finite loss: {losses}")
     require(all(float(h["num_fg"]) > 0 for h in history),
             f"[{tag}] a step sampled no foreground ROI")
-    want = {name: per_step.get(name, 0) * (steps + 1) for name in KERNELS}
+    want = {name: per_step.get(name, 0) * (steps + 1)
+            for name in WINDOW_KERNELS}
     require(launches == want, f"[{tag}] kernel launches {launches}, "
             f"expected {want}")
     b = cfg.train.batch_size
@@ -4029,10 +4095,12 @@ def bench_beside(run: dict, preset_name: str) -> dict:
             f"bench {preset_name} record {record}")
     require(set(runs) == {preset_name}, f"bench launch lines {runs}")
     batches = 2 + 3 * run["iters"]   # the first call, the warm one, windows
-    want = {name: run["launches"][name] * 20 // batches for name in KERNELS}
-    got = {name: runs[preset_name].get(name, 0) for name in KERNELS}
+    want = {name: run["launches"][name] * 20 // batches
+            for name in WINDOW_KERNELS}
+    got = {name: runs[preset_name].get(name, 0)
+           for name in WINDOW_KERNELS}
     require(got == want and all(run["launches"][name] % batches == 0
-                                for name in KERNELS),
+                                for name in WINDOW_KERNELS),
             f"bench {preset_name} launches {got}, 20 in-process batches "
             f"{want}")
     rates = [b * run["iters"] / w for w in before + after]
@@ -4063,11 +4131,11 @@ def configs_path(card: str, bf16_ips: float, int8_ips: float,
     launches of its runs, each counted from 0, summed; {kernel: {case:
     stats}} of the kernels checked at this phase's shapes)."""
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(WINDOW_KERNELS, 0)
     kstats = {}
 
     def add(launches):
-        for name in KERNELS:
+        for name in WINDOW_KERNELS:
             total[name] += launches.get(name, 0)
 
     def note(name, case, stats):
@@ -4206,11 +4274,11 @@ def output_size_path(card: str, bf16_ips: float, int8_ips: float,
     (the launches of its runs, each counted from 0, summed; {kernel:
     {case: stats}} of the kernels checked at G = 6)."""
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(WINDOW_KERNELS, 0)
     kstats = {}
 
     def add(launches):
-        for name in KERNELS:
+        for name in WINDOW_KERNELS:
             total[name] += launches.get(name, 0)
 
     def note(name, case, stats):
@@ -4312,6 +4380,136 @@ def output_size_path(card: str, bf16_ips: float, int8_ips: float,
     return total, kstats
 
 
+# ------------------------------------------------------------ phase 25 ---
+
+# the serving cell's int8 + SVD head (multipath_vgg16_int8_svd, 8 x 1000
+# proposals): (layer, K, N, bias, ReLU) of one view's branch, then the
+# classifier's
+HEAD_LAYERS = (("fc6_u", 25088, 1024, False, False),
+               ("fc6", 1024, 4096, True, True),
+               ("fc7_u", 4096, 256, False, False),
+               ("fc7", 256, 4096, True, True))
+CLS_LAYER = ("cls_bbox", 16384, 810, True, False)
+
+
+def head_layer_bytes(m: int, k: int, n: int) -> tuple:
+    """The byte bounds' counts of one layer's kernels over m rows: the
+    quantize reads the bf16 input and writes the codes and a scale a row;
+    the epilogue reads the (m, N padded) int32 products, a scale a row and
+    the weight scale and bias, and writes the bf16 output."""
+    n_pad = -(-n // 8) * 8
+    return (m * k * 2 + m * k + m * 4,
+            m * n_pad * 4 + m * 4 + n_pad * 8 + m * n * 2)
+
+
+def epilogue_ulps(got32, acc, xs, ws, bias, n) -> tuple:
+    """(the number of elements where the float32 epilogue differs from its
+    plain version, the largest difference); each must be one float32 ulp
+    (the plain float64 sum on a float32 tie; tests/test_torch_int8_head_
+    cuda.py holds the tie)."""
+    want = quant.rescale_int32(acc, xs, ws, bias)[:, :n]
+    differ = got32 != want
+    require(torch.equal(torch.nextafter(want[differ], got32[differ]),
+                        got32[differ]),
+            "the epilogue differs from its plain version by more than one "
+            "ulp")
+    return (int(differ.sum()),
+            float((got32 - want).abs().max()) if differ.any() else 0.0)
+
+
+def int8_head_path(gen):
+    """Phase 25 (`int8_head`): csrc/int8_head.cu's two kernels at the
+    serving cell's shapes, each instance of a batch against its plain
+    version (codes and scales bit for bit; epilogue values bit for bit but
+    for one-ulp ties) and timed in turns with it (plain, kernel, kernel,
+    plain; each run queued behind a device sleep, queued_ms, so that the
+    time is the device's and not the launches'), with its byte bound.
+    Returns {name: stats} for the kernels' table: ms, plain_ms and
+    bound_ms summed over one batch's instances (4 views x the branch's
+    layers, then the classifier)."""
+    t_phase = time.perf_counter()
+    m = 8000
+    attrs = (ctypes.c_int * 4)()
+    for kernel, nv, what in ((0, 0, "epilogue (bf16, bias, ReLU)"),
+                             (1, 1, "quantize, 1 load a thread"),
+                             (1, 4, "quantize, 4 loads a thread"),
+                             (1, 8, "quantize, 8 loads a thread")):
+        rc = _build.kernels().mpn_int8_head_attrs(kernel, nv, attrs)
+        require(rc == 0, f"mpn_int8_head_attrs({kernel}, {nv}): {rc}")
+        log(f"[int8_head] {what}: {attrs[0]} registers, {attrs[1]} B "
+            f"local (spills), {attrs[2]} B static shared, at most "
+            f"{attrs[3]} threads a block")
+    total = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+             for name in HEAD_KERNELS}
+    ulps, max_err = 0, 0.0
+    for view_copies, layers in ((4, HEAD_LAYERS), (1, (CLS_LAYER,))):
+        for layer, k, n, has_bias, relu in layers:
+            n_pad = -(-n // 8) * 8
+            x = (torch.randn((m, k), generator=gen, device="cuda")
+                 * torch.rand((m, 1), generator=gen, device="cuda")
+                 ).bfloat16()
+            acc = torch.randint(-2 ** 28, 2 ** 28, (m, n_pad), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            xs = torch.rand((m, 1), generator=gen, device="cuda") * 1e-2
+            ws = torch.rand(n_pad, generator=gen, device="cuda") * 1e-3
+            bias = (torch.randn(n_pad, generator=gen, device="cuda")
+                    if has_bias else None)
+            q_bytes, e_bytes = head_layer_bytes(m, k, n)
+            cases = [("int8_epilogue",
+                      lambda: quant.int8_epilogue(
+                          acc, xs, ws, bias, width=n, dtype=torch.bfloat16,
+                          relu=relu),
+                      lambda: quant.int8_epilogue_ref(
+                          acc, xs, ws, bias, width=n, dtype=torch.bfloat16,
+                          relu=relu), e_bytes)]
+            if layer != "fc6_u":   # fc6_u takes the pool kernels' codes
+                cases.append(("quantize_rows",
+                              lambda: quant.quantize_rows_padded(x, k),
+                              lambda: quant.quantize_rows_padded_ref(x, k),
+                              q_bytes))
+            got_q, got_s = quant.quantize_rows_padded(x, k)
+            want_q, want_s = quant.quantize_rows_padded_ref(x, k)
+            require(torch.equal(got_q, want_q) and torch.equal(got_s, want_s),
+                    f"quantize_rows at {layer} ({m}, {k}) differs from its "
+                    f"plain version")
+            got32 = quant.int8_epilogue(acc, xs, ws, bias, width=n)
+            n_ulps, err = epilogue_ulps(got32, acc, xs, ws, bias, n)
+            max_err = max(max_err, err)
+            want16 = got32.bfloat16()
+            require(torch.equal(quant.int8_epilogue(
+                acc, xs, ws, bias, width=n, dtype=torch.bfloat16, relu=relu),
+                torch.relu(want16) if relu else want16),
+                f"the bf16 epilogue at {layer} is not its float32 output "
+                f"rounded")
+            ulps += n_ulps * view_copies
+            for name, kern, plain, n_bytes in cases:
+                ms, plain_ms = alternate_ms(plain, kern, 5, 20, queued_ms)
+                b_ms = n_bytes / HBM_BYTES_PER_MS
+                log(f"[int8_head] {name} at {layer} ({m} x {k} -> {n}): "
+                    f"kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
+                    f"bound {b_ms:.4f} ms, {n_bytes / 1e6:.1f} MB), plain "
+                    f"{plain_ms:.4f} ms" + (f"; {n_ulps} one-ulp ties in "
+                                            f"float32"
+                                            if name == "int8_epilogue"
+                                            else ""))
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("bound_ms", b_ms)):
+                    total[name][key] += v * view_copies
+            del x, acc, got_q, want_q, got_s, want_s, got32
+    out = {}
+    for name, t in total.items():
+        log(f"[int8_head] {name}, one batch's instances: kernel "
+            f"{t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (bytes, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}%), plain "
+            f"{t['plain_ms']:.3f} ms")
+        epi = name == "int8_epilogue"
+        out[name] = {**t, "bound_by": "bytes",
+                     "max_abs_err": max_err if epi else 0,
+                     "extra": {"one_ulp_ties_a_batch": ulps} if epi else {}}
+    log(f"[int8_head] phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -4343,32 +4541,46 @@ def main() -> None:
             log(f"[build]   {line.strip()}")
     log_pool_instances()
 
+    head_paths = {}
+
+    def counted(path, fn, *args):
+        """fn(*args), its head kernels' launches in this process kept as
+        path's."""
+        before = quant.launch_counts()
+        result = fn(*args)
+        head_paths[path] = {k: v - before[k]
+                            for k, v in quant.launch_counts().items()}
+        return result
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     stats = check_and_time_kernels(gen)
     torch.cuda.empty_cache()
-    eval_launches, bf16_ips, nms_ips = main_path()
+    eval_launches, bf16_ips, nms_ips = counted("eval", main_path)
     torch.cuda.empty_cache()
     grad_stats, k1_train = check_and_time_grad_kernels(gen)
     stats.update(grad_stats)
     torch.cuda.empty_cache()
-    train_launches, resident_ms, resident_ips = train_path()
+    train_launches, resident_ms, resident_ips = counted("train", train_path)
     torch.cuda.empty_cache()
     stats.update(check_and_time_quant_kernels(gen))
     torch.cuda.empty_cache()
-    int8_launches, int8_ips = serving_path("multipath_vgg16_int8", "int8")
+    int8_launches, int8_ips = counted("int8", serving_path,
+                                      "multipath_vgg16_int8", "int8")
     torch.cuda.empty_cache()
-    svd_launches, svd_ips = serving_path("multipath_vgg16_int8_svd",
-                                         "int8_svd")
+    svd_launches, svd_ips = counted("int8_svd", serving_path,
+                                    "multipath_vgg16_int8_svd", "int8_svd")
     log(f"[serving] steady img/s at 8 x 1000 proposals, 640^2, this process "
         f"and card: bf16 {bf16_ips:.2f} (phase 4), int8 {int8_ips:.2f}, "
         f"int8+SVD {svd_ips:.2f}")
     torch.cuda.empty_cache()
-    stats["window_pool"], pool_api_launches = pool_api_path(gen)
+    stats["window_pool"], pool_api_launches = counted("pool_api",
+                                                      pool_api_path, gen)
     torch.cuda.empty_cache()
     stats["window_read_probe"], probe_launches = probe_path()
     torch.cuda.empty_cache()
     split = disk_split()
-    dataset_eval_launches, split_ips, *phase13 = dataset_eval_path(*split)
+    dataset_eval_launches, split_ips, *phase13 = counted(
+        "dataset_eval", dataset_eval_path, *split)
     torch.cuda.empty_cache()
     train_eval_launches = train_eval_path(*split, resident_ms, resident_ips)
     log(f"[dataset_eval] split img/s from disk {split_ips:.2f}; one "
@@ -4376,31 +4588,36 @@ def main() -> None:
         f"with score_threshold 0 (phase 5), {bf16_ips:.2f} with 0.05 "
         f"(phase 4)")
     torch.cuda.empty_cache()
-    resnet_launches = resnet_path()
+    resnet_launches = counted("resnet", resnet_path)
     torch.cuda.empty_cache()
-    reference_launches, reference_ms, reference_state = \
-        reference_exact_path()
+    reference_launches, reference_ms, reference_state = counted(
+        "reference_exact", reference_exact_path)
     torch.cuda.empty_cache()
-    sharpmask_launches, sm_e2e, sm_train = sharpmask_path()
+    sharpmask_launches, sm_e2e, sm_train = counted("sharpmask",
+                                                    sharpmask_path)
     torch.cuda.empty_cache()
-    serve_launches, serve = serve_path()
+    serve_launches, serve = counted("serve", serve_path)
     torch.cuda.empty_cache()
     parallel_launches = parallel_path(phase13, resident_ms)
     torch.cuda.empty_cache()
-    tools_launches, _ = tools_path(reference_state, reference_ms, int8_ips,
-                                   resident_ms, phase13,
-                                   sm_e2e.pop("top_masks"))
+    tools_launches, _ = counted("tools", tools_path, reference_state,
+                                reference_ms, int8_ips, resident_ms, phase13,
+                                sm_e2e.pop("top_masks"))
     del reference_state
     torch.cuda.empty_cache()
-    align_launches = align_routes_path(smi, bf16_ips, int8_ips, resident_ms)
+    align_launches = counted("align_routes", align_routes_path, smi,
+                             bf16_ips, int8_ips, resident_ms)
     torch.cuda.empty_cache()
     bench_launches = bench_path(smi, bf16_ips, int8_ips, svd_ips)
     torch.cuda.empty_cache()
-    configs_launches, config_stats = configs_path(smi, bf16_ips, int8_ips,
-                                                  resident_ms)
+    configs_launches, config_stats = counted(
+        "configs", configs_path, smi, bf16_ips, int8_ips, resident_ms)
     torch.cuda.empty_cache()
-    output_size_launches, output_size_stats = output_size_path(
-        smi, bf16_ips, int8_ips, resident_ms, gen)
+    output_size_launches, output_size_stats = counted(
+        "output_size", output_size_path, smi, bf16_ips, int8_ips,
+        resident_ms, gen)
+    torch.cuda.empty_cache()
+    stats.update(int8_head_path(gen))
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "
@@ -4424,7 +4641,8 @@ def main() -> None:
              "resnet": resnet_launches,
              "reference_exact": reference_launches,
              "sharpmask": sharpmask_launches,
-             "serve": {name: serve_launches.get(name, 0) for name in KERNELS},
+             "serve": {name: serve_launches.get(name, 0)
+                       for name in WINDOW_KERNELS},
              "parallel": parallel_launches,
              "tools": tools_launches,
              "align_routes": align_launches,
@@ -4444,11 +4662,13 @@ def main() -> None:
                     f"{path}_{case}_{key}": (round(v, 4)
                                              if isinstance(v, float) else v)
                     for key, v in st.items()})
+    paths = {path: {**counts, **head_paths.get(path, {})}
+             for path, counts in paths.items()}
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(counts[name] for counts in paths.values()),
-        **{f"{path}_launches": counts[name]
+        "launches": sum(counts.get(name, 0) for counts in paths.values()),
+        **{f"{path}_launches": counts.get(name, 0)
            for path, counts in paths.items()},
         **({"max_abs_err": stats[name]["float32"],
             "max_abs_err_bf16": stats[name]["bfloat16"]}

@@ -19,6 +19,10 @@ float checkpoint, eval/detect.serving_params):
   quant="int8": every GEMM is an Int8Linear (ops/quant.py). The pooled
       tensor is quantized once per (ROI, view) row, or arrives already
       quantized from the pool kernels with its scales (`pooled_scale`).
+      Each layer's input quantize and its epilogue (rescale, bias, the
+      cast, the ReLU) are one kernel each on the card
+      (ops/quant.quantize_rows_padded, int8_epilogue); each view's fc7
+      output lands in its column slice of the classifier's input.
   fc6_rank/fc7_rank = t > 0: that FC family is a bias-free (in -> t)
       factor `{name}_u` followed by the (t -> fc_dim) layer `{name}` that
       keeps the bias, with no ReLU between (ops/lowrank.py).
@@ -101,25 +105,33 @@ class Int8Linear(nn.Module):
                 state_dict[key] = padded
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def forward(self, x: torch.Tensor, x_scale: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, x_scale: torch.Tensor | None = None,
+                relu: bool = False, out: torch.Tensor | None = None):
         """x float (quantized here per row), or int8 with its (M, 1) float32
-        row scales."""
+        row scales -> (M, out_features) in `dtype`, ReLU'd if `relu`,
+        written into `out` when given (see rescale)."""
         if x_scale is None:
-            x, x_scale = quant.quantize_rows(x)
-        return self.rescale(self.accumulate(x), x_scale)
+            x, x_scale = quant.quantize_rows_padded(x, self.weight_i8.shape[1])
+        return self.rescale(self.accumulate(x), x_scale, relu, out)
 
     def accumulate(self, x_i8: torch.Tensor) -> torch.Tensor:
-        """(M, in_features) int8 codes -> the (M, N padded) int32 products."""
+        """(M, in_features) int8 codes, or codes already padded to the
+        weight's K -> the (M, N padded) int32 products."""
         k_pad = self.weight_i8.shape[1]
         if x_i8.shape[-1] != k_pad:
             x_i8 = F.pad(x_i8, (0, k_pad - x_i8.shape[-1]))
         return quant.int_mm(x_i8, self.weight_i8)
 
-    def rescale(self, acc: torch.Tensor, x_scale: torch.Tensor):
+    def rescale(self, acc: torch.Tensor, x_scale: torch.Tensor,
+                relu: bool = False, out: torch.Tensor | None = None):
         """The int32 products and the (M, 1) row scales -> the output in
-        `dtype` (ops/quant.rescale_int32, then the padding dropped)."""
-        out = quant.rescale_int32(acc, x_scale, self.weight_scale, self.bias)
-        return out[:, :self.out_features].to(self.dtype)
+        `dtype` without the padding, ReLU'd if `relu`
+        (ops/quant.int8_epilogue), into `out` (M, out_features) when given:
+        a view with any row stride, such as a column slice of a wider
+        buffer."""
+        return quant.int8_epilogue(acc, x_scale, self.weight_scale,
+                                   self.bias, width=self.out_features,
+                                   dtype=self.dtype, relu=relu, out=out)
 
     def logical_state(self) -> dict:
         """The buffers without their padding, by name."""
@@ -194,47 +206,57 @@ class MultiPathHead(nn.Module):
         mask = mask < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
-    def _dense(self, name, x, x_scale=None, local: bool = False):
-        """One GEMM of x (all its columns, or this rank's when `local`) ->
-        (output, whether it holds this rank's columns only)."""
+    def _dense(self, name, x, x_scale=None, local: bool = False,
+               relu: bool = False, out=None):
+        """One GEMM of x (all its columns, or this rank's when `local`),
+        ReLU'd if `relu` -> (output, whether it holds this rank's columns
+        only). An int8 layer writes a whole output into `out` when given
+        and returns it; other outputs are new tensors."""
         mod = getattr(self, name)
         role = self.tp_roles.get(name)
         group = self.mesh.model_group if self.mesh is not None else None
         if role == "row":
             if not local:  # a row's codes keep the row's scale
                 x = mesh_lib.split_cols(x, group)
-            return self._row_parallel(mod, x, x_scale, group), False
+            return self._row_parallel(mod, x, x_scale, group, relu,
+                                      out), False
         if local:
             x = mesh_lib.gather_cols(x, group)
         if role == "col":
             x = mesh_lib.copy_to_model(x, group)
         if isinstance(mod, Int8Linear):
-            return mod(x, x_scale), role == "col"
-        return layers.linear(mod, x, self.dtype), role == "col"
+            return mod(x, x_scale, relu, None if role == "col" else out), \
+                role == "col"
+        y = layers.linear(mod, x, self.dtype)
+        return (F.relu(y) if relu else y), role == "col"
 
-    def _row_parallel(self, mod, x, x_scale, group):
+    def _row_parallel(self, mod, x, x_scale, group, relu: bool = False,
+                      out=None):
         """A row-parallel layer on this rank's input columns: the partial
         products summed over the model axis (int32 exactly; float32 then
         rounded once to the compute dtype), then the bias."""
         if isinstance(mod, Int8Linear):
             if x_scale is None:
-                x, x_scale = quant.quantize_rows(
-                    x, mesh_lib.all_max(quant.row_amax(x), group))
+                x, x_scale = quant.quantize_rows_padded(
+                    x, mod.weight_i8.shape[1],
+                    mesh_lib.all_max(quant.row_amax(x), group))
             return mod.rescale(mesh_lib.all_sum(mod.accumulate(x), group),
-                               x_scale)
+                               x_scale, relu, out)
         dt = self.dtype
         part = _linear_f32(x.to(dt), mod.weight.to(dt))
         y = mesh_lib.reduce_from_model(part, group).to(dt)
-        return y if mod.bias is None else y + mod.bias.to(dt)
+        y = y if mod.bias is None else y + mod.bias.to(dt)
+        return F.relu(y) if relu else y
 
-    def _fc(self, name, x, x_scale=None, local: bool = False):
-        """One FC: the factor then the named layer when it is factored
-        (only the first GEMM takes a pre-quantized input), else the named
-        layer alone. -> (output, whether it holds this rank's columns)."""
+    def _fc(self, name, x, x_scale=None, local: bool = False, out=None):
+        """One FC and its ReLU: the factor then the named layer when it is
+        factored (only the first GEMM takes a pre-quantized input; no ReLU
+        between them), else the named layer alone. -> (output, whether it
+        holds this rank's columns)."""
         if hasattr(self, f"{name}_u"):
             x, local = self._dense(f"{name}_u", x, x_scale, local)
             x_scale = None
-        return self._dense(name, x, x_scale, local)
+        return self._dense(name, x, x_scale, local, relu=True, out=out)
 
     def forward(self, pooled: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -245,7 +267,11 @@ class MultiPathHead(nn.Module):
         int8 from the pool kernels, skip bias, ReLU and quantization
         already applied (int8 serving only). `shard` (index, count): the
         batch is part `index` of `count` equal parts of the global batch,
-        whose shape the dropout masks are drawn at."""
+        whose shape the dropout masks are drawn at.
+
+        Each view's fc7 output goes into its column slice of one (B*R, F *
+        fc_dim) buffer, the classifier's input; an int8 layer's epilogue
+        writes it there itself."""
         b, f, r, g, _, c = pooled.shape
         if f != self.num_views or c != self.skip_reduce_dim:
             raise ValueError(f"pooled {tuple(pooled.shape)} does not match "
@@ -257,34 +283,61 @@ class MultiPathHead(nn.Module):
                 "full-rank float and transform the checkpoint at load")
         n = b * r
         dt = self.dtype
+        k = g * g * c
         if pooled_scale is not None:
             if self.quant != "int8" or pooled.dtype != torch.int8:
                 raise ValueError("a pre-quantized pooled input needs the int8"
                                  f" head and int8 input, got {self.quant!r} "
                                  f"and {pooled.dtype}")
-            x, xs = pooled.reshape(b, f, r, g * g * c), pooled_scale
+            x, xs = pooled.reshape(b, f, r, k), pooled_scale
         else:
             x = F.relu(pooled.to(dt) + self.skip_bias.to(dt))
             xs = None
             if self.quant == "int8":
-                # once per (ROI, view) row, then int8 slices per branch
-                x, xs = quant.quantize_rows(x.reshape(b, f, r, g * g * c))
+                # once per (ROI, view) row, padded to fc6's K, then int8
+                # slices per branch
+                first = (self.fc6_f0_u if hasattr(self, "fc6_f0_u")
+                         else self.fc6_f0)
+                x, xs = quant.quantize_rows_padded(
+                    x.reshape(b * f * r, k), first.weight_i8.shape[1])
+                x, xs = x.reshape(b, f, r, -1), xs.reshape(b, f, r, 1)
         group = self.mesh.model_group if self.mesh is not None else None
-        branches = []
+        d = self.fc7_f0.out_features
+        fc7 = torch.empty((n, f * d), dtype=dt, device=pooled.device)
         for i in range(f):
-            h, local = self._fc(f"fc6_f{i}", x[:, i].reshape(n, g * g * c),
+            h, local = self._fc(f"fc6_f{i}", _view_rows(x, i),
                                 None if xs is None
                                 else xs[:, i].reshape(n, 1))
-            h = self._dropout(F.relu(h), train, generator, shard, local)
-            h, local = self._fc(f"fc7_f{i}", h, local=local)
-            h = self._dropout(F.relu(h), train, generator, shard, local)
-            branches.append(mesh_lib.gather_cols(h, group) if local else h)
-        out, local = self._dense("cls_bbox", torch.cat(branches, dim=-1))
+            h = self._dropout(h, train, generator, shard, local)
+            dest = fc7[:, i * d:(i + 1) * d]
+            h, local = self._fc(f"fc7_f{i}", h, local=local, out=dest)
+            h = self._dropout(h, train, generator, shard, local)
+            if local:
+                h = mesh_lib.gather_cols(h, group)
+            if h is not dest:
+                dest.copy_(h)
+        out, local = self._dense("cls_bbox", fc7)
         if local:
             out = mesh_lib.gather_cols(out, group)
         scores = out[:, :self.cls_dim].reshape(
             n, self.num_integral_heads, self.num_classes)
         return scores.float(), out[:, self.cls_dim:].float()
+
+
+def _view_rows(x: torch.Tensor, i: int) -> torch.Tensor:
+    """View i's rows of x (B, F, R, ...) as one (B * R, K) matrix: a copy
+    when B > 1, since the views interleave image by image. Outside
+    autograd, copied as 8-byte words where the rows allow it: on an H100
+    PyTorch's copy of the int8 codes one byte an element ran at about a
+    third of the rate of the same bytes as int64 words (PERF.md §6)."""
+    b, f, r = x.shape[:3]
+    rows = x.reshape(b, f, r, -1)
+    size = rows.element_size()
+    if (not rows.requires_grad and rows.is_contiguous()
+            and rows.shape[-1] * size % 8 == 0
+            and rows.storage_offset() * size % 8 == 0):
+        return rows.view(torch.int64)[:, i].reshape(b * r, -1).view(x.dtype)
+    return rows[:, i].reshape(b * r, -1)
 
 
 def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,16 @@ The int8 GEMM is left to a library call, as the reference leaves it to
 lax.dot_general outside any Pallas kernel: `torch._int_mm` on the card,
 an int32 `torch.matmul` of the widened operands on the CPU (exact, as is
 the int32 accumulation on the card: 25088 * 127^2 < 2^31).
+
+The serving head (models/heads.py) runs the steps around that GEMM through
+two wrappers: `quantize_rows_padded` (an input's row quantize, its codes
+padded to the weight's K) and `int8_epilogue` (rescale, bias, the cast to
+the compute dtype and the ReLU, written into a column slice if asked). For
+a CUDA tensor each launches its kernel (csrc/int8_head.cu) or raises; for a
+CPU tensor each runs the plain functions below. Each counts its launches
+(`launch_counts`, also the counters `launches.int8_epilogue` and
+`launches.quantize_rows` of utils/profiling.counters). The plain functions
+(`quantize_rows`, `rescale_int32`, `matmul_int8`) never launch a kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +34,9 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from multipathnet_tpu_torch.utils import profiling
 
 # float32(1/127): the reference's jnp.float32(1.0 / 127.0)
 INV_127 = float(np.float32(1.0 / 127.0))
@@ -106,6 +119,191 @@ def rescale_int32(acc: torch.Tensor, x_scale: torch.Tensor,
     if bias is None:
         return acc * sc
     return torch.addcmul(bias.double(), acc, sc, out=torch.empty_like(acc))
+
+
+# the widest row csrc/int8_head.cu's quantize holds in registers
+MAX_ROW = 32768
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _cuda_only(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}: the kernel takes CUDA "
+                         f"tensors, the plain version CPU ones")
+
+
+def _check_vector(name, t, n, device):
+    if t.device != device or t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 on {device}, got {t.dtype}"
+                        f" on {t.device}")
+    if t.shape != (n,) or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a 16-byte aligned ({n},) vector, "
+                         f"got {tuple(t.shape)}")
+
+
+def quantize_rows_padded(x: torch.Tensor, width: int,
+                         amax: torch.Tensor | None = None):
+    """(M, K) float activations -> ((M, width) int8 codes, (M, 1) float32
+    row scales): quantize_rows' codes and scales, with zero codes in the
+    columns K..width (an Int8Linear's input padded to its weight's K).
+    `amax` (M, 1) as quantize_rows takes it.
+
+    On a CUDA tensor one launch of csrc/int8_head.cu's row quantize: x
+    bf16 or float32 with its last dimension contiguous (any row stride),
+    K <= MAX_ROW; anything else raises. On a CPU tensor its plain version,
+    quantize_rows_padded_ref."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    if width < k:
+        raise ValueError(f"width {width} is narrower than K = {k}")
+    if x.device.type == "cpu":
+        return quantize_rows_padded_ref(x, width, amax)
+    _cuda_only("x", x)
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if k > MAX_ROW or (k > 1 and x.stride(1) != 1) or x.stride(0) < k:
+        raise ValueError(f"x {tuple(x.shape)} with strides {x.stride()}: "
+                         f"rows of at most {MAX_ROW} contiguous elements")
+    dev = x.device
+    if amax is not None:
+        if amax.numel() != m:
+            raise ValueError(f"amax has {amax.numel()} values for {m} rows")
+        amax = amax.reshape(m).contiguous()
+        _check_vector("amax", amax, m, dev)
+    codes = torch.empty((m, width), dtype=torch.int8, device=dev)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    if m == 0:
+        return codes, scale
+    from multipathnet_tpu_torch.ops import _build
+
+    with torch.cuda.device(dev):
+        rc = _build.kernels().mpn_quantize_rows(
+            _KERNEL_DTYPES[x.dtype], m, k, x.stride(0), width, x.data_ptr(),
+            None if amax is None else amax.data_ptr(), codes.data_ptr(),
+            scale.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_rows launch failed: cudaError {rc}")
+    quantize_rows_padded.launches += 1
+    return codes, scale
+
+
+quantize_rows_padded.launches = 0
+
+
+def quantize_rows_padded_ref(x: torch.Tensor, width: int,
+                             amax: torch.Tensor | None = None):
+    """Plain version of quantize_rows_padded: quantize_rows, then zero
+    codes up to `width` columns."""
+    q, s = quantize_rows(x, amax)
+    k = q.shape[-1]
+    return (q if width == k else F.pad(q, (0, width - k))), s
+
+
+def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
+                  w_scale: torch.Tensor, bias: torch.Tensor | None = None,
+                  *, width: int | None = None, dtype=torch.float32,
+                  relu: bool = False, out: torch.Tensor | None = None):
+    """rescale_int32 of the (M, N_pad) int32 products, its first `width`
+    columns (all by default) rounded to `dtype`, then the ReLU if `relu`
+    (as F.relu after the cast). Written into `out` (M, width) when given,
+    a view with any row stride (a column slice of a wider buffer), else
+    into a new tensor; returns it. x_scale has M values, w_scale and bias
+    (N_pad,) float32.
+
+    On a CUDA tensor one launch of csrc/int8_head.cu's epilogue, whose
+    true fused multiply-add differs from rescale_int32's float64 sum only
+    where that sum is an exact float32 tie: acc int32, contiguous, 16-byte
+    aligned, N_pad % 4 == 0, `dtype` bf16 or float32; anything else
+    raises. On a CPU tensor its plain version, int8_epilogue_ref."""
+    if acc.dim() != 2:
+        raise ValueError(f"acc must be (M, N), got {tuple(acc.shape)}")
+    m, n_pad = acc.shape
+    width = n_pad if width is None else width
+    if not 0 < width <= n_pad:
+        raise ValueError(f"width {width} outside 1..{n_pad}")
+    if out is not None and (tuple(out.shape) != (m, width)
+                            or out.dtype != dtype):
+        raise ValueError(f"out must be ({m}, {width}) {dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if acc.device.type == "cpu":
+        return int8_epilogue_ref(acc, x_scale, w_scale, bias, width=width,
+                                 dtype=dtype, relu=relu, out=out)
+    _cuda_only("acc", acc)
+    dev = acc.device
+    if acc.dtype != torch.int32 or not acc.is_contiguous() or n_pad % 4 \
+            or acc.data_ptr() % 16:
+        raise ValueError(f"acc must be contiguous 16-byte aligned int32 "
+                         f"with N % 4 == 0, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"dtype must be bfloat16 or float32, got {dtype}")
+    if x_scale.numel() != m:
+        raise ValueError(f"x_scale has {x_scale.numel()} values for {m} "
+                         f"rows")
+    x_scale = x_scale.reshape(m).contiguous()
+    _check_vector("x_scale", x_scale, m, dev)
+    _check_vector("w_scale", w_scale, n_pad, dev)
+    if bias is not None:
+        _check_vector("bias", bias, n_pad, dev)
+    if out is None:
+        out = torch.empty((m, width), dtype=dtype, device=dev)
+    elif out.device != dev or (width > 1 and out.stride(1) != 1) \
+            or out.stride(0) < width:
+        raise ValueError(f"out on {out.device} with strides {out.stride()}:"
+                         f" rows of contiguous elements on {dev}")
+    if m == 0:
+        return out
+    from multipathnet_tpu_torch.ops import _build
+
+    with torch.cuda.device(dev):
+        rc = _build.kernels().mpn_int8_epilogue(
+            _KERNEL_DTYPES[dtype], int(relu), m, n_pad, width, out.stride(0),
+            acc.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_epilogue launch failed: cudaError {rc}")
+    int8_epilogue.launches += 1
+    return out
+
+
+int8_epilogue.launches = 0
+
+
+def int8_epilogue_ref(acc, x_scale, w_scale, bias=None, *, width=None,
+                      dtype=torch.float32, relu=False, out=None):
+    """Plain version of int8_epilogue: rescale_int32, the first `width`
+    columns, the cast to `dtype`, F.relu if `relu`, copied into `out` when
+    given."""
+    y = rescale_int32(acc, x_scale, w_scale, bias)[:, :width].to(dtype)
+    if relu:
+        y = F.relu(y)
+    return y if out is None else out.copy_(y)
+
+
+def launch_counts() -> dict:
+    """The head kernels' launches in this process so far, by kernel."""
+    return {"int8_epilogue": int8_epilogue.launches,
+            "quantize_rows": quantize_rows_padded.launches}
+
+
+def reset_launch_counts() -> None:
+    """Zeroes every count launch_counts reads."""
+    int8_epilogue.launches = quantize_rows_padded.launches = 0
+
+
+def quantize_rows_padded_ref(x: torch.Tensor, width: int,
+                             amax: torch.Tensor | None = None):
+    """Plain version of quantize_rows_padded: quantize_rows, then zero
+    codes up to `width` columns."""
+    q, s = quantize_rows(x, amax)
+    k = q.shape[-1]
+    return (q if width == k else F.pad(q, (0, width - k))), s
+
+
+profiling.register_source(lambda: {
+    "launches." + k: v for k, v in launch_counts().items()})
 
 
 def dense_int8(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor,

@@ -127,9 +127,10 @@ def debug_nans(enable: bool = True):
 # such spans (`span(..., adopt=True)`: train.backward).
 #
 # Counters are always on: `count` adds to one registry, and `counters()`
-# reads it with the counts of the registered sources (the pool kernels'
-# launches, `launches.<kernel>`, ops/roi_pool.launch_counts). A root span's
-# record holds every counter's change over the root. Names:
+# reads it with the counts of the registered sources (the kernels'
+# launches, `launches.<kernel>`: the pool kernels' from
+# ops/roi_pool.launch_counts, the int8 head's from ops/quant.launch_counts).
+# A root span's record holds every counter's change over the root. Names:
 #   sync.<site>  blocking waits of the host on the card (CUDA only)
 #   nms.rounds   rounds of ops/nms.nms_sorted's fixpoint
 #   h2d.bytes    bytes put on the program's device from host arrays

@@ -36,6 +36,7 @@ from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.heads import MultiPathHead
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import lowrank, quant, roi_pool
+from multipathnet_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -259,19 +260,52 @@ def _int8_pooled(rng, model_cfg, b=2, r=5):
     return q, s
 
 
+def _cat_path(head, x, xs):
+    """The int8 head as it ran before its fc7 outputs went into one buffer:
+    each branch's fc7 output concatenated, every layer through the plain
+    quantize_rows and rescale_int32, a ReLU after each FC. x (B, F, R, K)
+    int8 codes, xs (B, F, R, 1) float32 scales."""
+    def dense(name, h, hs=None):
+        mod = getattr(head, name)
+        if hs is None:
+            h, hs = quant.quantize_rows(h)
+        y = quant.rescale_int32(mod.accumulate(h), hs, mod.weight_scale,
+                                mod.bias)
+        return y[:, :mod.out_features].to(mod.dtype)
+
+    def fc(name, h, hs=None):
+        if hasattr(head, f"{name}_u"):
+            h, hs = dense(f"{name}_u", h, hs), None
+        return torch.relu(dense(name, h, hs))
+
+    b, f, r = x.shape[:3]
+    n = b * r
+    branches = [fc(f"fc7_f{i}", fc(f"fc6_f{i}", x[:, i].reshape(n, -1),
+                                   xs[:, i].reshape(n, 1)))
+                for i in range(f)]
+    out = dense("cls_bbox", torch.cat(branches, dim=-1))
+    scores = out[:, :head.cls_dim].reshape(n, head.num_integral_heads, -1)
+    return scores.float(), out[:, head.cls_dim:].float()
+
+
+@pytest.mark.parametrize("g", [7, 6], ids=["g7", "g6"])
 @pytest.mark.parametrize("ranks", [(0, 0), (16, 8), (12, 6)],
                          ids=["int8", "int8_svd", "int8_svd_odd_ranks"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_int8_head_matches_reference(dtype, ranks):
+def test_int8_head_matches_reference(dtype, ranks, g):
     """The same int8 pooled codes and scales through the reference's int8
     head and the port's: bit-equal scores and deltas (the int32 GEMM is
-    exact on both sides). Then the port's own quantizing route (float
-    pooled, pooled_scale=None) against the pre-quantized route fed
-    quant_view_ref of the same pooled tensor: equal too. Ranks (12, 6) are
-    no multiples of 8: Int8Linear pads the factored layers' K with zero
-    weight columns and the input with zero codes, exactly."""
+    exact on both sides), at G = 7 and 6. The port writes each view's fc7
+    output into its column slice of one buffer and quantizes that buffer's
+    whole row for the classifier: equal to concatenating the branches
+    (_cat_path). Then the port's own quantizing route (float pooled,
+    pooled_scale=None; its codes padded to fc6's K in one pass) against the
+    pre-quantized route fed quant_view_ref of the same pooled tensor: equal
+    too. Ranks (12, 6) are no multiples of 8: Int8Linear pads the factored
+    layers' K with zero weight columns and the input with zero codes,
+    exactly."""
     jdt, tdt = DTYPES[dtype]
-    mcfg = preset("tiny").model
+    mcfg = dataclasses.replace(preset("tiny").model, roi_output_size=g)
     rng = np.random.default_rng(4)
     tree = jax.tree_util.tree_map(np.asarray, jquant.quantize_head_params(
         _head_tree(rng, mcfg, *ranks)))
@@ -285,7 +319,8 @@ def test_int8_head_matches_reference(dtype, ranks):
                          foveal_scales=mcfg.foveal_scales,
                          num_integral_heads=len(mcfg.integral_thresholds),
                          fc_dim=mcfg.fc_dim,
-                         skip_reduce_dim=mcfg.skip_reduce_dim, dtype=tdt,
+                         skip_reduce_dim=mcfg.skip_reduce_dim,
+                         roi_output_size=g, dtype=tdt,
                          quant="int8", fc6_rank=ranks[0], fc7_rank=ranks[1])
     head.load_state_dict(convert.state_dict_from_flax(tree))
     q, s = _int8_pooled(rng, mcfg)
@@ -295,6 +330,10 @@ def test_int8_head_matches_reference(dtype, ranks):
         got = head(torch.from_numpy(q), pooled_scale=torch.from_numpy(s))
         for g_, w_ in zip(got, want):
             np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+        cat = _cat_path(head, torch.from_numpy(q).reshape(*q.shape[:3], -1),
+                        torch.from_numpy(s))
+        for a, b in zip(got, cat):
+            assert torch.equal(a, b)
 
         pooled = torch.from_numpy(rng.normal(size=q.shape)).to(tdt)
         own = head(pooled)
@@ -304,6 +343,93 @@ def test_int8_head_matches_reference(dtype, ranks):
         pre = head(pq.reshape(q.shape), pooled_scale=ps.reshape(s.shape))
         for a, b in zip(own, pre):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("cols,width", [((0, 1568), 1568), ((0, 1568), 1576),
+                                        ((392, 785), 400)],
+                         ids=["whole", "padded", "row_parallel"])
+def test_quantize_rows_padded_matches_reference(dtype, cols, width):
+    """quantize_rows_padded's plain route against the reference's
+    quantize_rows of the whole rows: the same codes, zero codes in the pad
+    columns, the same scales. "row_parallel" quantizes a block of columns
+    (an odd width) with each whole row's largest magnitude given as `amax`,
+    as a row-parallel layer does after the all-reduce of the maxima: its
+    codes are the whole row's codes in those columns."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(40, 1568)) * 10 ** rng.uniform(-3, 3, (40, 1))
+    x[3] = 0.0                                       # all-zero row
+    x = jnp.asarray(x, jdt)
+    want_q, want_s = jax.jit(jquant.quantize_rows)(x)
+    xt = _t(x)
+    a, b = cols
+    amax = quant.row_amax(xt) if (a, b) != (0, xt.shape[1]) else None
+    got_q, got_s = quant.quantize_rows_padded(xt[:, a:b], width, amax)
+    assert got_q.shape == (40, width) and got_s.shape == (40, 1)
+    np.testing.assert_array_equal(got_q[:, :b - a].numpy(),
+                                  np.asarray(want_q)[:, a:b])
+    assert not got_q[:, b - a:].any()
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_int8_epilogue_plain_route():
+    """int8_epilogue on CPU tensors: rescale_int32, the logical columns,
+    the cast and F.relu, written into a column slice of a wider buffer when
+    asked; bad arguments raise, and a tensor on neither the CPU nor a card
+    too."""
+    rng = np.random.default_rng(6)
+    acc = torch.from_numpy(rng.integers(-2 ** 26, 2 ** 26, (9, 16),
+                                        dtype=np.int32))
+    xs = torch.from_numpy(rng.uniform(1e-4, 1e-2, (9, 1)).astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-2, 16).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=16).astype(np.float32))
+    full = quant.rescale_int32(acc, xs, ws, bias)
+    buf = torch.full((9, 30), 7.0, dtype=torch.bfloat16)
+    got = quant.int8_epilogue(acc, xs, ws, bias, width=13,
+                              dtype=torch.bfloat16, relu=True,
+                              out=buf[:, 5:18])
+    assert got.data_ptr() == buf[:, 5:18].data_ptr()
+    assert torch.equal(buf[:, 5:18], torch.relu(full[:, :13].bfloat16()))
+    assert (buf[:, :5] == 7).all() and (buf[:, 18:] == 7).all()
+    assert torch.equal(quant.int8_epilogue(acc, xs, ws),
+                       quant.rescale_int32(acc, xs, ws))
+    with pytest.raises(ValueError):
+        quant.int8_epilogue(acc, xs, ws, width=17)
+    with pytest.raises(ValueError):
+        quant.int8_epilogue(acc, xs, ws, width=13, out=buf[:, :12])
+    with pytest.raises(ValueError):
+        quant.int8_epilogue(acc[0], xs, ws)
+    with pytest.raises(ValueError):
+        quant.quantize_rows_padded(torch.zeros(4, 8), 6)
+    meta = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        quant.int8_epilogue(meta, xs, ws)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        quant.quantize_rows_padded(meta.float(), 8)
+
+
+def test_head_kernels_count_no_launch_on_the_cpu():
+    """The head kernels' counters exist (quant.launch_counts and the
+    counters launches.int8_epilogue / launches.quantize_rows) and an int8 +
+    SVD head on the CPU moves neither: the plain versions run."""
+    mcfg = preset("tiny").model
+    head = MultiPathHead(num_classes=mcfg.num_classes,
+                         foveal_scales=mcfg.foveal_scales,
+                         num_integral_heads=len(mcfg.integral_thresholds),
+                         fc_dim=mcfg.fc_dim,
+                         skip_reduce_dim=mcfg.skip_reduce_dim,
+                         dtype=torch.float32, quant="int8", fc6_rank=16,
+                         fc7_rank=8)
+    q, s = _int8_pooled(np.random.default_rng(7), mcfg)
+    before = profiling.counters()
+    assert set(quant.launch_counts()) == {"int8_epilogue", "quantize_rows"}
+    with torch.no_grad():
+        head(torch.from_numpy(q), pooled_scale=torch.from_numpy(s))
+        head(torch.from_numpy(q).float())
+    after = profiling.counters()
+    for name in ("launches.int8_epilogue", "launches.quantize_rows"):
+        assert after[name] == before[name] == 0
 
 
 def test_serving_heads_are_inference_only_and_rank_checked():
