@@ -216,6 +216,14 @@ def preset(name: str) -> Config:
         c = _replace(c, "model", head_quant="int8", fc6_rank=1024,
                      fc7_rank=256)
         c = _replace(c, "train", batch_size=8)
+    elif name == "multipath_resnet101_int8_svd":
+        # the int8 + SVD serving configuration on a ResNet-101 trunk (He et
+        # al. 2016, conv1-conv4_x; taps c3/c4/c5 at strides 4/8/16), the
+        # detector ResNet users deploy. The port's own preset: the JAX
+        # package has none of this name.
+        c = _replace(c, "model", backbone="resnet101", head_quant="int8",
+                     fc6_rank=1024, fc7_rank=256)
+        c = _replace(c, "train", batch_size=8)
     elif name == "multipath_vgg16_train":
         # config 4: integral-loss fine-tuning, data-parallel over the TPU mesh
         pass
@@ -261,4 +269,5 @@ PRESETS = (
     "multipath_vgg16_reference",
     "multipath_resnet18_integral",
     "sharpmask_multipath_e2e",
+    "multipath_resnet101_int8_svd",
 )

@@ -18,6 +18,11 @@ the next free index: Conv_2 in a basic block, Conv_3 in a bottleneck), so
 models/convert.py maps trees path for path. `freeze_stages` detaches the
 activations after stage N (stage 1 = the stem), the reference's
 stop_gradient.
+
+`forward` opens the spans features.stem (the stem convolution, its BN and
+the max-pool) and features.stage2..4 (each stage's blocks), inside the
+model's features span (utils/profiling), so that a trace tells the
+stages' device time apart.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multipathnet_tpu_torch.models import layers
+from multipathnet_tpu_torch.utils import profiling
 
 
 def _conv(cin, cout, k, stride, pad, device, dtype):
@@ -131,17 +137,19 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         """x (B, H, W, 3) normalized float -> {"c3","c4","c5"} NHWC maps."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.stem_bn(layers.conv_f32(self.stem, x, self.dtype),
-                                 self.dtype))
-        x = F.max_pool2d(x, 3, 2, padding=1)  # -inf padding, /4
+        with profiling.span("features.stem"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            x = x.contiguous(memory_format=torch.channels_last)
+            x = F.relu(self.stem_bn(
+                layers.conv_f32(self.stem, x, self.dtype), self.dtype))
+            x = F.max_pool2d(x, 3, 2, padding=1)  # -inf padding, /4
         if self.freeze_stages >= 1:
             x = x.detach()
         feats = {}
         for si, n_blocks in enumerate(self.stage_sizes):
-            for bi in range(n_blocks):
-                x = getattr(self, f"stage{si + 2}_block{bi}")(x)
+            with profiling.span(f"features.stage{si + 2}"):
+                for bi in range(n_blocks):
+                    x = getattr(self, f"stage{si + 2}_block{bi}")(x)
             if si + 2 <= self.freeze_stages:
                 x = x.detach()
             feats[f"c{si + 3}"] = x.permute(0, 2, 3, 1)

@@ -54,7 +54,8 @@ kernels' epilogue. On every other route it pools through `pool_rois` and
 the head quantizes its rows.
 
 `features`, `pool_rois` and `predict_rois` are the spans of those names
-(utils/profiling), and no other span opens inside them.
+(utils/profiling). No other span opens inside them, but for a ResNet
+trunk's features.stem and features.stage2..4 inside `features`.
 """
 
 from __future__ import annotations

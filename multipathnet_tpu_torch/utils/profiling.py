@@ -110,9 +110,11 @@ def debug_nans(enable: bool = True):
 # predict_rois, detect.decode, multiclass_nms, detect.fetch) and
 # `Trainer.step` the root "train.step" (train.put, train.augment,
 # train.sample, the same three model spans, train.loss, train.backward with
-# pool_rois.backward under it, train.optimizer). No span opens inside
-# features, pool_rois, predict_rois or multiclass_nms, so a kernel launched
-# there belongs to that span alone.
+# pool_rois.backward under it, train.optimizer). Inside features only a
+# ResNet trunk opens spans, features.stem and features.stage2..4
+# (models/backbones/resnet.py); no span opens inside pool_rois,
+# predict_rois or multiclass_nms, so a kernel launched there belongs to
+# that span alone.
 #
 # Tracing is off by default, and then a span is one flag check and a call
 # straight through. It is on while a torch.profiler session records, and
@@ -133,6 +135,7 @@ def debug_nans(enable: bool = True):
 # A root span's record holds every counter's change over the root. Names:
 #   sync.<site>  blocking waits of the host on the card (CUDA only)
 #   nms.rounds   rounds of ops/nms.nms_sorted's fixpoint
+#   bn.passes    forwards of models/layers.FrozenBatchNorm
 #   h2d.bytes    bytes put on the program's device from host arrays
 #   d2h.bytes    bytes of results copied back to the host
 

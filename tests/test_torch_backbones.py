@@ -91,7 +91,8 @@ def _taps(name, stage_sizes, jdt, tdt, seed=1):
     return out
 
 
-CASES = {"resnet18": None, "resnet50_cut": (1, 2, 1), "alexnet": None}
+CASES = {"resnet18": None, "resnet50_cut": (1, 2, 1), "resnet101": None,
+         "alexnet": None}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -99,7 +100,8 @@ def test_trunk_float32_matches_reference(case):
     """float32 taps within 1e-5 x max |x| (float32 convolutions sum in
     another order); ResNet-50 at reduced depth (1, 2, 1) bottleneck blocks,
     the (3, 4, 6) stage map being checked by name in
-    test_full_depth_trees_load_strictly."""
+    test_full_depth_trees_load_strictly; ResNet-101 at its full (3, 4, 23)
+    depth and widths (2.3e-6 read at c5)."""
     name = case.split("_")[0]
     for lv, (got, want) in _taps(name, CASES[case], jnp.float32,
                                  torch.float32).items():
@@ -117,10 +119,16 @@ def _bf16_step(x):
 
 # the share of bf16 values allowed to differ, by trunk and level (seen with
 # these seeds: resnet18 1.07%, 12.7%, 20.5% of c3/c4/c5; resnet50_cut 0,
-# 0.40%, 1.10%; alexnet 0.003%, 0.004%, 0)
+# 0.40%, 1.10%; resnet101 0.21%, 16.3%, 54.2%; alexnet 0.003%, 0.004%, 0)
 _BF16_SHARE = {"resnet18": {"c3": 0.02, "c4": 0.2, "c5": 0.3},
                "resnet50_cut": {"c3": 0.01, "c4": 0.02, "c5": 0.04},
+               "resnet101": {"c3": 0.01, "c4": 0.25, "c5": 0.7},
                "alexnet": {"c3": 1e-3, "c4": 1e-2, "c5": 1e-2}}
+# bf16 steps allowed at a level's largest magnitude where one is not enough:
+# ResNet-101's 23 conv4_x blocks carry a moved rounding on through the
+# residual sums, and c5 reads 3 steps (1.6% of its largest magnitude; an
+# fp8 trunk moves the taps by 6-10%)
+_BF16_STEPS = {"resnet101": {"c5": 4}}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -133,14 +141,16 @@ def test_trunk_bf16_matches_reference(case):
     XLA's, so a differing float32 ulp can move a bf16 rounding, and the
     difference compounds with depth: each level's largest difference is
     at most one bf16 step at the level's largest magnitude, and the share
-    of values that differ at all is pinned (_BF16_SHARE). Rounding the
-    ResNet convolutions' outputs to bf16 before their BN instead makes 27%
-    of the stem BN's outputs differ."""
+    of values that differ at all is pinned (_BF16_SHARE); at ResNet-101's
+    c5 the difference is held to the few steps of _BF16_STEPS. Rounding
+    the ResNet convolutions' outputs to bf16 before their BN instead makes
+    27% of the stem BN's outputs differ."""
     name = case.split("_")[0]
     for lv, (got, want) in _taps(name, CASES[case], jnp.bfloat16,
                                  torch.bfloat16).items():
         diff = np.abs(got - want).max()
-        assert diff <= _bf16_step(np.abs(want).max()), (lv, diff)
+        steps = _BF16_STEPS.get(case, {}).get(lv, 1)
+        assert diff <= steps * _bf16_step(np.abs(want).max()), (lv, diff)
         share = (got != want).mean()
         assert share <= _BF16_SHARE[case][lv], (lv, share)
 

@@ -14,8 +14,24 @@ from multipathnet_tpu_torch.core import config as tcfg
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# presets the port has and the reference lacks: name -> (the reference's
+# preset it derives from, the model fields it changes)
+PORT_ONLY = {"multipath_resnet101_int8_svd":
+             ("multipath_vgg16_int8_svd", {"backbone": "resnet101"})}
+
+
 def test_preset_names_match_reference():
-    assert tcfg.PRESETS == jcfg.PRESETS
+    assert tcfg.PRESETS == jcfg.PRESETS + tuple(PORT_ONLY)
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ONLY))
+def test_port_only_preset_derives_from_reference(name):
+    base, model = PORT_ONLY[name]
+    want = jcfg.preset(base)
+    want = dataclasses.replace(
+        want, name=name, model=dataclasses.replace(want.model, **model))
+    assert (dataclasses.asdict(tcfg.preset(name))
+            == dataclasses.asdict(want))
 
 
 @pytest.mark.parametrize("name", jcfg.PRESETS)

@@ -39,6 +39,9 @@ TRAIN_SPANS = {"train.step", "train.put", "train.augment", "train.sample",
                "train.backward", "pool_rois.backward", "train.optimizer"}
 # the spans whose device time the benchmark's rooflines and NMS read
 LAYER_SPANS = ("features", "pool_rois", "predict_rois", "multiclass_nms")
+# a ResNet trunk's stage spans, the only spans inside features
+RESNET_SPANS = {"features.stem", "features.stage2", "features.stage3",
+                "features.stage4"}
 
 
 @pytest.fixture(autouse=True)
@@ -81,6 +84,18 @@ def tiny_detector():
                          torch.Generator().manual_seed(0))
     det = Detector(model, cfg, device="cpu")
     det(*_serve_inputs(cfg))           # the first call, outside any test
+    return det
+
+
+@pytest.fixture(scope="module")
+def tiny_resnet_detector():
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                backbone="resnet18"))
+    model = init_params_(build_model(cfg.model, device="cpu"),
+                         torch.Generator().manual_seed(0))
+    det = Detector(model, cfg, device="cpu")
+    det(*_serve_inputs(cfg))
     return det
 
 
@@ -213,17 +228,26 @@ def _trace_spans(tmp_path, fn) -> list:
             and e["name"].startswith("span:")]
 
 
-@pytest.mark.parametrize("kind", ["serve", "train"])
+@pytest.mark.parametrize("kind", ["serve", "train", "serve_resnet"])
 def test_profiler_trace_holds_the_layer_spans(kind, tmp_path, tiny_detector,
-                                              tiny_trainer):
+                                              tiny_trainer,
+                                              tiny_resnet_detector):
     """The spans of the layer boundaries, by name, in the exported trace;
     none inside features, pool_rois, predict_rois or multiclass_nms
     under another name (a child there would take device time from the
-    span the benchmark's rooflines read); the records agree."""
+    span the benchmark's rooflines read), but for a ResNet trunk's stage
+    spans inside features, which the ResNet trunk's roofline reads with
+    it; the records agree."""
+    stages = set()
     if kind == "serve":
         det = tiny_detector
         spans = _trace_spans(tmp_path, lambda: det(*_serve_inputs(det.cfg)))
         want, root = SERVE_SPANS, "detect"
+    elif kind == "serve_resnet":
+        det = tiny_resnet_detector
+        spans = _trace_spans(tmp_path, lambda: det(*_serve_inputs(det.cfg)))
+        stages = RESNET_SPANS
+        want, root = SERVE_SPANS | stages, "detect"
     else:
         spans = _trace_spans(tmp_path, tiny_trainer.step)
         want, root = TRAIN_SPANS, "train.step"
@@ -232,7 +256,10 @@ def test_profiler_trace_holds_the_layer_spans(kind, tmp_path, tiny_detector,
         if name in LAYER_SPANS:
             inside = [n for n, a2, b2 in spans
                       if a <= a2 and b2 <= b and n != name]
-            assert not inside, f"{inside} inside {name}"
+            if name == "features":
+                assert sorted(inside) == sorted(stages), inside
+            else:
+                assert not inside, f"{inside} inside {name}"
     (rec,) = profiling.records()
     assert rec["name"] == root and set(_names(rec)) == want
     if kind == "train":
