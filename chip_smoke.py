@@ -313,11 +313,18 @@ Phases, each of which raises on failure (nothing is caught):
      plain version, with its byte bound (bf16 input, codes and scales; the
      int32 products, the bf16 output, the vectors), and summed over the
      batch's 17 epilogues and 13 quantizes.
+ 26. the ResNet trunk's BN epilogue (`bn_epilogue`, csrc/bn_epilogue.cu):
+     its instances' registers, spills and blocks an SM, then a ResNet-101
+     trunk (the serving cell's draw) on 8 x 640^2 under inference_mode:
+     each of its 94 BNs, on the inputs the trunk gives it, bit for bit
+     against the plain version (ops/batchnorm.bn_epilogue_ref), then each
+     timed in turns with it, with its byte bound (the float32 sum, the
+     residual, the output, the vectors), and summed over the batch.
 The line before the last is a JSON object with each kernel's launches (the
 runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
-22, 23 and 24, each counted from 0, and their sum; the head's kernels only
-in this process; phase 23's checks at its shapes as `configs_<case>_*`,
-phase 24's at G = 6 as `output_size_<case>_*`),
+22, 23 and 24, each counted from 0, and their sum; the head's kernels and
+the BN epilogue only in this process; phase 23's checks at its shapes as
+`configs_<case>_*`, phase 24's at G = 6 as `output_size_<case>_*`),
 error, times and bound: for the pool kernels the larger of the bytes they
 must move (each pyramid cell under a window, the geometry and the output
 once) over 3.35 TB/s and their operations (float32 ones over 67 TF/s; the
@@ -325,7 +332,8 @@ bf16 body's W2 GEMM, 2 x G^2 x 160 per view, level and channel, over the
 989 TF/s of the bf16 tensor cores); for P the
 distinct cells under its windows and its output over 3.35 TB/s, with the
 int8 numbers and the share of the bound beside the bf16 ones; for the
-head's kernels one batch's instances summed (phase 25). The last line
+head's kernels one batch's instances summed (phase 25), for the BN
+epilogue the ResNet-101 batch's 94 (phase 26). The last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -366,11 +374,13 @@ from multipathnet_tpu_torch.eval.tester import (Tester, detections_to_coco,
 from multipathnet_tpu_torch.data import transforms
 from multipathnet_tpu_torch.models import convert, import_weights, layers
 from multipathnet_tpu_torch.models.heads import Int8Linear
+from multipathnet_tpu_torch.models.backbones.resnet import ResNet101
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.models.sharpmask import generate_proposals
 from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import lowrank, quant, roi_pool, roi_pyramid
+from multipathnet_tpu_torch.ops import (batchnorm, lowrank, quant, roi_pool,
+                                        roi_pyramid)
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import (mesh_runs, prof_eval, prof_train,
                                          prop_quality_scale, soak_svd_decay)
@@ -389,6 +399,7 @@ POOL_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_pool_wgmma.cu"
 GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
 PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
 HEAD_SOURCE = "multipathnet_tpu_torch/csrc/int8_head.cu"
+BN_SOURCE = "multipathnet_tpu_torch/csrc/bn_epilogue.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
 # the window kernels (the pools, their backward, the probe): name ->
 # (source, the TPU kernel it replaces). read_launches() and every launch
@@ -410,7 +421,10 @@ HEAD_KERNELS = {
     "int8_epilogue": (HEAD_SOURCE, None),
     "quantize_rows": (HEAD_SOURCE, None),
 }
-KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS}
+# the ResNet trunk's BN epilogue (ops/batchnorm.py), which replaces no TPU
+# kernel either; batchnorm.launch_counts() counts it, in this process only
+BN_KERNELS = {"bn_epilogue": (BN_SOURCE, None)}
+KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS, **BN_KERNELS}
 
 
 def reset_launches() -> None:
@@ -2125,9 +2139,9 @@ def bn_pass_ms(run):
     seen = []
     forward = layers.FrozenBatchNorm.forward
 
-    def record(self, x, dtype):
+    def record(self, x, dtype, **epilogue):
         seen.append((self, tuple(x.shape), dtype))
-        return forward(self, x, dtype)
+        return forward(self, x, dtype, **epilogue)
 
     layers.FrozenBatchNorm.forward = record
     try:
@@ -4510,6 +4524,129 @@ def int8_head_path(gen):
     return out
 
 
+# ------------------------------------------------------------ phase 26 ---
+
+def bn_epilogue_bytes(shape, dtype, out_dtype, residual: bool) -> int:
+    """The byte bound's count of one epilogue: the float32 sum read, the
+    residual (compute dtype) read where there is one, the output written,
+    the three per-channel float32 vectors read."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    size = {torch.bfloat16: 2, torch.float32: 4}
+    return (n * 4 + (n * size[dtype] if residual else 0)
+            + n * size[out_dtype] + 3 * c * 4)
+
+
+def bn_epilogue_path(gen):
+    """Phase 26 (`bn_epilogue`): csrc/bn_epilogue.cu at the ResNet-101
+    serving cell's shapes. Its instances' registers, spills and blocks an
+    SM; then a ResNet-101 trunk (the cell's draw: He-normal convolutions,
+    BN scale U(0.2, 0.6), variance U(0.5, 2), mean and bias N x 0.1) on
+    8 x 640^2 under inference_mode, each of its 94 BNs recorded with the
+    inputs the trunk gives it and its output held bit for bit to the plain
+    version's; then each instance timed in turns with the plain version
+    (plain, kernel, kernel, plain; each run queued behind a device sleep,
+    queued_ms), with its byte bound. Returns {"bn_epilogue": stats} for the
+    kernels' table: ms, plain_ms and bound_ms summed over the batch's
+    instances."""
+    t_phase = time.perf_counter()
+    attrs = (ctypes.c_int * 5)()
+    for flags, what in (((1, 0, 0, 1), "bf16, ReLU (the stem)"),
+                        ((1, 1, 0, 1), "bf16, ReLU, float32 out (a "
+                                       "convolution's input)"),
+                        ((1, 0, 0, 0), "bf16 (a downsample)"),
+                        ((1, 0, 1, 1), "bf16, residual, ReLU (a block's "
+                                       "output)")):
+        rc = _build.kernels().mpn_bn_epilogue_attrs(*flags, attrs)
+        require(rc == 0, f"mpn_bn_epilogue_attrs{flags}: {rc}")
+        log(f"[bn_epilogue] {what}: {attrs[0]} registers, {attrs[1]} B "
+            f"local (spills), {attrs[2]} B static shared, {attrs[4]} blocks "
+            f"of 256 an SM")
+    trunk = ResNet101(device="cuda", param_dtype=torch.float32)
+    with torch.no_grad():
+        for mod in trunk.modules():
+            if isinstance(mod, layers.FrozenBatchNorm):
+                n = mod.weight.shape[0]
+                mod.weight.copy_(torch.rand(n, generator=gen,
+                                            device="cuda") * 0.4 + 0.2)
+                mod.running_var.copy_(torch.rand(
+                    n, generator=gen, device="cuda") * 1.5 + 0.5)
+                mod.running_mean.copy_(torch.randn(
+                    n, generator=gen, device="cuda") * 0.1)
+                mod.bias.copy_(torch.randn(n, generator=gen,
+                                           device="cuda") * 0.1)
+        for p in trunk.parameters():
+            if p.dim() == 4:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * (2.0 / p[0].numel()) ** 0.5)
+    seen = []
+    forward = layers.FrozenBatchNorm.forward
+
+    def record(self, x, dtype, **epilogue):
+        got = forward(self, x, dtype, **epilogue)
+        want = batchnorm.bn_epilogue_ref(x, self.running_mean, self.mul(),
+                                         self.bias, dtype, **epilogue)
+        view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        require(got.dtype == want.dtype and torch.equal(
+            got.view(view[got.dtype]), want.view(view[want.dtype])),
+            f"the BN epilogue at instance {len(seen)} {tuple(x.shape)} "
+            f"{epilogue.keys()} differs from its plain version")
+        seen.append((self, x, dtype, epilogue))
+        return got
+
+    before = batchnorm.bn_epilogue.launches
+    layers.FrozenBatchNorm.forward = record
+    try:
+        with torch.inference_mode():
+            feats = trunk(torch.randn((8, 640, 640, 3), generator=gen,
+                                      device="cuda"))
+    finally:
+        layers.FrozenBatchNorm.forward = forward
+    torch.cuda.synchronize()
+    require(len(seen) == 94 and batchnorm.bn_epilogue.launches - before
+            == 94, f"{len(seen)} BNs, "
+            f"{batchnorm.bn_epilogue.launches - before} launches")
+    require(all(f.isfinite().all() for f in feats.values()),
+            "non-finite taps")
+    log(f"[bn_epilogue] 94 instances of a ResNet-101 batch at 8 x 640^2 "
+        f"bit for bit against the plain version")
+    total = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    shares = []
+    with torch.inference_mode():
+        for i, (mod, x, dtype, epi) in enumerate(seen):
+            affine = mod.affine()
+            mul = mod.mul()
+            out_dtype = epi.get("out_dtype") or dtype
+            res = epi.get("residual")
+            ms, plain_ms = alternate_ms(
+                lambda: batchnorm.bn_epilogue_ref(
+                    x, mod.running_mean, mul, mod.bias, dtype, **epi),
+                lambda: batchnorm.bn_epilogue(x, *affine, dtype, **epi),
+                3, 20, queued_ms)
+            n_bytes = bn_epilogue_bytes(tuple(x.shape), dtype, out_dtype,
+                                        res is not None)
+            b_ms = n_bytes / HBM_BYTES_PER_MS
+            shares.append(b_ms / ms)
+            log(f"[bn_epilogue] {i:2d} {tuple(x.shape)} "
+                f"{'relu ' if epi.get('relu') else ''}"
+                f"{'residual ' if res is not None else ''}-> {out_dtype}: "
+                f"kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its bound "
+                f"{b_ms:.4f} ms, {n_bytes / 1e6:.1f} MB), plain "
+                f"{plain_ms:.4f} ms")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms)):
+                total[key] += v
+    del seen, feats, trunk
+    log(f"[bn_epilogue] one batch's 94 instances: kernel {total['ms']:.3f} "
+        f"ms, bound {total['bound_ms']:.3f} ms (bytes, "
+        f"{100 * total['bound_ms'] / total['ms']:.1f}%; instances "
+        f"{100 * min(shares):.1f}-{100 * max(shares):.1f}%), plain "
+        f"{total['plain_ms']:.3f} ms")
+    log(f"[bn_epilogue] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return {"bn_epilogue": {**total, "bound_by": "bytes", "max_abs_err": 0,
+                            "extra": {"min_bound_share": min(shares)}}}
+
+
 def split_paths():
     """(annotations file, image directory, proposals file) of phase 13's
     split, as disk_split writes it."""
@@ -4543,13 +4680,16 @@ def main() -> None:
 
     head_paths = {}
 
+    def own_counts():
+        return {**quant.launch_counts(), **batchnorm.launch_counts()}
+
     def counted(path, fn, *args):
-        """fn(*args), its head kernels' launches in this process kept as
-        path's."""
-        before = quant.launch_counts()
+        """fn(*args), its head and BN kernels' launches in this process
+        kept as path's."""
+        before = own_counts()
         result = fn(*args)
         head_paths[path] = {k: v - before[k]
-                            for k, v in quant.launch_counts().items()}
+                            for k, v in own_counts().items()}
         return result
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4618,6 +4758,8 @@ def main() -> None:
         resident_ms, gen)
     torch.cuda.empty_cache()
     stats.update(int8_head_path(gen))
+    torch.cuda.empty_cache()
+    stats.update(bn_epilogue_path(gen))
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "

@@ -7,7 +7,12 @@ the stride-32 stage is past the detection trunk, as in the reference.
 
 Each convolution feeds its BatchNorm in float32 (models/layers.conv_f32),
 which rounds once to the compute dtype, as the reference's XLA computes
-it; residual sums run in the compute dtype.
+it; residual sums run in the compute dtype. The BN takes the residual add
+and the ReLU after it too (FrozenBatchNorm.forward; one kernel on the
+card when serving), so a block computes its downsample before its last
+convolution, whose residual it is. A BN output that only a convolution
+reads comes back widened to float32, the copy that convolution would
+otherwise make.
 
 Padding is explicit, as in the reference: every 3x3 convolution (the
 stride-2 ones too) pads (1, 1), the 1x1 downsample pads nothing, the stem
@@ -41,11 +46,21 @@ def _conv(cin, cout, k, stride, pad, device, dtype):
 
 
 class _Block(nn.Module):
-    def _conv_bn(self, k: int, x: torch.Tensor) -> torch.Tensor:
-        """Conv_k, then BatchNorm_k on its float32 sum, in self.dtype."""
+    def _conv_bn(self, k: int, x: torch.Tensor, **epilogue) -> torch.Tensor:
+        """Conv_k, then BatchNorm_k on its float32 sum, in self.dtype, with
+        what follows it (FrozenBatchNorm.forward's relu, residual and
+        out_dtype)."""
         conv = getattr(self, f"Conv_{k}")
         return getattr(self, f"BatchNorm_{k}")(
-            layers.conv_f32(conv, x, self.dtype), self.dtype)
+            layers.conv_f32(conv, x, self.dtype), self.dtype, **epilogue)
+
+    @staticmethod
+    def _conv_input(x: torch.Tensor) -> torch.Tensor:
+        """The block input as its convolutions read it: widened to float32
+        once, for Conv_0 and the downsample both, where no gradient is
+        recorded. With one, each convolution widens its own copy, so that
+        their gradients meet in the compute dtype as they always have."""
+        return x if torch.is_grad_enabled() else x.float()
 
 
 class BasicBlock(_Block):
@@ -66,10 +81,10 @@ class BasicBlock(_Block):
             self.BatchNorm_2 = layers.FrozenBatchNorm(filters, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv_bn(1, F.relu(self._conv_bn(0, x)))
-        if self.down:
-            x = self._conv_bn(2, x)
-        return F.relu(x + y)
+        xin = self._conv_input(x)
+        y = self._conv_bn(0, xin, relu=True, out_dtype=torch.float32)
+        r = self._conv_bn(2, xin) if self.down else x
+        return self._conv_bn(1, y, relu=True, residual=r)
 
 
 class BottleneckBlock(_Block):
@@ -93,11 +108,11 @@ class BottleneckBlock(_Block):
             self.BatchNorm_3 = layers.FrozenBatchNorm(out, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self._conv_bn(1, F.relu(self._conv_bn(0, x))))
-        y = self._conv_bn(2, y)
-        if self.down:
-            x = self._conv_bn(3, x)
-        return F.relu(x + y)
+        xin = self._conv_input(x)
+        y = self._conv_bn(0, xin, relu=True, out_dtype=torch.float32)
+        y = self._conv_bn(1, y, relu=True, out_dtype=torch.float32)
+        r = self._conv_bn(3, xin) if self.down else x
+        return self._conv_bn(2, y, relu=True, residual=r)
 
 
 class ResNet(nn.Module):
@@ -140,8 +155,8 @@ class ResNet(nn.Module):
         with profiling.span("features.stem"):
             x = x.to(self.dtype).permute(0, 3, 1, 2)
             x = x.contiguous(memory_format=torch.channels_last)
-            x = F.relu(self.stem_bn(
-                layers.conv_f32(self.stem, x, self.dtype), self.dtype))
+            x = self.stem_bn(layers.conv_f32(self.stem, x, self.dtype),
+                             self.dtype, relu=True)
             x = F.max_pool2d(x, 3, 2, padding=1)  # -inf padding, /4
         if self.freeze_stages >= 1:
             x = x.detach()

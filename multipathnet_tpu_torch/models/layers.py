@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multipathnet_tpu_torch.ops import batchnorm
 from multipathnet_tpu_torch.utils import profiling
 
 
@@ -35,6 +36,9 @@ def conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
 def conv_f32(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """mod's bias-free convolution of the NCHW x with both operands rounded
     to dtype, its sum returned in float32 without the rounding to dtype.
+    A float32 x is taken to hold values of dtype already (a ResNet block's
+    input widened once, or FrozenBatchNorm's widened output) and is read
+    as it is.
 
     This is what the reference computes where a bf16 convolution feeds a
     BatchNorm: XLA runs the convolution in float32 on the rounded operands
@@ -43,10 +47,9 @@ def conv_f32(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     card the float32 convolution runs with TF32 allowed when dtype is
     bf16: a bf16 operand is exact in TF32, and the tensor cores sum in
     float32."""
-    w = mod.weight.to(dtype)
-    x = x.to(dtype)
-    if dtype != torch.float32:
-        w, x = w.float(), x.float()
+    w = mod.weight.to(dtype).float()
+    if x.dtype != torch.float32:
+        x = x.to(dtype).float()
     args = (w, None, mod.stride, mod.padding, mod.dilation, mod.groups)
     if not x.is_cuda or dtype == torch.float32:
         return F.conv2d(x, *args)
@@ -79,6 +82,15 @@ class FrozenBatchNorm(nn.Module):
     the affine into the convolution, or F.batch_norm (which may fold it
     into one scale and shift), rounds differently.
 
+    The forward also takes what follows a ResNet convolution's BN: the
+    residual add and the ReLU, and the output widened to float32 where a
+    convolution is its only reader (ops/batchnorm.bn_epilogue_ref says
+    how). Where no gradient is recorded and x is on the card (serving,
+    under inference_mode) that is one launch of csrc/bn_epilogue.cu, bit
+    for bit the plain ops, with mul computed once while the parameters
+    and statistics are unchanged; elsewhere (training, where scale and
+    bias train, and the CPU) the plain ops.
+
     Each forward adds one to the counter bn.passes (utils/profiling): 94
     a ResNet-101 trunk's forward, 0 for VGG-16."""
 
@@ -90,11 +102,40 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, **f32))
         self.register_buffer("running_mean", torch.zeros(channels, **f32))
         self.register_buffer("running_var", torch.ones(channels, **f32))
+        self._affine = None   # affine()'s (tensors, state, rows)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        """x (B, C, H, W) -> the same shape in the compute dtype."""
+    def mul(self) -> torch.Tensor:
+        """rsqrt(var + eps) * scale, as flax computes it."""
+        return torch.rsqrt(self.running_var + self.eps) * self.weight
+
+    def affine(self) -> tuple:
+        """(mean, mul, bias) as the kernel reads them: rows of one (3, C)
+        float32 tensor, computed again whenever a parameter or statistic
+        is another tensor, or has other storage or another version, than
+        when they were last computed (every time for inference tensors,
+        which keep no version). The cache holds the tensors it was
+        computed from, so their ids stay theirs."""
+        b, p = self._buffers, self._parameters
+        ts = (b["running_mean"], b["running_var"], p["weight"], p["bias"])
+        try:
+            state = tuple((id(t), t.data_ptr(), t._version) for t in ts)
+        except RuntimeError:   # an inference tensor
+            state = None
+        cached = self._affine
+        if state is None or cached is None or cached[1] != (state, self.eps):
+            rows = torch.stack([ts[0], self.mul(), ts[3]]).unbind(0)
+            cached = self._affine = (ts, (state, self.eps), rows)
+        return cached[2]
+
+    def forward(self, x: torch.Tensor, dtype, *, relu: bool = False,
+                residual: torch.Tensor | None = None,
+                out_dtype=None) -> torch.Tensor:
+        """x (B, C, H, W) float32 -> the same shape in out_dtype (dtype by
+        default): normalized, rounded to dtype, `residual` (dtype) added,
+        then the ReLU if `relu`."""
         profiling.count("bn.passes")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = x.float() - self.running_mean[:, None, None]
-        y = y * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(dtype)
+        flags = dict(relu=relu, residual=residual, out_dtype=out_dtype)
+        if x.device.type == "cpu" or torch.is_grad_enabled():
+            return batchnorm.bn_epilogue_ref(
+                x, self.running_mean, self.mul(), self.bias, dtype, **flags)
+        return batchnorm.bn_epilogue(x, *self.affine(), dtype, **flags)

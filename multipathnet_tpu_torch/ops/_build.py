@@ -28,14 +28,15 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("roi_window_pool.cu", "roi_window_pool_wgmma.cu",
-           "roi_window_grad.cu", "window_read_probe.cu", "int8_head.cu")
+           "roi_window_grad.cu", "window_read_probe.cu", "int8_head.cu",
+           "bn_epilogue.cu")
 HEADERS = ("roi_window_pool.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu,
-# csrc/window_read_probe.cu, csrc/int8_head.cu)
+# csrc/window_read_probe.cu, csrc/int8_head.cu, csrc/bn_epilogue.cu)
 _SIGNATURES = {
     "mpn_window_pool_multi": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "mpn_quantize_rows": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "mpn_int8_epilogue": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mpn_int8_head_attrs": [_I, _I, _P],
+    "mpn_bn_epilogue": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mpn_bn_epilogue_attrs": [_I, _I, _I, _I, _P],
 }
 
 # entry points that return a size rather than a cudaError_t
