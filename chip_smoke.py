@@ -220,12 +220,13 @@ Phases, each of which raises on failure (nothing is caught):
      around two steps writing a trace with device kernels, one step under
      debug_nans raising nothing; (c) tools/prop_quality_scale at 640^2, 4
      images, 2 epochs, top-400: the eight quality numbers finite; (d)
-     tools/prof_eval on `multipath_vgg16_int8` and tools/prof_train
-     (--stages) on `multipath_vgg16_train` at the bench shapes, beside
-     phases 9 and 7; (e) phase 13's detections and phase 17's masks
-     evaluated with the native RLE codec (data/rle_native.py, built with
-     g++, which must succeed) and the NumPy one: every COCO stat equal,
-     seconds for each.
+     one `multipath_vgg16_int8` Detector batch and one
+     `multipath_vgg16_train` Trainer.step at the bench shapes, each after
+     a warm one, under utils/profiling.tracing(): every span's device ms
+     from profiling.records(), beside phases 9 and 7; (e) phase 13's
+     detections and phase 17's masks evaluated with the native RLE codec
+     (data/rle_native.py, built with g++, which must succeed) and the
+     NumPy one: every COCO stat equal, seconds for each.
  21. the align routes (`align_routes`), launches counted over the phase, at
      bench.py's 8 x 1000 proposals, 640^2: (a) `multipath_vgg16_batched`'s
      pool_rois through the kernels (K1, K2) against roi_impl="pyramid",
@@ -382,8 +383,8 @@ from multipathnet_tpu_torch.ops import roi as roi_ops
 from multipathnet_tpu_torch.ops import (batchnorm, lowrank, quant, roi_pool,
                                         roi_pyramid)
 from multipathnet_tpu_torch.ops.boxes import expand
-from multipathnet_tpu_torch.tools import (mesh_runs, prof_eval, prof_train,
-                                         prop_quality_scale, soak_svd_decay)
+from multipathnet_tpu_torch.tools import (mesh_runs, prop_quality_scale,
+                                         soak_svd_decay)
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
@@ -415,31 +416,21 @@ WINDOW_KERNELS = {
     "window_read_probe": (PROBE_SOURCE, "tools/probe_int8_window_dma.py:30"),
 }
 # the int8 serving head's kernels (ops/quant.py), which replace no TPU
-# kernel (XLA fused these passes); quant.launch_counts() counts them, in
-# this process only
+# kernel (XLA fused these passes)
 HEAD_KERNELS = {
     "int8_epilogue": (HEAD_SOURCE, None),
     "quantize_rows": (HEAD_SOURCE, None),
 }
 # the ResNet trunk's BN epilogue (ops/batchnorm.py), which replaces no TPU
-# kernel either; batchnorm.launch_counts() counts it, in this process only
+# kernel either
 BN_KERNELS = {"bn_epilogue": (BN_SOURCE, None)}
 KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS, **BN_KERNELS}
 
 
-def reset_launches() -> None:
-    """Zeroes the window kernels' counts (roi_pool.reset_launch_counts and
-    the probe's). The head kernels' counts only grow: main() reads each
-    path's share as a difference."""
-    roi_pool.reset_launch_counts()
-    probe.window_read_probe.launches = 0
-
-
-def read_launches() -> dict:
-    """The launches of each kernel of WINDOW_KERNELS:
-    roi_pool.launch_counts() (placements left out) and the probe's."""
-    counts = {**roi_pool.launch_counts(),
-              "window_read_probe": probe.window_read_probe.launches}
+def read_launches(mark: dict) -> dict:
+    """The launches of each kernel of WINDOW_KERNELS since `mark`, a
+    profiling.counters() snapshot (placements left out)."""
+    counts = profiling.kernel_launches(mark)
     return {name: counts[name] for name in WINDOW_KERNELS}
 
 
@@ -835,7 +826,7 @@ def main_path():
         f"({cfg.model.dtype}) on the card in {time.perf_counter() - t0:.1f}s")
     inputs = make_inputs(b, p, canvas)
 
-    reset_launches()
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = det(*inputs)
@@ -852,7 +843,7 @@ def main_path():
         res = detect_batch(model, cfg, *dev_inputs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(mark)
     ips = b * iters / dt
     log(f"[main] steady: {iters} batches x {b} images in {dt:.3f} s = "
         f"{b * iters / dt:.2f} img/s ({1e3 * dt / iters:.2f} ms/batch); "
@@ -1172,17 +1163,15 @@ def check_and_time_grad_kernels(gen):
     ones, img_idx = group_views(rois, FOVEAL[:1])
     gout = torch.randn((ones.shape[0], 7, 7, flats[0].shape[-1]),
                        generator=gen, device="cuda")
-    before = (roi_pool.window_grad.launches,
-              roi_pool.window_rmw_grad.launches,
-              roi_pool.place_windows_per_image.calls)
+    before = profiling.counters()
     got = torch.autograd.grad(
         (roi_pool.batched_pyramid_pool_multi(flats, metas, ones, img_idx,
                                              trainable=True) * gout).sum(),
         flats)
     torch.cuda.synchronize()
-    calls = (roi_pool.window_grad.launches - before[0],
-             roi_pool.window_rmw_grad.launches - before[1],
-             roi_pool.place_windows_per_image.calls - before[2])
+    launched = profiling.kernel_launches(before)
+    calls = (launched["window_grad"], launched["window_rmw_grad"],
+             launched["placements"])
     require(calls == (2, 1, 0), f"WindowPoolMulti backward: K3, K4, "
             f"placement calls {calls}, expected (2, 1, 0)")
     _, *geometry = k1_args(pyr, names, ones, img_idx)
@@ -1259,8 +1248,7 @@ def train_path():
         f"params ({len(frozen)} frozen tensors), {m.dtype} compute, on the "
         f"card in {time.perf_counter() - t0:.1f}s")
 
-    reset_launches()
-    roi_pool.place_windows_per_image.calls = 0
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, metrics = trainer.step(state, batch)
@@ -1274,8 +1262,8 @@ def train_path():
         history.append(metrics)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches()
-    placements = roi_pool.place_windows_per_image.calls
+    launches = read_launches(mark)
+    placements = profiling.kernel_launches(mark)["placements"]
     b = t.batch_size
     log(f"[train] first step {first_s:.2f} s; steady: {iters} steps x {b} "
         f"images in {dt:.3f} s = {1e3 * dt / iters:.2f} ms/step, "
@@ -1477,8 +1465,7 @@ def serving_path(preset_name: str, tag: str):
     torch.cuda.empty_cache()
     inputs = make_inputs(b, p, canvas)
 
-    reset_launches()
-    head0 = quant.launch_counts()
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = det(*inputs)
@@ -1492,8 +1479,9 @@ def serving_path(preset_name: str, tag: str):
         res = detect_batch(model, cfg, *dev_inputs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches()
-    head = {k: v - head0[k] for k, v in quant.launch_counts().items()}
+    launches = read_launches(mark)
+    launched = profiling.kernel_launches(mark)
+    head = {k: launched[k] for k in HEAD_KERNELS}
     ips = b * iters / dt
     # every Int8Linear rescales once a batch; all but each view's first
     # layer, which takes the pool kernels' codes, quantizes its input
@@ -1602,7 +1590,7 @@ def pool_api_path(gen):
     leaf = {n: pyr[n][0].detach().requires_grad_() for n in names}
     train_geo = k1_args(pyr, names, train_ones, train_img)[1:]
 
-    reset_launches()
+    mark = profiling.counters()
     t0 = time.perf_counter()
     with torch.no_grad():
         pooled = roi_pool.batched_pyramid_pool(flat3.bfloat16(), meta3, ones,
@@ -1617,7 +1605,7 @@ def pool_api_path(gen):
     out = roi_pool.WindowPoolMulti.apply(train_geo, None, None, *flats)
     k1_grads = torch.autograd.grad((out * g3).sum(), flats)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[pool_api] path: K5 forward, K5/K2/K1 forward + backward in "
         f"{time.perf_counter() - t0:.3f} s; launches {launches}")
     del out
@@ -1732,10 +1720,10 @@ def probe_path():
                 f"int8_{k}": v for k, v in numbers.items()})
         del args, flat, row0, x0, got
         torch.cuda.empty_cache()
-    reset_launches()
+    mark = profiling.counters()
     bf16 = probe.bench(torch.bfloat16)
     int8 = probe.bench(torch.int8)
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[probe] bench: bf16 / int8 time {bf16['ms'] / int8['ms']:.3f}x; "
         f"launches {launches}")
     require(launches["window_read_probe"] == 42
@@ -1817,11 +1805,11 @@ def dataset_eval_path(loader, props):
     log(f"[dataset_eval] warm-up, one batch: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    reset_launches()
+    mark = profiling.counters()
     t0 = time.perf_counter()
     metrics = tester.test()
     dt = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[dataset_eval] Tester.test over {n} images from disk (decode, "
         f"padding, copy, detect, conversion, evaluation): {dt:.3f} s = "
         f"{n / dt:.2f} img/s")
@@ -2013,7 +2001,7 @@ def train_from_disk(loader, props, resident_ms, resident_ips):
             epoch += 1
 
     it = batches()
-    before = read_launches()
+    mark = profiling.counters()
     t0 = time.perf_counter()
     state, metrics = trainer.step(state, next(it))
     torch.cuda.synchronize()
@@ -2026,8 +2014,7 @@ def train_from_disk(loader, props, resident_ms, resident_ips):
         history.append(metrics)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    now = read_launches()
-    launches = {k: now[k] - before[k] for k in now}
+    launches = read_launches(mark)
     losses = [float(h["loss"]) for h in history]
     log(f"[train_eval] multipath_vgg16_train from disk: first step "
         f"{first_s:.2f} s; {iters} steps x {b} images in {dt:.3f} s = "
@@ -2051,7 +2038,7 @@ def train_eval_path(loader, props, resident_ms, resident_ips):
     """Phase 14: (a)-(c) at `tiny` under cudnn.deterministic (each run
     repeats bit for bit), (d) at full width under the default settings, as
     phase 7 runs. Returns the phase's launches."""
-    reset_launches()
+    mark = profiling.counters()
     torch.backends.cudnn.deterministic = True
     try:
         overfit_tiny()
@@ -2061,7 +2048,7 @@ def train_eval_path(loader, props, resident_ms, resident_ips):
         torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
     train_from_disk(loader, props, resident_ms, resident_ips)
-    return read_launches()
+    return read_launches(mark)
 
 
 # ------------------------------------------------------------ phase 15 ---
@@ -2245,7 +2232,7 @@ def resnet_train(cfg):
                            for n in frozen) and buffers,
             f"frozen set {sorted(frozen)[:4]}..., {len(buffers)} buffers")
     batch = trainer.put_batch(train_batch(cfg))
-    start = read_launches()
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, metrics = trainer.step(state, batch)
@@ -2259,7 +2246,7 @@ def resnet_train(cfg):
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / iters
-    launches = {k: v - start[k] for k, v in read_launches().items()}
+    launches = read_launches(mark)
     log(f"[resnet_train] first step {first_s:.2f} s; {iters} steps "
         f"{ms:.2f} ms/step, {8 * 1e3 / ms:.2f} img/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
@@ -2305,10 +2292,10 @@ def resnet_path():
     """Phase 15 (`resnet`), launches counted from 0 over the whole phase:
     (a) ResNet-18 serving, (b) ResNet-50/101 serving, (c) ResNet-18
     training, (d) AlexNet through Detector."""
-    reset_launches()
+    mark = profiling.counters()
     cfg18 = preset("multipath_resnet18_integral")
     a = resnet_serve(cfg18, "resnet18", 10, profile=True)
-    serve = read_launches()
+    serve = read_launches(mark)
     log(f"[resnet18] kernel launches in (a): {serve}")
     require(serve["window_pool_multi"] > 0 and serve["resident_pool"] > 0,
             f"ResNet-18 serving never reached K1/K2: {serve}")
@@ -2345,7 +2332,7 @@ def resnet_path():
         f"{int(out['valid'].sum())} detections, finite; c3/c4/c5 "
         f"{[tuple(feats[lv].shape) for lv, _ in LEVELS]}")
     del model
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[resnet] serving img/s at 8 x 1000 proposals, 640^2 "
         f"(ResNet-18 {a['ips']:.2f}, ResNet-50 {b50['ips']:.2f}, "
         f"ResNet-101 {b101['ips']:.2f}); peak GiB {a['peak_gib']:.2f} / "
@@ -2431,7 +2418,7 @@ def reference_exact_path():
         f"max, caffe_bgr, roi_impl direct): every weight from a seeded "
         f"torch-contract state dict through import_weights in "
         f"{time.perf_counter() - t0:.1f}s")
-    reset_launches()
+    mark = profiling.counters()
     det = Detector(model, cfg, "cuda")
     inputs = make_inputs(8, proposals, hw)
     torch.cuda.reset_peak_memory_stats()
@@ -2454,7 +2441,7 @@ def reference_exact_path():
         f"{int(out['valid'].sum())} detections")
     profile_once("reference_exact", "one batch",
                  lambda: detect_batch(model, cfg, *dev_inputs))
-    launches = read_launches()
+    launches = read_launches(mark)
     require(not any(launches.values()),
             f"the exact max route launched a window kernel: {launches}")
 
@@ -2597,7 +2584,7 @@ def sharpmask_e2e(cfg, trainer):
                  and (props["scores"] <= 1).all()
                  and (props["masks"] >= 0).all()
                  and (props["masks"] <= 1).all()), "[sharpmask] ranges")
-    reset_launches()
+    mark = profiling.counters()
     out = {k: v.cpu().numpy() for k, v in e2e().items()}
     check_detections("sharpmask", out)
     iters = 3
@@ -2605,7 +2592,7 @@ def sharpmask_e2e(cfg, trainer):
     gen_nomask_ms = timed_ms(lambda: generate(False), iters)
     det_ms = timed_ms(lambda: detect(props), iters)
     e2e_ms = timed_ms(e2e, iters)
-    launches = read_launches()
+    launches = read_launches(mark)
     res = {"gen_ms": gen_ms, "gen_nomask_ms": gen_nomask_ms,
            "det_ms": det_ms, "e2e_ms": e2e_ms, "ips": 1e3 * b / e2e_ms,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2826,7 +2813,7 @@ def sharpmask_path():
              d.max_proposals, d.max_gt_per_image)
     require(shape == ("resnet50", "bfloat16", 8, (640, 640), 1000, 100),
             f"unexpected config 5 shape {shape}")
-    reset_launches()
+    mark = profiling.counters()
     t0 = time.perf_counter()
     trainer, state = sharpmask_trainer(cfg)
     n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -2846,7 +2833,7 @@ def sharpmask_path():
     torch.cuda.empty_cache()
     proposal_overfit()
     proposal_cli_chain()
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[sharpmask] kernel launches over phase 17: {launches}")
     return launches, e2e, train
 
@@ -3303,7 +3290,7 @@ def c8_serving(host_state, float_ms):
     tree = convert.flax_from_state_dict(float_model.state_dict(), host=False)
     inputs = make_inputs(8, base.data.max_proposals, base.data.image_size[0])
     dev_inputs = [torch.as_tensor(x).cuda() for x in inputs]
-    before = read_launches()
+    mark = profiling.counters()
     res = {}
     for tag, ranks in (("int8", (0, 0)), ("int8+svd", (1024, 256))):
         cfg = base.replace(model=dataclasses.replace(
@@ -3336,7 +3323,7 @@ def c8_serving(host_state, float_ms):
             f"{res[tag]:.2f} ms/batch over {iters} batches (phase 16 float: "
             f"{float_ms:.2f}); {int(out['valid'].sum())} detections, finite")
         del det, params
-    require(read_launches() == before,
+    require(not any(read_launches(mark).values()),
             "the max route launched a pool kernel")
     del float_model, tree
     return res
@@ -3422,26 +3409,60 @@ def proposal_quality_check(workdir):
     return last
 
 
-def profilers(int8_ips, resident_ms):
-    """(d) prof_eval on multipath_vgg16_int8 and prof_train (--stages) on
-    multipath_vgg16_train at the bench shapes: the stage tables, timed's
-    steady ms beside phases 9 and 7."""
-    ev = prof_eval.run(prof_eval.eval_config("multipath_vgg16_int8"),
-                       batch=8, device="cuda")
-    tr = prof_train.run(prof_train.train_config("multipath_vgg16_train"),
-                        stages=True, device="cuda")
-    require(all(np.isfinite(v) and v > 0 for v in {**ev, **tr}.values()),
-            "a profiler row is not a positive time")
-    log(f"[tools] (d) prof_eval multipath_vgg16_int8: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in ev.items())
-        + f" (ms; detect_batch {ev['detect_batch']:.2f} ms = "
-        f"{ev['img/s']:.2f} img/s, phase 9: {8e3 / int8_ips:.2f} ms = "
-        f"{int8_ips:.2f} img/s)")
-    log(f"[tools] (d) prof_train multipath_vgg16_train: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in tr.items())
-        + f" (ms unless _s; chained {tr['chained_ms']:.2f} ms/step, phase "
-        f"7: {resident_ms:.2f})")
-    return ev, tr
+def traced_spans(fn, root: str):
+    """fn() once warm, then once under profiling.tracing(): -> ([(span,
+    device ms), ...] of its one root record, depth first; the kernels'
+    launches over it, from the root's counters)."""
+    fn()
+    torch.cuda.synchronize()
+    profiling.clear_records()
+    with profiling.tracing():
+        fn()
+    records = profiling.records()
+    require([r["name"] for r in records] == [root],
+            f"traced {root}: roots {[r['name'] for r in records]}")
+    rows = [(r["name"], r["device_ms"]) for r in profiling.walk(records[0])]
+    require(rows[0][1] > 0 and all(
+        ms is not None and np.isfinite(ms) and ms >= 0 for _, ms in rows),
+        f"a span of {root} has no device time: {rows}")
+    launched = {k.removeprefix("launches."): v
+                for k, v in records[0]["counters"].items()
+                if k.startswith("launches.")}
+    return rows, launched
+
+
+def span_tables(int8_ips, resident_ms):
+    """(d) one multipath_vgg16_int8 Detector batch (bench.py's flow) and
+    one multipath_vgg16_train Trainer.step (phase 7's), at the bench
+    shapes, each after a warm one, under profiling.tracing(): every span's
+    device ms from profiling.records(), beside phases 9 and 7."""
+    det, _ = bench.build_preset("multipath_vgg16_int8", BENCH_ARGS,
+                                torch.device("cuda"))
+    inputs = make_inputs(BENCH_ARGS.batch, BENCH_ARGS.proposals,
+                         BENCH_ARGS.canvas)
+    serve, serve_launched = traced_spans(lambda: det(*inputs), "detect")
+    del det
+    torch.cuda.empty_cache()
+    cfg = preset("multipath_vgg16_train")
+    trainer = Trainer(cfg, device="cuda")
+    state = [trainer.init_state(0)]
+    seeded_normal_(trainer.model, 0)
+    batch = trainer.put_batch(train_batch(cfg))
+
+    def step():
+        state[0], _ = trainer.step(state[0], batch)
+
+    train, train_launched = traced_spans(step, "train.step")
+    del trainer, state, batch
+    log(f"[tools] (d) spans of one multipath_vgg16_int8 Detector batch "
+        f"(device ms): " + ", ".join(f"{k} {v:.2f}" for k, v in serve)
+        + f" (phase 9: {8e3 / int8_ips:.2f} ms a batch = {int8_ips:.2f} "
+        f"img/s); launches {serve_launched}")
+    log(f"[tools] (d) spans of one multipath_vgg16_train Trainer.step "
+        f"(device ms): " + ", ".join(f"{k} {v:.2f}" for k, v in train)
+        + f" (phase 7: {resident_ms:.2f} ms a step); launches "
+        f"{train_launched}")
+    return serve, train
 
 
 def codec_check(phase13, top_masks):
@@ -3502,10 +3523,10 @@ def codec_check(phase13, top_masks):
 
 def tools_path(host_state, float_ms, int8_ips, resident_ms, phase13,
                top_masks):
-    """Phase 20 (`tools`), launches counted from 0 over the phase: (a) C8,
-    (b) the soak, (c) proposal quality, (d) the profilers, (e) the RLE
+    """Phase 20 (`tools`), launches counted over the phase: (a) C8, (b)
+    the soak, (c) proposal quality, (d) the span tables, (e) the RLE
     codecs."""
-    reset_launches()
+    mark = profiling.counters()
     t_phase = time.perf_counter()
     res = {"c8": c8_serving(host_state, float_ms)}
     torch.cuda.empty_cache()
@@ -3513,10 +3534,11 @@ def tools_path(host_state, float_ms, int8_ips, resident_ms, phase13,
     torch.cuda.empty_cache()
     res["quality"] = proposal_quality_check(fresh_dir("quality"))
     torch.cuda.empty_cache()
-    res["prof_eval"], res["prof_train"] = profilers(int8_ips, resident_ms)
+    res["detect_spans"], res["train_spans"] = span_tables(int8_ips,
+                                                          resident_ms)
     torch.cuda.empty_cache()
     res["codec"] = codec_check(phase13, top_masks)
-    launches = read_launches()
+    launches = read_launches(mark)
     log(f"[tools] kernel launches over phase 20: {launches}")
     require(launches["window_pool_multi"] > 0
             and launches["resident_pool"] > 0
@@ -3688,19 +3710,21 @@ def align_routes_path(card: str, bf16_ips: float, int8_ips: float,
     require((b, p, canvas) == (8, 1000, 640),
             f"unexpected align_routes shape {(b, p, canvas)}")
     inputs = make_inputs(b, p, canvas)
-    reset_launches()
+    mark = profiling.counters()
     pyr = pyramid_against_kernels(cfg, inputs)
     torch.cuda.empty_cache()
     serving = {}
     for name, tag in (("multipath_vgg16_batched", "bf16"),
                       ("multipath_vgg16_int8", "int8")):
-        before, head = read_launches(), quant.launch_counts()
+        before = profiling.counters()
         res = direct_serving(with_model(preset(name), roi_impl="direct"),
                              inputs, tag)
-        require(read_launches() == before,
+        window = read_launches(before)
+        require(not any(window.values()),
                 f"a window kernel launched on the direct {tag} route: "
-                f"{read_launches()} after {before}")
-        head = {k: v - head[k] for k, v in quant.launch_counts().items()}
+                f"{window}")
+        launched = profiling.kernel_launches(before)
+        head = {k: launched[k] for k in HEAD_KERNELS}
         require(all(head.values()) if tag == "int8"
                 else not any(head.values()),
                 f"head kernel launches on the direct {tag} route: {head}")
@@ -3711,12 +3735,13 @@ def align_routes_path(card: str, bf16_ips: float, int8_ips: float,
         serving[tag] = {k: res[k] for k in ("ms", "peak_gib")}
         del res
         torch.cuda.empty_cache()
-    before = read_launches()
+    before = profiling.counters()
     train = direct_train(with_model(preset("multipath_vgg16_train"),
                                     train_roi_impl="direct"))
-    require(read_launches() == before,
-            f"a kernel launched in direct training: {read_launches()}")
-    launches = read_launches()
+    require(not any(read_launches(before).values()),
+            f"a kernel launched in direct training: "
+            f"{read_launches(before)}")
+    launches = read_launches(mark)
     require(launches["window_pool_multi"] > 0
             and launches["resident_pool"] > 0,
             f"K1/K2 never launched in (a): {launches}")
@@ -3834,28 +3859,18 @@ PLAIN_CHUNK = 8000
 def captured_calls(*names):
     """The calls of the roi_pool kernel wrappers `names` made inside the
     block, with the tensors as the path passed them: {name: [(args,
-    kwargs), ...]}. Each wrapper still launches and counts: it counts
-    through its module's name, so the stand-in's counters are carried
-    over and back."""
+    kwargs), ...]}. Each wrapper still launches and counts."""
     calls = {name: [] for name in names}
     originals = {name: getattr(roi_pool, name) for name in names}
-    counters = ("launches", "quant_launches")
     for name, fn in originals.items():
         def stand_in(*args, _name=name, _fn=fn, **kwargs):
             calls[_name].append((args, kwargs))
             return _fn(*args, **kwargs)
-        for counter in counters:
-            if hasattr(fn, counter):
-                setattr(stand_in, counter, getattr(fn, counter))
         setattr(roi_pool, name, stand_in)
     try:
         yield calls
     finally:
         for name, fn in originals.items():
-            for counter in counters:
-                if hasattr(fn, counter):
-                    setattr(fn, counter, getattr(getattr(roi_pool, name),
-                                                 counter))
             setattr(roi_pool, name, fn)
 
 
@@ -3982,7 +3997,7 @@ def serve_config(tag: str, preset_name: str, args, iters: int, expect,
     inputs = make_inputs(b, args.proposals, args.canvas)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    reset_launches()
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = det(*inputs)
@@ -4004,7 +4019,7 @@ def serve_config(tag: str, preset_name: str, args, iters: int, expect,
     gc.collect()
     windows = [window() for _ in range(3)]
     dt = sorted(windows)[1]
-    launches = read_launches()
+    launches = read_launches(mark)
     res = detect_batch(model_, cfg, *dev_inputs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_detections(tag, out, b=b, d=cfg.eval.max_detections)
@@ -4043,7 +4058,7 @@ def train_config(tag: str, cfg, steps: int, per_step: dict) -> dict:
     seeded_normal_(trainer.model, 0)
     batch = trainer.put_batch(train_batch(cfg))
     torch.cuda.synchronize()
-    reset_launches()
+    mark = profiling.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, metrics = trainer.step(state, batch)
@@ -4056,7 +4071,7 @@ def train_config(tag: str, cfg, steps: int, per_step: dict) -> dict:
         history.append(metrics)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / steps
-    launches = read_launches()
+    launches = read_launches(mark)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(h["loss"]) for h in history]
     require(all(np.isfinite(losses)), f"[{tag}] non-finite loss: {losses}")
@@ -4364,7 +4379,7 @@ def output_size_path(card: str, bf16_ips: float, int8_ips: float,
     torch.cuda.empty_cache()
 
     # (d) AlexNet through Detector at G = 6
-    reset_launches()
+    mark = profiling.counters()
     cfg_a = with_model(preset("multipath_vgg16_batched"), backbone="alexnet",
                        roi_output_size=G6)
     model = build_model(cfg_a.model, device="cuda")
@@ -4375,7 +4390,7 @@ def output_size_path(card: str, bf16_ips: float, int8_ips: float,
     torch.cuda.synchronize()
     check_detections("output_size", out)
     n_alex = int(out["valid"].sum())
-    alex = read_launches()
+    alex = read_launches(mark)
     require_only("output_size", alex, {k1, k2})
     add(alex)
     del model, out
@@ -4594,7 +4609,7 @@ def bn_epilogue_path(gen):
         seen.append((self, x, dtype, epilogue))
         return got
 
-    before = batchnorm.bn_epilogue.launches
+    before = profiling.counters()
     layers.FrozenBatchNorm.forward = record
     try:
         with torch.inference_mode():
@@ -4603,9 +4618,9 @@ def bn_epilogue_path(gen):
     finally:
         layers.FrozenBatchNorm.forward = forward
     torch.cuda.synchronize()
-    require(len(seen) == 94 and batchnorm.bn_epilogue.launches - before
-            == 94, f"{len(seen)} BNs, "
-            f"{batchnorm.bn_epilogue.launches - before} launches")
+    launched = profiling.kernel_launches(before)["bn_epilogue"]
+    require(len(seen) == 94 and launched == 94,
+            f"{len(seen)} BNs, {launched} launches")
     require(all(f.isfinite().all() for f in feats.values()),
             "non-finite taps")
     log(f"[bn_epilogue] 94 instances of a ResNet-101 batch at 8 x 640^2 "
@@ -4680,16 +4695,14 @@ def main() -> None:
 
     head_paths = {}
 
-    def own_counts():
-        return {**quant.launch_counts(), **batchnorm.launch_counts()}
-
     def counted(path, fn, *args):
         """fn(*args), its head and BN kernels' launches in this process
         kept as path's."""
-        before = own_counts()
+        before = profiling.counters()
         result = fn(*args)
-        head_paths[path] = {k: v - before[k]
-                            for k, v in own_counts().items()}
+        launched = profiling.kernel_launches(before)
+        head_paths[path] = {k: launched[k]
+                            for k in (*HEAD_KERNELS, *BN_KERNELS)}
         return result
 
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -48,8 +48,6 @@ import time
 import numpy as np
 import torch
 
-from multipathnet_tpu_torch.tools.prof_eval import eval_config
-
 BASELINE_IMG_PER_SEC = 1.0 / 0.3  # Fast R-CNN paper, VGG-16, K40
 # the companions: same kernels, serving transforms off or partial
 COMPANIONS = (("bf16", "multipath_vgg16_batched"),
@@ -58,6 +56,21 @@ COMPANIONS = (("bf16", "multipath_vgg16_batched"),
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def eval_config(name: str = "multipath_vgg16_int8", backbone: str = "",
+                proposals: int = 1000, canvas: int = 640):
+    """The preset at a canvas^2 canvas and `proposals` an image, its trunk
+    swapped for `backbone` if given."""
+    from multipathnet_tpu_torch.core.config import preset
+
+    cfg = preset(name)
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, image_size=(canvas, canvas), max_proposals=proposals))
+    if backbone:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    backbone=backbone))
+    return cfg
 
 
 def make_inputs(args, seed: int = 0):
@@ -132,8 +145,10 @@ def measure(preset_name: str, args, raw_inputs, device) -> float:
     released on return so the presets run back to back in one process."""
     from multipathnet_tpu_torch.core.config import preset
     from multipathnet_tpu_torch.eval.detect import detect_batch
-    from multipathnet_tpu_torch.ops import _build, roi_pool
-    from multipathnet_tpu_torch.utils.profiling import synchronize
+    from multipathnet_tpu_torch.ops import _build
+    from multipathnet_tpu_torch.utils.profiling import (counters,
+                                                        kernel_launches,
+                                                        synchronize)
 
     log(f"[{preset_name}] init "
         f"{args.backbone or preset(preset_name).model.backbone} params...")
@@ -158,13 +173,13 @@ def measure(preset_name: str, args, raw_inputs, device) -> float:
         f"{int(out['valid'][0].sum())}")
     synchronize(detect_batch(model, cfg, *inputs))
 
-    roi_pool.reset_launch_counts()
+    before = counters()
     t0 = time.perf_counter()
     for _ in range(args.iters):
         out = detect_batch(model, cfg, *inputs)
     synchronize(out)
     dt = time.perf_counter() - t0
-    launches = roi_pool.launch_counts()
+    launches = kernel_launches(before)
     ips = args.batch * args.iters / dt
     log(f"[{preset_name}] {args.iters} iters x {args.batch} imgs in "
         f"{dt:.2f}s = {ips:.1f} img/s")

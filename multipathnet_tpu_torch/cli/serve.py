@@ -26,7 +26,8 @@ Protocol (JSON in, JSON out):
   `counters` is utils/profiling.counters(): the host's blocking waits on
   the card by site (sync.<site>), NMS rounds (nms.rounds), bytes put on
   the card (h2d.bytes) and copied back (d2h.bytes), the kernels' launches
-  (launches.<kernel>).
+  (launches.<kernel>), which `kernel_launches` gives by kernel
+  (utils/profiling.kernel_launches).
 
 Images may be any size up to the bundle's canvas; each request is padded
 to the bundle's batch, canvas and proposal count, and split into batches
@@ -127,7 +128,6 @@ class DetectionService:
 def make_handler(service: DetectionService):
     from http.server import BaseHTTPRequestHandler
 
-    from multipathnet_tpu_torch.ops import roi_pool
     from multipathnet_tpu_torch.utils import profiling
 
     class Handler(BaseHTTPRequestHandler):
@@ -152,7 +152,7 @@ def make_handler(service: DetectionService):
                 "batch": service.batch,
                 "canvas": list(service.canvas),
                 "max_proposals": service.max_proposals,
-                "kernel_launches": roi_pool.launch_counts(),
+                "kernel_launches": profiling.kernel_launches(),
                 "counters": profiling.counters(),
             })
 

@@ -8,8 +8,8 @@ one launch of csrc/bn_epilogue.cu, bit-equal to it, for CUDA tensors in
 the layout the trunk's convolutions give: channels-last, C a multiple of
 8. It raises on anything else, a CPU tensor included; FrozenBatchNorm
 picks the route (the kernel where no gradient is recorded on the card,
-the plain version elsewhere). Each launch counts in `launch_counts`, also
-the counter `launches.bn_epilogue` of utils/profiling.counters.
+the plain version elsewhere). Each launch counts in the counter
+launches.bn_epilogue (utils/profiling.kernel_launches).
 """
 
 from __future__ import annotations
@@ -110,17 +110,9 @@ def bn_epilogue(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bn_epilogue launch failed: cudaError {rc}")
-    bn_epilogue.launches += 1
+    profiling.count("launches.bn_epilogue")
     return out
 
 
-bn_epilogue.launches = 0
-
-
-def launch_counts() -> dict:
-    """The epilogue's launches in this process so far."""
-    return {"bn_epilogue": bn_epilogue.launches}
-
-
-profiling.register_source(lambda: {
-    "launches." + k: v for k, v in launch_counts().items()})
+# the launch counter, at 0 from import on
+profiling.count("launches.bn_epilogue", 0)

@@ -23,8 +23,8 @@ padded to the weight's K) and `int8_epilogue` (rescale, bias, the cast to
 the compute dtype and the ReLU, written into a column slice if asked). For
 a CUDA tensor each launches its kernel (csrc/int8_head.cu) or raises; for a
 CPU tensor each runs the plain functions below. Each counts its launches
-(`launch_counts`, also the counters `launches.int8_epilogue` and
-`launches.quantize_rows` of utils/profiling.counters). The plain functions
+in the counter launches.int8_epilogue or launches.quantize_rows
+(utils/profiling.kernel_launches). The plain functions
 (`quantize_rows`, `rescale_int32`, `matmul_int8`) never launch a kernel.
 """
 
@@ -184,11 +184,8 @@ def quantize_rows_padded(x: torch.Tensor, width: int,
             scale.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quantize_rows launch failed: cudaError {rc}")
-    quantize_rows_padded.launches += 1
+    profiling.count("launches.quantize_rows")
     return codes, scale
-
-
-quantize_rows_padded.launches = 0
 
 
 def quantize_rows_padded_ref(x: torch.Tensor, width: int,
@@ -264,11 +261,8 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_epilogue launch failed: cudaError {rc}")
-    int8_epilogue.launches += 1
+    profiling.count("launches.int8_epilogue")
     return out
-
-
-int8_epilogue.launches = 0
 
 
 def int8_epilogue_ref(acc, x_scale, w_scale, bias=None, *, width=None,
@@ -282,17 +276,6 @@ def int8_epilogue_ref(acc, x_scale, w_scale, bias=None, *, width=None,
     return y if out is None else out.copy_(y)
 
 
-def launch_counts() -> dict:
-    """The head kernels' launches in this process so far, by kernel."""
-    return {"int8_epilogue": int8_epilogue.launches,
-            "quantize_rows": quantize_rows_padded.launches}
-
-
-def reset_launch_counts() -> None:
-    """Zeroes every count launch_counts reads."""
-    int8_epilogue.launches = quantize_rows_padded.launches = 0
-
-
 def quantize_rows_padded_ref(x: torch.Tensor, width: int,
                              amax: torch.Tensor | None = None):
     """Plain version of quantize_rows_padded: quantize_rows, then zero
@@ -302,8 +285,9 @@ def quantize_rows_padded_ref(x: torch.Tensor, width: int,
     return (q if width == k else F.pad(q, (0, width - k))), s
 
 
-profiling.register_source(lambda: {
-    "launches." + k: v for k, v in launch_counts().items()})
+# the launch counters, at 0 from import on
+profiling.count("launches.int8_epilogue", 0)
+profiling.count("launches.quantize_rows", 0)
 
 
 def dense_int8(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor,

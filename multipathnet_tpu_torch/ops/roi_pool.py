@@ -33,8 +33,8 @@ scales instead of the pooled tensor (`quant_view_ref` is its plain
 version). Up to 512 channels the pool kernel runs it itself; wider views
 are pooled first and quantized by the epilogue kernel (`quant_view`), the
 same arithmetic in a second launch. Each wrapper counts its calls that
-launch per mode: `launches` without the epilogue, `quant_launches` with
-it.
+launch per mode, in the counters launches.<wrapper> without the epilogue
+and launches.<wrapper>_quant with it (utils/profiling.kernel_launches).
 The differentiable forms are WindowPoolMulti (K1), WindowPool (K5) and
 ResidentPool (K2). Their backward is the transpose of the pool per view,
 gwin = wy^T g wx (10 x 16 x C), summed into the pyramid gradient at the
@@ -52,12 +52,9 @@ the windows, contract them in float32) for tensors on the CPU, launches its
 kernel for tensors on a CUDA device, and raises for anything else. A
 kernel launches on its input's card (under torch.cuda.device of it, since
 the ctypes launchers take a stream and no device), so a rank pinned to
-cuda:1 never launches on card 0. `launches` on each wrapper counts its
-kernel launches; `launch_counts` reads them all (also as the counters
-`launches.<kernel>` of utils/profiling.counters) and `reset_launch_counts`
-zeroes them. The backward of each differentiable form is the span
-"pool_rois.backward"; WindowPoolMulti checks its levels' windows in one
-read before it.
+cuda:1 never launches on card 0. The backward of each differentiable
+form is the span "pool_rois.backward"; WindowPoolMulti checks its levels'
+windows in one read before it.
 """
 
 from __future__ import annotations
@@ -310,14 +307,10 @@ def window_pool_multi(flats, row0s, x0s, wys, wxs, quant_bias=None):
     out, scales, launched = _pool_levels(flats, row0s, x0s, wys, wxs,
                                          quant_bias)
     if quant_bias is None:
-        window_pool_multi.launches += launched
+        profiling.count("launches.window_pool_multi", launched)
         return out
-    window_pool_multi.quant_launches += launched
+    profiling.count("launches.window_pool_multi_quant", launched)
     return out, scales
-
-
-window_pool_multi.launches = 0
-window_pool_multi.quant_launches = 0
 
 
 def window_pool(flat, row0, x0, wy, wx):
@@ -332,11 +325,8 @@ def window_pool(flat, row0, x0, wy, wx):
     if flat.device.type == "cpu":
         return window_pool_ref(flat, row0, x0, wy, wx)
     out, _, launched = _pool_levels([flat], [row0], [x0], [wy], [wx], None)
-    window_pool.launches += launched
+    profiling.count("launches.window_pool", launched)
     return out
-
-
-window_pool.launches = 0
 
 
 def _pool_levels(flats, row0s, x0s, wys, wxs, quant_bias):
@@ -424,14 +414,10 @@ def resident_pool(flat, row0, x0, wy, wx, quant_bias=None):
                 wy.data_ptr(), wx.data_ptr(), bias, dst, scale,
                 _stream(dev))), flat, out, scales, quant_bias)
     if quant_bias is None:
-        resident_pool.launches += 1
+        profiling.count("launches.resident_pool")
         return out
-    resident_pool.quant_launches += 1
+    profiling.count("launches.resident_pool_quant")
     return out, scales
-
-
-resident_pool.launches = 0
-resident_pool.quant_launches = 0
 
 
 # ------------------------------------------------------------- backward ---
@@ -578,11 +564,8 @@ def window_grad(gout, row0_rel, x0, wy, wx, batch: int, rows: int,
             scratch.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_grad launch failed: cudaError {rc}")
-    window_grad.launches += 1
+    profiling.count("launches.window_grad")
     return out
-
-
-window_grad.launches = 0
 
 
 def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype, *,
@@ -616,11 +599,8 @@ def window_rmw_grad(gout, row0, x0, wy, wx, shape, dtype, *,
             out.data_ptr(), scratch.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_rmw_grad launch failed: cudaError {rc}")
-    window_rmw_grad.launches += 1
+    profiling.count("launches.window_rmw_grad")
     return out
-
-
-window_rmw_grad.launches = 0
 
 
 def accumulate_windows(row0, x0, gout, wy, wx, shape, dtype) -> torch.Tensor:
@@ -717,12 +697,12 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
     GEMMs. gwin (N, 10, 16, C), N = batch * V image-major; row0_rel/x0 (N,)
     image-relative. The column spread is rounded to `dtype` (the compute
     dtype), the rows contraction accumulates in float32, one cast to
-    `dtype`. Returns (batch * rows, width, C). `calls` counts its calls
-    on the card, as the launch counters count launches: the card's
-    backward makes none (_level_grad)."""
+    `dtype`. Returns (batch * rows, width, C). The counter
+    launches.placements counts its calls on the card, as the kernels'
+    counters count launches: the card's backward makes none (_level_grad)."""
     n, ht, wd, c = gwin.shape
     if gwin.device.type == "cuda":
-        place_windows_per_image.calls += 1
+        profiling.count("launches.placements")
     v = n // batch
     dev = gwin.device
     row0_rel = torch.clamp(row0_rel.long(), 0, rows - ht)
@@ -737,9 +717,6 @@ def place_windows_per_image(row0_rel, x0, gwin, batch, rows, width, dtype
     out = torch.einsum("bkr,bkwc->brwc", oh,
                        gx.reshape(batch, v * ht, width, c).float())
     return out.to(dtype).reshape(batch * rows, width, c)
-
-
-place_windows_per_image.calls = 0
 
 
 def _level_grad(g, row0, x0, wy, wx, shape, dtype, rows, batch, *,
@@ -899,29 +876,8 @@ def batched_pyramid_pool_resident(flat_batch, pyr_meta: Pyramid, rois_views,
     return q.reshape(n, g, g, c), s.reshape(n)
 
 
-def launch_counts() -> dict:
-    """Every wrapper's kernel launches in this process so far, by kernel
-    (the int8-epilogue instances apart), and the per-image placement
-    GEMMs run on the card (`placements`): what a service reports, so a
-    caller can see that its requests went through the kernels."""
-    return {"window_pool_multi": window_pool_multi.launches,
-            "window_pool_multi_quant": window_pool_multi.quant_launches,
-            "resident_pool": resident_pool.launches,
-            "resident_pool_quant": resident_pool.quant_launches,
-            "window_pool": window_pool.launches,
-            "window_grad": window_grad.launches,
-            "window_rmw_grad": window_rmw_grad.launches,
-            "placements": place_windows_per_image.calls}
-
-
-def reset_launch_counts() -> None:
-    """Zeroes every count launch_counts reads."""
-    for fn in (window_pool_multi, resident_pool):
-        fn.launches = fn.quant_launches = 0
-    for fn in (window_pool, window_grad, window_rmw_grad):
-        fn.launches = 0
-    place_windows_per_image.calls = 0
-
-
-profiling.register_source(lambda: {
-    "launches." + k: v for k, v in launch_counts().items()})
+# every launch counter of this module, at 0 from import on
+for _kernel in ("window_pool_multi", "window_pool_multi_quant",
+                "resident_pool", "resident_pool_quant", "window_pool",
+                "window_grad", "window_rmw_grad", "placements"):
+    profiling.count("launches." + _kernel, 0)

@@ -42,11 +42,12 @@ from multipathnet_tpu_torch.eval.detect import Detector, score_batch
 from multipathnet_tpu_torch.eval.tester import Tester
 from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import build_model
-from multipathnet_tpu_torch.ops import roi_pool
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import (Trainer, restore_train_state,
                                                snapshot_train_state)
 from multipathnet_tpu_torch.train.proposal import ProposalTrainer
+from multipathnet_tpu_torch.utils import profiling
+
 
 @torch.no_grad()
 def seeded_normal_(model, seed: int, std: float = 0.02) -> int:
@@ -143,7 +144,7 @@ def train_run(cfg, shape, batch, *, device=None, seed=0, steps=1,
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    roi_pool.reset_launch_counts()
+    before = profiling.counters()
     t0 = time.perf_counter()
     history = []
     for _ in range(steps):
@@ -151,7 +152,7 @@ def train_run(cfg, shape, batch, *, device=None, seed=0, steps=1,
         history.append({k: float(v) for k, v in m.items()})
     _sync(dev)
     out = {"coord": (mesh.data_rank, mesh.model_rank),
-           "metrics": history, "launches": roi_pool.launch_counts(),
+           "metrics": history, "launches": profiling.kernel_launches(before),
            "first_s": time.perf_counter() - t0, "step": state.step,
            "tp_roles": dict(trainer.model.head.tp_roles),
            "head_shapes": {n: tuple(p.shape) for n, p in
@@ -244,9 +245,9 @@ def detect_run(cfg, shape, inputs, *, device=None, tree=None,
     def run(det):
         """-> (detections of the batch, score_batch of this rank's rows,
         the launches of the detection)."""
-        roi_pool.reset_launch_counts()
+        before = profiling.counters()
         res = det(*inputs)
-        launches = roi_pool.launch_counts()
+        launches = profiling.kernel_launches(before)
         rows = slice(None)
         if det.mesh is not None and det.mesh.n_data > 1:
             rows = det.mesh.rows(len(inputs[0]))
@@ -296,13 +297,13 @@ def tester_run(cfg, shape, split, *, device=None, tree=None,
     loader = CocoLoader(split[0], split[1])
     tester = Tester(model, cfg, loader, ProposalStore.load(split[2]),
                     params=tree, batch_size=batch_size, mesh=mesh)
-    roi_pool.reset_launch_counts()
+    before = profiling.counters()
     t0 = time.perf_counter()
     metrics = tester.test()
     seconds = time.perf_counter() - t0
     out = {"coord": (mesh.data_rank, mesh.model_rank), "metrics": metrics,
            "decoded": tester.pipeline.examples_decoded,
-           "launches": roi_pool.launch_counts(), "seconds": seconds}
+           "launches": profiling.kernel_launches(before), "seconds": seconds}
     if collect:
         out["detections"] = tester.collect_detections()
     return out

@@ -33,6 +33,7 @@ import torch
 
 from multipathnet_tpu_torch.core.device import resolve_device
 from multipathnet_tpu_torch.ops.roi_pool import _check, _stream
+from multipathnet_tpu_torch.utils import profiling
 
 WINDOW, WINDOW_X = 10, 16
 OUT_ROWS = 49
@@ -106,11 +107,12 @@ def window_read_probe(flat, row0, x0) -> torch.Tensor:
             scratch.data_ptr(), out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_read_probe launch failed: cudaError {rc}")
-    window_read_probe.launches += 1
+    profiling.count("launches.window_read_probe")
     return out
 
 
-window_read_probe.launches = 0
+# the launch counter, at 0 from import on
+profiling.count("launches.window_read_probe", 0)
 
 
 def probe_inputs(dtype, n_views: int = 32000, rows: int = 4096,

@@ -13,7 +13,8 @@ multipathnet_tpu/utils/profiling.py (SURVEY.md §5 "Tracing / profiling").
     detection (its own error, a RuntimeError naming the backward function).
   - `span(name)`: a named interval at a layer boundary, as a context
     manager or a decorator (module section "Spans and counters").
-  - `count(name, n)`: one process-wide registry of counters, always on.
+  - `count(name, n)`: one process-wide registry of counters, always on;
+    `kernel_launches(since)` reads the kernels' launches from it.
 """
 
 from __future__ import annotations
@@ -128,16 +129,19 @@ def debug_nans(enable: bool = True):
 # there (autograd's device thread) is a child of the open span that adopts
 # such spans (`span(..., adopt=True)`: train.backward).
 #
-# Counters are always on: `count` adds to one registry, and `counters()`
-# reads it with the counts of the registered sources (the kernels'
-# launches, `launches.<kernel>`: the pool kernels' from
-# ops/roi_pool.launch_counts, the int8 head's from ops/quant.launch_counts).
-# A root span's record holds every counter's change over the root. Names:
+# Counters are always on: `count` adds to one registry, which `counters()`
+# reads; nothing resets it, so a reader keeps a snapshot and takes the
+# difference, as a root span's record does (every counter's change over
+# the root). Names:
 #   sync.<site>  blocking waits of the host on the card (CUDA only)
 #   nms.rounds   rounds of ops/nms.nms_sorted's fixpoint
 #   bn.passes    forwards of models/layers.FrozenBatchNorm
 #   h2d.bytes    bytes put on the program's device from host arrays
 #   d2h.bytes    bytes of results copied back to the host
+#   launches.<kernel>  launches of a hand-written kernel, counted at its
+#                launch site (CUDA only; each module lists its kernels'
+#                counters at 0 from import on), read by kernel through
+#                `kernel_launches()`
 
 RING = 256   # completed root spans kept
 
@@ -157,7 +161,6 @@ _adopter = None
 _n_open = 0     # spans open on every thread
 _sites = {}
 _counts = collections.defaultdict(int)
-_sources = []
 
 
 def tracing_on() -> bool:
@@ -333,14 +336,14 @@ def count_sync(site: str, device, n: int = 1) -> None:
         _counts["sync." + site] += n
 
 
-def register_source(read) -> None:
-    """Adds read() -> {name: count} to what counters() returns."""
-    _sources.append(read)
-
-
 def counters() -> dict:
-    """A snapshot of every counter, the registered sources' included."""
-    out = dict(_counts)
-    for read in _sources:
-        out.update(read())
-    return out
+    """A snapshot of every counter."""
+    return dict(_counts)
+
+
+def kernel_launches(since: dict | None = None) -> dict:
+    """{kernel: launches} from the counters launches.<kernel>, less their
+    values in `since`, an earlier counters() snapshot."""
+    since = since or {}
+    return {k.removeprefix("launches."): v - since.get(k, 0)
+            for k, v in list(_counts.items()) if k.startswith("launches.")}

@@ -282,7 +282,7 @@ def test_kernel_wrapper_refuses(case):
         kw = dict(residual=r32, out_dtype=BF16)
     with torch.no_grad(), pytest.raises(err, match=match):
         batchnorm.bn_epilogue(x, *vec, dtype, **kw)
-    assert batchnorm.launch_counts() == {"bn_epilogue": 0}
+    assert profiling.kernel_launches()["bn_epilogue"] == 0
 
 
 def test_other_devices_raise_in_the_module():
@@ -413,12 +413,12 @@ def test_kernel_equals_plain_version_on_special_values(
     x, r16, r32 = _maps(ties=ties, device=cuda)
     res = (r16 if dtype == BF16 else r32) if residual else None
     flags = dict(relu=relu, residual=res, out_dtype=out_dtype)
-    before = batchnorm.bn_epilogue.launches
+    before = profiling.counters()
     with torch.inference_mode():
         got = mod(x, dtype, **flags)
         want = batchnorm.bn_epilogue_ref(x, mod.running_mean, mod.mul(),
                                          mod.bias, dtype, **flags)
-    assert batchnorm.bn_epilogue.launches == before + 1
+    assert profiling.kernel_launches(before)["bn_epilogue"] == 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert _same(got, want)
     assert _same(want, _today_epilogue(mod, x, dtype, relu, res,
@@ -448,12 +448,12 @@ def test_kernel_equals_plain_version_at_every_resnet101_instance(
     monkeypatch.setattr(layers.FrozenBatchNorm, "forward", both)
     x = torch.randn((8, 640, 640, 3), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(7))
-    before = batchnorm.bn_epilogue.launches
+    before = profiling.counters()
     with torch.inference_mode():
         feats = model(x)
     torch.cuda.synchronize()
     assert len(seen) == 94
-    assert batchnorm.bn_epilogue.launches - before == 94
+    assert profiling.kernel_launches(before)["bn_epilogue"] == 94
     assert [s for s in seen if not s[2]] == []
     assert all(f.isfinite().all() and f.float().std() > 1e-2
                for f in feats.values())
@@ -472,14 +472,14 @@ def test_served_maps_equal_the_plain_route(cuda, name, dtype):
         else "float32"), device=cuda), seed=8)
     x = torch.randn((4, 640, 640, 3), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(9))
-    before = batchnorm.bn_epilogue.launches
+    before = profiling.counters()
     with torch.inference_mode():
         got = model.features(x)
-    assert batchnorm.bn_epilogue.launches > before
-    launched = batchnorm.bn_epilogue.launches
+    assert profiling.kernel_launches(before)["bn_epilogue"] > 0
+    before = profiling.counters()
     with torch.enable_grad():
         want = model.features(x)
-    assert batchnorm.bn_epilogue.launches == launched
+    assert profiling.kernel_launches(before)["bn_epilogue"] == 0
     assert got.keys() == want.keys() == {"c3", "c4", "c5"}
     for k in want:
         assert _same(got[k], want[k].detach()), k

@@ -86,7 +86,7 @@ _MUST_IMPORT = ("ops.roi_pool", "ops._build", "ops.quant", "ops.lowrank",
                 "cli.serve", "core.mesh", "tools.mesh_runs",
                 "utils.tbevents", "utils.profiling", "data.rle_native",
                 "tools.soak_svd_decay", "tools.prop_quality_scale",
-                "tools.prof_eval", "tools.prof_train", "bench")
+                "bench")
 
 
 def test_port_never_imports_jax():

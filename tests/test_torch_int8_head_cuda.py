@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from multipathnet_tpu_torch.ops import quant
+from multipathnet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -48,11 +49,11 @@ def _rows(dev, m, k, dtype, seed):
 
 
 def _assert_quantize_equal(x, width, amax=None):
-    before = quant.quantize_rows_padded.launches
+    before = profiling.counters()
     got_q, got_s = quant.quantize_rows_padded(x, width, amax)
     want_q, want_s = quant.quantize_rows_padded_ref(x, width, amax)
     torch.cuda.synchronize()
-    assert quant.quantize_rows_padded.launches == before + 1
+    assert profiling.kernel_launches(before)["quantize_rows"] == 1
     assert got_q.shape == want_q.shape == (x.shape[0], width)
     assert torch.equal(got_q, want_q)
     nan = torch.isnan(want_s)
@@ -166,12 +167,12 @@ def test_epilogue_kernel_at_the_cell_shapes(cuda, k, n):
     xs, ws, b = _scales(cuda, M, n_pad, bias, n)
     if bias:
         _plant_ties(acc, xs, ws, b, [1, 4000, M - 1])
-    before = quant.int8_epilogue.launches
+    before = profiling.counters()
     got16 = quant.int8_epilogue(acc, xs, ws, b, width=n,
                                 dtype=torch.bfloat16, relu=relu)
     got32 = quant.int8_epilogue(acc, xs, ws, b, width=n)
     torch.cuda.synchronize()
-    assert quant.int8_epilogue.launches == before + 2
+    assert profiling.kernel_launches(before)["int8_epilogue"] == 2
     assert got16.shape == (M, n) and got16.dtype == torch.bfloat16
     ties = _assert_fma_or_tie(got32, acc, xs, ws, b, n)
     want16 = got32.bfloat16()
@@ -271,11 +272,15 @@ def test_detector_batch_counts_the_head_kernels(cuda):
                     detect_batch(det.model, det.cfg, images, hws, props,
                                  mask))
 
+    def head_launches(before):
+        launched = profiling.kernel_launches(before)
+        return {k: launched[k] for k in ("int8_epilogue", "quantize_rows")}
+
     run()
-    quant.reset_launch_counts()
+    before = profiling.counters()
     detect_batch(det.model, det.cfg, images, hws, props, mask)
     torch.cuda.synchronize()
-    assert quant.launch_counts() == {"int8_epilogue": 17, "quantize_rows": 13}
+    assert head_launches(before) == {"int8_epilogue": 17, "quantize_rows": 13}
     got = run()
 
     mp = pytest.MonkeyPatch()
@@ -283,9 +288,9 @@ def test_detector_batch_counts_the_head_kernels(cuda):
         mp.setattr(quant, "int8_epilogue", quant.int8_epilogue_ref)
         mp.setattr(quant, "quantize_rows_padded",
                    quant.quantize_rows_padded_ref)
-        quant.reset_launch_counts()
+        before = profiling.counters()
         want = run()
-        assert not any(quant.launch_counts().values())
+        assert not any(head_launches(before).values())
     finally:
         mp.undo()
     (got_boxes, got_probs), got_dets = got

@@ -38,6 +38,7 @@ from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
 from multipathnet_tpu_torch.train.loop import (Batch, Trainer,
                                                restore_train_state,
                                                snapshot_train_state)
+from multipathnet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -223,14 +224,14 @@ def test_bf16_pool_rois_pads_channels_to_8(cuda, quantized):
     for model, dev in zip(models, ("cpu", cuda)):
         args = ({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
                 (64, 64))
-        launches = (roi_pool.window_pool_multi.launches
-                    + roi_pool.window_pool_multi.quant_launches)
+        before = profiling.counters()
         outs.append(model.pool_rois_quantized(*args, bias.to(dev))
                     if quantized else model.pool_rois(*args))
         if dev is cuda:
             torch.cuda.synchronize()
-            assert (roi_pool.window_pool_multi.launches
-                    + roi_pool.window_pool_multi.quant_launches) > launches
+            launched = profiling.kernel_launches(before)
+            assert (launched["window_pool_multi"]
+                    + launched["window_pool_multi_quant"]) > 0
     if quantized:
         (q_c, s_c), (q_g, s_g) = outs
         assert q_g.shape == q_c.shape and q_g.shape[-1] == 20
@@ -267,13 +268,12 @@ def test_wrappers_check_their_inputs(cuda):
 def test_launch_counters_count_kernel_launches(cuda):
     (flat, meta), = _levels(cuda, torch.bfloat16, 2, 160, 64, 1, seed=5)
     rois = torch.tensor([[10.0, 10.0, 60.0, 70.0]] * 4, device=cuda)
-    k1, k2 = (roi_pool.window_pool_multi.launches,
-              roi_pool.resident_pool.launches)
+    before = profiling.counters()
     roi_pool.batched_pyramid_pool_resident(flat, meta, rois, 2)
     roi_pool.batched_pyramid_pool_multi(
         [flat], [meta], rois, torch.zeros(4, dtype=torch.int32, device=cuda))
-    assert roi_pool.window_pool_multi.launches == k1 + 1
-    assert roi_pool.resident_pool.launches == k2 + 1
+    launched = profiling.kernel_launches(before)
+    assert launched["window_pool_multi"] == launched["resident_pool"] == 1
 
 
 def test_tiny_slice_on_gpu_matches_cpu(cuda):
@@ -328,11 +328,11 @@ def test_window_grad_kernel_matches_plain(cuda, c, dtype):
                                                        300, seed=11)
     rows, wmax = meta.flat.shape[:2]
     args = (gout, row0, x0, wy, wx, b, rows, wmax)
-    n = roi_pool.window_grad.launches
+    before = profiling.counters()
     got = (roi_pool.window_grad(*args) if dtype == torch.float32
            else roi_pool.window_grad(*args, dtype))
     torch.cuda.synchronize()
-    assert roi_pool.window_grad.launches == n + 1
+    assert profiling.kernel_launches(before)["window_grad"] == 1
     want = roi_pool.window_grad_ref(*args)
     assert got.dtype == dtype and got.shape == (b * rows, wmax, c)
     _assert_grad_close(got, want)
@@ -347,11 +347,11 @@ def test_window_grad_with_no_views_writes_zeros(cuda):
     empty = torch.empty(0, dtype=torch.int32, device=cuda)
     w = (torch.empty((0, 7, 10), device=cuda),
          torch.empty((0, 7, 16), device=cuda))
-    n = roi_pool.window_grad.launches
+    before = profiling.counters()
     got = roi_pool.window_grad(torch.empty((0, 7, 7, c), device=cuda), empty,
                                empty, *w, b, rows, wmax)
     torch.cuda.synchronize()
-    assert roi_pool.window_grad.launches == n + 1
+    assert profiling.kernel_launches(before)["window_grad"] == 1
     assert got.shape == (b * rows, wmax, c) and not got.any()
 
 
@@ -365,10 +365,10 @@ def test_window_rmw_grad_kernel_matches_plain(cuda, dtype):
         n_per)
     row0 = (row0 + img * meta.flat.shape[0]).contiguous()
     args = (gout, row0, x0, wy, wx, tuple(flat.shape), dtype)
-    n = roi_pool.window_rmw_grad.launches
+    before = profiling.counters()
     got = roi_pool.window_rmw_grad(*args)
     torch.cuda.synchronize()
-    assert roi_pool.window_rmw_grad.launches == n + 1
+    assert profiling.kernel_launches(before)["window_rmw_grad"] == 1
     want = roi_pool.window_rmw_grad_ref(*args[:-1], torch.float32)
     assert got.dtype == dtype
     _assert_grad_close(got, want)
@@ -467,16 +467,13 @@ def test_window_pool_multi_backward_matches_autograd_of_plain(cuda):
     try:  # c3 -> K4, c4 -> placement, c5 -> K3
         roi_pool._GRAD_VMEM_BUDGET = sizes[2] * c * 4
         roi_pool._PLACE_PER_IMAGE_MAX_CELLS = sizes[1]
-        launches = (roi_pool.window_grad.launches,
-                    roi_pool.window_rmw_grad.launches,
-                    roi_pool.place_windows_per_image.calls)
+        before = profiling.counters()
         out = roi_pool.batched_pyramid_pool_multi(flats, metas, rois, img,
                                                   trainable=True)
         got = torch.autograd.grad((out * gout).sum(), flats)
-        assert (roi_pool.window_grad.launches,
-                roi_pool.window_rmw_grad.launches,
-                roi_pool.place_windows_per_image.calls) == (
-                    launches[0] + 2, launches[1] + 1, launches[2])
+        launched = profiling.kernel_launches(before)
+        assert (launched["window_grad"], launched["window_rmw_grad"],
+                launched["placements"]) == (2, 1, 0)
     finally:
         roi_pool._GRAD_VMEM_BUDGET = budget
         roi_pool._PLACE_PER_IMAGE_MAX_CELLS = cells
@@ -572,9 +569,9 @@ def test_tiny_bf16_train_step_repeats_bit_for_bit(cuda):
         runs = []
         for _ in range(2):
             state = restore_train_state(trainer, saved)
-            k3 = roi_pool.window_grad.launches
+            before = profiling.counters()
             _, metrics = trainer.step(state, batch)
-            assert roi_pool.window_grad.launches > k3
+            assert profiling.kernel_launches(before)["window_grad"] > 0
             runs.append((metrics["loss"].clone(),
                          {n: (p_.detach().clone(), p_.grad.clone())
                           for n, p_ in trainer.model.named_parameters()
@@ -715,10 +712,10 @@ def test_quant_epilogue_matches_plain(cuda, dtype, c):
                              roi_pool.window_pool_multi_ref, k1),
                             (roi_pool.resident_pool,
                              roi_pool.resident_pool_ref, k2)):
-        launches = kern.quant_launches
+        before = profiling.counters()
         q, s = kern(*args, quant_bias=bias)
         torch.cuda.synchronize()
-        assert kern.quant_launches == launches + 1
+        assert profiling.kernel_launches(before)[kern.__name__ + "_quant"] == 1
         assert q.dtype == torch.int8 and s.dtype == torch.float32
         pooled = kern(*args)
         n = s.numel()
@@ -829,19 +826,19 @@ def test_tiny_int8_slice_on_gpu_matches_cpu(cuda, ranks):
     xy = rng.uniform(0, 40, (2, 24, 2))
     wh = rng.uniform(6, 24, (2, 24, 2))
     props = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    kernels = (roi_pool.window_pool_multi, roi_pool.resident_pool)
     outs = []
     for dev in ("cpu", cuda):
         det = Detector(build_model(qcfg.model, device=dev), qcfg,
                        params=tree)
-        before = [(k.launches, k.quant_launches) for k in kernels]
+        before = profiling.counters()
         outs.append(score_batch(det.model, qcfg, *(
             torch.from_numpy(x).to(dev) for x in (images, hws, props))))
-        for k, (plain, quant) in zip(kernels, before):
+        launched = profiling.kernel_launches(before)
+        for k in ("window_pool_multi", "resident_pool"):
             # the int8 route runs only the quant instances, and only on
             # the card
-            assert k.launches == plain
-            assert (k.quant_launches > quant) == (dev is cuda)
+            assert launched[k] == 0
+            assert (launched[k + "_quant"] > 0) == (dev is cuda)
     (want_b, want_p), (got_b, got_p) = outs
     torch.testing.assert_close(got_p.cpu(), want_p, rtol=0, atol=2e-3)
     torch.testing.assert_close(got_b.cpu(), want_b, rtol=0, atol=5e-2)
@@ -867,11 +864,12 @@ def _k5_args(dev, dtype, c, seed, b=2, canvas=320, n=600):
 def test_window_pool_kernel_matches_plain(cuda, dtype, c):
     """K5 against window_pool_ref; its own counter moves, K1's does not."""
     args = _k5_args(cuda, dtype, c, seed=31)
-    k5, k1 = roi_pool.window_pool.launches, roi_pool.window_pool_multi.launches
+    before = profiling.counters()
     got = roi_pool.window_pool(*args)
     torch.cuda.synchronize()
-    assert roi_pool.window_pool.launches == k5 + 1
-    assert roi_pool.window_pool_multi.launches == k1
+    launched = profiling.kernel_launches(before)
+    assert launched["window_pool"] == 1
+    assert launched["window_pool_multi"] == 0
     want = roi_pool.window_pool_ref(*args)
     assert got.dtype == want.dtype == dtype and got.shape == (600, 7, 7, c)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
@@ -916,10 +914,10 @@ def test_accumulate_windows_launches_k4_once(cuda, monkeypatch):
         m.setattr(roi_pool, "_scatter_windows", no_scatter)
         got = []
         for args in cases:
-            launches = roi_pool.window_rmw_grad.launches
+            before = profiling.counters()
             got.append(roi_pool.accumulate_windows(*args))
             torch.cuda.synchronize()
-            assert roi_pool.window_rmw_grad.launches == launches + 1
+            assert profiling.kernel_launches(before)["window_rmw_grad"] == 1
     for g_, args in zip(got, cases):
         want = roi_pool.accumulate_windows(*(t.cpu() for t in args[:5]),
                                            *args[5:])
@@ -945,9 +943,9 @@ def test_single_level_backwards_match_autograd_of_plain(cuda):
 
     def grads(fn, flats):
         flats = [f.detach().requires_grad_() for f in flats]
-        k4 = roi_pool.window_rmw_grad.launches
+        before = profiling.counters()
         out = torch.autograd.grad((fn(*flats) * gout).sum(), flats)
-        return out, roi_pool.window_rmw_grad.launches - k4
+        return out, profiling.kernel_launches(before)["window_rmw_grad"]
 
     c3 = pyrs[0][0]
     got, k4 = grads(lambda f: roi_pool.window_pool_trainable(f, *geos[0]),
@@ -963,11 +961,11 @@ def test_single_level_backwards_match_autograd_of_plain(cuda):
            wx.reshape(b, v, 7, 16))
     flat4 = flat5.reshape(b, rows, wmax, c)
     g5 = gout.reshape(b, v, 7, 7, c)
-    k4 = roi_pool.window_rmw_grad.launches
+    before = profiling.counters()
     f = flat4.detach().requires_grad_()
     (got,) = torch.autograd.grad(
         (roi_pool.resident_pool_trainable(f, *rel) * g5).sum(), f)
-    assert roi_pool.window_rmw_grad.launches == k4 + 1
+    assert profiling.kernel_launches(before)["window_rmw_grad"] == 1
     (want,) = torch.autograd.grad(
         (roi_pool.resident_pool_ref(f, *rel) * g5).sum(), f)
     torch.testing.assert_close(got, want, **_tol(torch.float32))
@@ -996,10 +994,10 @@ def test_window_read_probe_matches_plain(cuda, dtype, c):
 
     flat, row0, x0 = probe.probe_inputs(dtype, 3000, 512, 160, c,
                                         device=cuda)
-    launches = probe.window_read_probe.launches
+    before = profiling.counters()
     got = probe.window_read_probe(flat, row0, x0)
     torch.cuda.synchronize()
-    assert probe.window_read_probe.launches == launches + 1
+    assert profiling.kernel_launches(before)["window_read_probe"] == 1
     want = probe.window_read_probe_ref(flat, row0, x0)
     assert got.dtype == want.dtype == torch.bfloat16
     assert got.shape == (3000, 49, c)
@@ -1136,10 +1134,10 @@ def test_resident_pool_at_batch_one(cuda, dtype):
         args = (flat.reshape(1, rows, wmax, 512), row0.reshape(1, v),
                 x0.reshape(1, v), wy.reshape(1, v, 7, 10),
                 wx.reshape(1, v, 7, 16))
-        n = roi_pool.resident_pool.launches
+        before = profiling.counters()
         got = roi_pool.resident_pool(*args)
         torch.cuda.synchronize()
-        assert roi_pool.resident_pool.launches == n + 1
+        assert profiling.kernel_launches(before)["resident_pool"] == 1
         want = roi_pool.resident_pool_ref(*args)
         assert got.shape == (1, v, 7, 7, 512)
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
@@ -1173,20 +1171,20 @@ def test_window_pool_multi_at_dense_geometry(cuda, dtype):
                                 (args[1][0] % c3_rows).long(),
                                 right=True) - 1
     assert int(scales.max()) >= 3   # the 4x views reach coarse c3 scales
-    n = roi_pool.window_pool_multi.launches
+    before = profiling.counters()
     got = roi_pool.window_pool_multi(*args)
     torch.cuda.synchronize()
-    assert roi_pool.window_pool_multi.launches == n + 1
+    assert profiling.kernel_launches(before)["window_pool_multi"] == 1
     want = roi_pool.window_pool_multi_ref(*args)
     assert got.shape == (views.shape[0], 7, 7, 256)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
     gen = torch.Generator(device=cuda).manual_seed(53)
     bias = (torch.randn(256, generator=gen, device=cuda) * 0.5).to(dtype)
-    n = roi_pool.window_pool_multi.quant_launches
+    before = profiling.counters()
     q, s = roi_pool.window_pool_multi(*args, quant_bias=bias)
     torch.cuda.synchronize()
-    assert roi_pool.window_pool_multi.quant_launches == n + 1
+    assert profiling.kernel_launches(before)["window_pool_multi_quant"] == 1
     own_q, own_s = roi_pool.quant_view_ref(got, bias)
     assert torch.equal(q, own_q) and torch.equal(s, own_s)
     plain_q, plain_s = roi_pool.window_pool_multi_ref(*args, quant_bias=bias)
@@ -1236,17 +1234,14 @@ def test_trainable_k1_at_one_level_with_backward(cuda):
     img = torch.zeros(64, dtype=torch.int32, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(57)
     gout = torch.randn((64, 7, 7, 512), generator=gen, device=cuda)
-    launches = (roi_pool.window_pool_multi.launches,
-                roi_pool.window_grad.launches,
-                roi_pool.window_rmw_grad.launches)
+    before = profiling.counters()
     out = roi_pool.batched_pyramid_pool_multi([flat], [meta], rois, img,
                                               trainable=True)
     (got,) = torch.autograd.grad((out * gout).sum(), [flat])
     torch.cuda.synchronize()
-    assert (roi_pool.window_pool_multi.launches,
-            roi_pool.window_grad.launches,
-            roi_pool.window_rmw_grad.launches) == (
-                launches[0] + 1, launches[1] + 1, launches[2])
+    launched = profiling.kernel_launches(before)
+    assert (launched["window_pool_multi"], launched["window_grad"],
+            launched["window_rmw_grad"]) == (1, 1, 0)
     row0, x0, wy, wx = roi_pool.view_geometry(meta, rois)
     plain = roi_pool.window_pool_multi_ref([flat], [row0], [x0], [wy], [wx])
     torch.testing.assert_close(out.detach(), plain.detach(),
@@ -1331,10 +1326,10 @@ def test_pool_kernels_take_every_bin_count(cuda, g, dtype, c):
              (b, n // b, g, g, c)),
             (roi_pool.window_pool, roi_pool.window_pool_ref, k5,
              (n, g, g, c))):
-        launches = kern.launches
+        before = profiling.counters()
         got = kern(*args)
         torch.cuda.synchronize()
-        assert kern.launches == launches + 1
+        assert profiling.kernel_launches(before)[kern.__name__] == 1
         want = ref(*args)
         assert got.dtype == want.dtype == dtype and got.shape == shape
         assert torch.isfinite(got).all()
@@ -1361,11 +1356,11 @@ def test_quant_epilogue_takes_every_bin_count(cuda, g, dtype, c):
              _bins_args(pyrs, views, img, g)),
             (roi_pool.resident_pool, roi_pool.resident_pool_ref,
              _bins_k2_args(pyrs, views, b, g))):
-        launches = kern.quant_launches
+        before = profiling.counters()
         q, s = kern(*args, quant_bias=bias)
         pooled = kern(*args)
         torch.cuda.synchronize()
-        assert kern.quant_launches == launches + 1
+        assert profiling.kernel_launches(before)[kern.__name__ + "_quant"] == 1
         n = s.numel()
         assert q.shape == pooled.shape and q.shape[-3:] == (g, g, c)
         own_q, own_s = roi_pool.quant_view_ref(pooled.reshape(n, g, g, c),
@@ -1415,7 +1410,7 @@ def test_kernels_refuse_bins_outside_1_to_7(cuda):
     k1 = _bins_args(pyrs, views, img, 6)
     flat, row0, x0, wy, wx = (t[0] for t in k1)
     n = row0.numel()
-    counts = roi_pool.launch_counts()
+    before = profiling.counters()
     for g in (0, 8):
         bad_wy = torch.zeros((n, g, 10), device=cuda)
         bad_wx = torch.zeros((n, g, 16), device=cuda)
@@ -1437,4 +1432,4 @@ def test_kernels_refuse_bins_outside_1_to_7(cuda):
     with pytest.raises(ValueError, match="cannot hold"):
         roi_pool.resident_pool(flat[:9][None], row0[None] * 0, x0[None],
                                wy[None], wx[None])
-    assert roi_pool.launch_counts() == counts
+    assert not any(profiling.kernel_launches(before).values())

@@ -22,9 +22,10 @@ from multipathnet_tpu_torch.eval.serving import load_detector, save_bundle
 from multipathnet_tpu_torch.models import convert, layers
 from multipathnet_tpu_torch.models.multipath import build_model, init_params_
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import roi_pool, roi_pyramid
+from multipathnet_tpu_torch.ops import roi_pyramid
 from multipathnet_tpu_torch.train.checkpoint import Checkpointer
 from multipathnet_tpu_torch.train.loop import Batch, Trainer
+from multipathnet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -226,10 +227,14 @@ def _align_cfg(impl, dtype="float32", **model):
         cfg.model, dtype=dtype, roi_impl=impl, train_roi_impl=impl, **model))
 
 
-def _pool_launches():
-    return [getattr(fn, counter) for fn in (roi_pool.window_pool_multi,
-                                            roi_pool.resident_pool)
-            for counter in ("launches", "quant_launches")]
+POOL_KERNELS = ("window_pool_multi", "window_pool_multi_quant",
+                "resident_pool", "resident_pool_quant")
+
+
+def _launched(before, names=POOL_KERNELS) -> dict:
+    """The launches of the kernels `names` since the snapshot `before`."""
+    launched = profiling.kernel_launches(before)
+    return {k: launched[k] for k in names}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -252,7 +257,7 @@ def test_plain_align_routes_on_gpu_match_cpu(cuda, impl, dtype):
     feats = {lv: torch.randn(2, 64 // s, 64 // s, 32, generator=gen).to(
         cpu_model.dtype) for lv, s in (("c3", 4), ("c4", 8), ("c5", 16))}
     rois = torch.from_numpy(_inputs()[2]) * 1.2
-    before = _pool_launches()
+    before = profiling.counters()
     with torch.no_grad():
         want = cpu_model.pool_rois(feats, rois, (64, 64))
         got = gpu_model.pool_rois({k: v.to(cuda) for k, v in feats.items()},
@@ -266,7 +271,7 @@ def test_plain_align_routes_on_gpu_match_cpu(cuda, impl, dtype):
                                         for x in inputs))
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-4)
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-2)
-    assert _pool_launches() == before
+    assert not any(_launched(before).values())
 
 
 @pytest.mark.parametrize("impl", ["direct", "pyramid"])
@@ -281,8 +286,7 @@ def test_direct_train_step_repeats_on_gpu(cuda, impl):
 
     cfg = _align_cfg(impl, "bfloat16")
     batch = _train_batch(5)
-    before = _pool_launches() + [roi_pool.window_grad.launches,
-                                 roi_pool.window_rmw_grad.launches]
+    before = profiling.counters()
     torch.backends.cudnn.deterministic = True
     try:
         trainer = Trainer(cfg, device=cuda)
@@ -300,5 +304,5 @@ def test_direct_train_step_repeats_on_gpu(cuda, impl):
     (loss_a, a), (loss_b, b) = runs
     assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
     assert all(torch.equal(a[n], b[n]) for n in a)
-    assert _pool_launches() + [roi_pool.window_grad.launches,
-                               roi_pool.window_rmw_grad.launches] == before
+    assert not any(_launched(before, POOL_KERNELS + (
+        "window_grad", "window_rmw_grad")).values())

@@ -130,7 +130,8 @@ def test_http_endpoints(bundle):
         assert health["config"] == "tiny"
         # on the CPU the wrappers run their plain versions: no launch
         assert set(health["kernel_launches"]) >= {
-            "window_pool_multi_quant", "resident_pool_quant"}
+            "window_pool_multi_quant", "resident_pool_quant",
+            "int8_epilogue", "quantize_rows", "bn_epilogue"}
         assert not any(health["kernel_launches"].values())
         assert {f"launches.{k}" for k in health["kernel_launches"]} <= set(
             health["counters"])

@@ -1,8 +1,7 @@
 """The port's measurement tools (multipathnet_tpu_torch/tools/), each
 driven once at `tiny` on the CPU: soak_svd_decay (its float AP equal to a
 Tester on the same parameters, every step in its TensorBoard events),
-prop_quality_scale, prof_eval (float and int8) and prof_train (--stages);
-and the card route of the truncated SVD (ops/lowrank.factorize_kernel_torch)
+prop_quality_scale; and the card route of the truncated SVD (ops/lowrank.factorize_kernel_torch)
 against the numpy one."""
 
 import dataclasses
@@ -20,8 +19,7 @@ from multipathnet_tpu_torch.eval.tester import Tester
 from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import lowrank
-from multipathnet_tpu_torch.tools import (prof_eval, prof_train,
-                                         prop_quality_scale, soak_svd_decay)
+from multipathnet_tpu_torch.tools import prop_quality_scale, soak_svd_decay
 from multipathnet_tpu_torch.utils import tbevents
 
 torch.set_num_threads(2)
@@ -99,24 +97,3 @@ def test_prop_quality_scale_at_tiny(tmp_path):
         assert math.isfinite(r["loss"])
         for q in (r["stage1"], r["cascade"]):
             assert len(q) == 4 and all(0.0 <= v <= 1.0 for v in q)
-
-
-@pytest.mark.parametrize("quant", ["none", "int8"])
-def test_prof_eval_at_tiny(quant):
-    cfg = prof_eval.eval_config("tiny", proposals=16, canvas=64)
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, head_quant=quant))
-    ms = prof_eval.run(cfg, batch=2, iters=1, warmup=1, device="cpu")
-    rows = {"resize", "trunk", "pool", "heads", "score_batch", "nms",
-            "detect_batch", "img/s", "prefix_trunk", "prefix_pool"}
-    assert set(ms) == rows | ({"prefix_quant"} if quant == "int8" else set())
-    assert all(v > 0 for v in ms.values())
-
-
-def test_prof_train_at_tiny():
-    cfg = prof_train.train_config("tiny", batch=2, size=64, rois=8, freeze=2)
-    out = prof_train.run(cfg, iters=1, stages=True, device="cpu")
-    assert set(out) == {"first_s", "single_ms", "chained_ms", "img/s",
-                        "trunk+reduce fwd", "trunk fwd+bwd", "pool fwd",
-                        "pool fwd+bwd (d/dfeats)", "heads fwd+bwd",
-                        "full fwd+bwd"}
-    assert all(v > 0 for v in out.values())

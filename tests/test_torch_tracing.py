@@ -3,8 +3,9 @@ nothing and enters no profiler range; on spans nest by parent and root in
 a bounded ring, adopt spans of another thread, and carry their root's
 counter changes; under torch.profiler a Detector call and a Trainer.step
 put the layer spans in the trace with nothing else inside the model's
-and NMS's spans; nms.rounds counts the fixpoint's rounds and h2d.bytes
-the inputs' bytes; the pool kernels' launches are counters.
+and NMS's spans, and so do tracing()'s records without the profiler;
+nms.rounds counts the fixpoint's rounds and h2d.bytes the inputs' bytes;
+every kernel's launches are counters, read through profiling.kernel_launches.
 
 The `cuda` tests (skipped without a card) hold the counted sync.* sites to
 every synchronizing call that torch's sync debug mode reports, for one
@@ -12,6 +13,7 @@ batch and one step at the benchmark cells' shapes. On a GPU machine:
     python -m pytest tests/test_torch_tracing.py --noconftest -m cuda -q
 """
 
+import collections
 import dataclasses
 import json
 import threading
@@ -25,6 +27,7 @@ import torch
 
 from multipathnet_tpu_torch.core.config import preset
 from multipathnet_tpu_torch.eval.detect import Detector
+from multipathnet_tpu_torch.models import convert
 from multipathnet_tpu_torch.models.multipath import build_model, init_params_
 from multipathnet_tpu_torch.ops import nms as nms_ops
 from multipathnet_tpu_torch.ops import roi_pool
@@ -84,6 +87,21 @@ def tiny_detector():
                          torch.Generator().manual_seed(0))
     det = Detector(model, cfg, device="cpu")
     det(*_serve_inputs(cfg))           # the first call, outside any test
+    return det
+
+
+@pytest.fixture(scope="module")
+def tiny_int8_detector():
+    """tiny with the int8 head, quantized at load from a float tree."""
+    cfg = preset("tiny")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, head_quant="int8"))
+    float_model = init_params_(
+        build_model(dataclasses.replace(cfg.model, head_quant="none"),
+                    device="cpu"), torch.Generator().manual_seed(0))
+    det = Detector(build_model(cfg.model, device="cpu"), cfg, device="cpu",
+                   params=convert.flax_from_state_dict(
+                       float_model.state_dict(), host=False))
+    det(*_serve_inputs(cfg))
     return det
 
 
@@ -392,17 +410,91 @@ def test_pool_backward_checks_its_windows_before_its_span(monkeypatch,
         out.sum().backward()
 
 
-def test_launch_counts_are_counters(monkeypatch):
-    monkeypatch.setattr(roi_pool.window_grad, "launches", 5)
-    monkeypatch.setattr(roi_pool.place_windows_per_image, "calls", 2)
-    counts = roi_pool.launch_counts()
-    assert counts["window_grad"] == 5 and counts["placements"] == 2
-    got = profiling.counters()
-    assert {k: got["launches." + k] for k in counts} == counts
-    roi_pool.reset_launch_counts()
-    assert not any(roi_pool.launch_counts().values())
-    assert not any(v for k, v in profiling.counters().items()
-                   if k.startswith("launches."))
+KERNELS = {"window_pool_multi", "window_pool_multi_quant", "resident_pool",
+           "resident_pool_quant", "window_pool", "window_grad",
+           "window_rmw_grad", "placements", "int8_epilogue", "quantize_rows",
+           "bn_epilogue", "window_read_probe"}
+
+
+@pytest.fixture
+def own_counters(monkeypatch):
+    """The counters as they stand, in a registry of the test's own, so
+    what the test counts leaves the process's registry as it was."""
+    monkeypatch.setattr(profiling, "_counts",
+                        collections.defaultdict(int, profiling._counts))
+
+
+def test_a_launch_is_a_counter_and_no_attribute(own_counters):
+    """Every kernel's launch counter is listed at 0 from import on, and
+    kernel_launches() reads them by kernel, less an earlier snapshot; no
+    wrapper or module keeps a count of its own."""
+    from multipathnet_tpu_torch.ops import batchnorm, quant
+    from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
+
+    assert set(profiling.kernel_launches()) == KERNELS
+    before = profiling.counters()
+    profiling.count("launches.window_grad", 5)
+    profiling.count("launches.placements", 2)
+    got = profiling.kernel_launches(before)
+    assert set(got) == KERNELS
+    assert {k: v for k, v in got.items() if v} == {"window_grad": 5,
+                                                   "placements": 2}
+    assert profiling.counters()["launches.window_grad"] == before[
+        "launches.window_grad"] + 5
+    for fn in (roi_pool.window_pool_multi, roi_pool.resident_pool,
+               roi_pool.window_pool, roi_pool.window_grad,
+               roi_pool.window_rmw_grad, roi_pool.place_windows_per_image,
+               quant.int8_epilogue, quant.quantize_rows_padded,
+               batchnorm.bn_epilogue, probe.window_read_probe):
+        assert vars(fn) == {}, fn.__name__
+    for mod in (roi_pool, quant, batchnorm, probe):
+        assert not [k for k in vars(mod) if "count" in k], mod.__name__
+    assert {k for k in vars(profiling) if "count" in k or "source" in k} == {
+        "_counts", "count", "count_sync", "counters"}
+
+
+@pytest.mark.parametrize("kind", ["serve", "serve_int8", "train"])
+def test_tracing_records_the_span_tree_without_the_profiler(
+        kind, monkeypatch, own_counters, tiny_detector, tiny_int8_detector,
+        tiny_trainer):
+    """Under tracing() alone (no torch.profiler session) a Detector call,
+    with the float or the int8 head, and a Trainer.step each leave one
+    root record: the layer spans' tree, each child's host interval inside
+    its parent's, and on the root the launches.* changes over it."""
+    if kind == "train":
+        call, want, root = tiny_trainer.step, TRAIN_SPANS, "train.step"
+    else:
+        det = tiny_int8_detector if kind == "serve_int8" else tiny_detector
+        call, want, root = (lambda: det(*_serve_inputs(det.cfg)),
+                            SERVE_SPANS, "detect")
+
+    # stand-ins for the card's launch sites: on the CPU a wrapper runs its
+    # plain version and counts nothing, so each counts here as on the card
+    def launching(fn, name):
+        def launch(*args, **kwargs):
+            profiling.count("launches." + name)
+            return fn(*args, **kwargs)
+        return launch
+
+    for name in ("window_pool_multi", "resident_pool"):
+        monkeypatch.setattr(roi_pool, name,
+                            launching(getattr(roi_pool, name), name))
+    before = profiling.counters()
+    with profiling.tracing():
+        assert not torch.autograd._profiler_enabled()
+        call()
+    launched = {k: v for k, v in profiling.kernel_launches(before).items() if v}
+    (rec,) = profiling.records()
+    assert rec["name"] == root and set(_names(rec)) == want
+    for parent in profiling.walk(rec):
+        assert parent["device_ms"] is None            # no card here
+        for child in parent["children"]:
+            assert child["parent"] == parent["name"]
+            assert (parent["start_ns"] <= child["start_ns"]
+                    <= child["end_ns"] <= parent["end_ns"])
+    assert launched and {
+        k.removeprefix("launches."): v for k, v in rec["counters"].items()
+        if k.startswith("launches.")} == launched
 
 
 # ------------------------------------------------------------- the card ---

@@ -25,6 +25,7 @@ from multipathnet_tpu.ops import roi_pyramid as jrp
 from multipathnet_tpu_torch.ops import roi_pool as trk
 from multipathnet_tpu_torch.ops import roi_pyramid as trp
 from multipathnet_tpu_torch.tools import probe_int8_window_dma as tprobe
+from multipathnet_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -80,13 +81,14 @@ def test_window_pool_matches_pallas(n):
     want = jax.jit(lambda *a: jrk.pallas_window_pool(
         *a, tile=4, interpret=True))(lv["flat"], *lv["geo"])
     args = (_t(lv["flat"]), *map(_t, lv["geo"]))
-    launches = trk.window_pool.launches
+    before = profiling.counters()
     got = trk.window_pool(*args)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
     torch.testing.assert_close(got, trk.window_pool_ref(*args), rtol=0,
                                atol=0)
-    assert trk.window_pool.launches == launches   # the CPU launches nothing
+    # the CPU launches nothing
+    assert profiling.kernel_launches(before)["window_pool"] == 0
 
 
 def test_window_pool_empty_and_dtype():
@@ -368,9 +370,9 @@ def test_window_read_probe_plain_matches_reference(dtype):
     x0 = (rng.integers(0, (wmax - 16) // 8 + 1, n) * 8).astype(np.int32)
     want = np.asarray(jax.jit(partial(_run_reference_probe, _reference_probe()))(
         jflat, jnp.asarray(row0), jnp.asarray(x0)).astype(jnp.float32))
-    launches = tprobe.window_read_probe.launches
+    before = profiling.counters()
     got = tprobe.window_read_probe(tflat, _t(row0), _t(x0))
-    assert tprobe.window_read_probe.launches == launches
+    assert profiling.kernel_launches(before)["window_read_probe"] == 0
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, 49, c)
     got = got.float().numpy()
     if dtype == "int8":
