@@ -317,10 +317,23 @@ Phases, each of which raises on failure (nothing is caught):
  26. the ResNet trunk's BN epilogue (`bn_epilogue`, csrc/bn_epilogue.cu):
      its instances' registers, spills and blocks an SM, then a ResNet-101
      trunk (the serving cell's draw) on 8 x 640^2 under inference_mode:
-     each of its 94 BNs, on the inputs the trunk gives it, bit for bit
+     each of the 33 BNs it still runs (the stem, the 3x3 convolutions, the
+     stride-2 downsamples), on the inputs the trunk gives it, bit for bit
      against the plain version (ops/batchnorm.bn_epilogue_ref), then each
      timed in turns with it, with its byte bound (the float32 sum, the
      residual, the output, the vectors), and summed over the batch.
+ 27. the ResNet trunk's 1x1 convolution with its BN (`conv1x1_bn`,
+     csrc/conv1x1_bn.cu): its instances' registers and spills, then the
+     61 fused convolutions of a ResNet-101 trunk (phase 26's draw) on 8 x
+     640^2 under inference_mode, each on the inputs the trunk gives it,
+     held to its plain version (ops/conv_bn.conv1x1_bn_ref, TF32 off)
+     within the bf16 steps of its flags, then each timed in turns with
+     the route it replaces (conv_f32's TF32 convolution of the float32
+     copies, then kernel N), queued behind a device sleep, with its bound
+     (the larger of its bytes over 3.35 TB/s and its bf16 operations over
+     989 TF/s), and summed over the batch; the wrapper's host us a call
+     beside the replaced route's; a ResNet-101 Detector batch's features
+     span, host and device ms, under profiling.tracing().
 The line before the last is a JSON object with each kernel's launches (the
 runs of phases 4, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
 22, 23 and 24, each counted from 0, and their sum; the head's kernels and
@@ -334,7 +347,8 @@ bf16 body's W2 GEMM, 2 x G^2 x 160 per view, level and channel, over the
 distinct cells under its windows and its output over 3.35 TB/s, with the
 int8 numbers and the share of the bound beside the bf16 ones; for the
 head's kernels one batch's instances summed (phase 25), for the BN
-epilogue the ResNet-101 batch's 94 (phase 26). The last line
+epilogue the ResNet-101 batch's 33 (phase 26), for the 1x1 convolution
+its 61 (phase 27). The last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -380,8 +394,8 @@ from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.models.sharpmask import generate_proposals
 from multipathnet_tpu_torch.ops import _build
 from multipathnet_tpu_torch.ops import roi as roi_ops
-from multipathnet_tpu_torch.ops import (batchnorm, lowrank, quant, roi_pool,
-                                        roi_pyramid)
+from multipathnet_tpu_torch.ops import (batchnorm, conv_bn, lowrank, quant,
+                                        roi_pool, roi_pyramid)
 from multipathnet_tpu_torch.ops.boxes import expand
 from multipathnet_tpu_torch.tools import (mesh_runs, prop_quality_scale,
                                          soak_svd_decay)
@@ -401,6 +415,7 @@ GRAD_SOURCE = "multipathnet_tpu_torch/csrc/roi_window_grad.cu"
 PROBE_SOURCE = "multipathnet_tpu_torch/csrc/window_read_probe.cu"
 HEAD_SOURCE = "multipathnet_tpu_torch/csrc/int8_head.cu"
 BN_SOURCE = "multipathnet_tpu_torch/csrc/bn_epilogue.cu"
+C1_SOURCE = "multipathnet_tpu_torch/csrc/conv1x1_bn.cu"
 PALLAS = "multipathnet_tpu/ops/roi_pallas.py"
 # the window kernels (the pools, their backward, the probe): name ->
 # (source, the TPU kernel it replaces). read_launches() and every launch
@@ -421,9 +436,10 @@ HEAD_KERNELS = {
     "int8_epilogue": (HEAD_SOURCE, None),
     "quantize_rows": (HEAD_SOURCE, None),
 }
-# the ResNet trunk's BN epilogue (ops/batchnorm.py), which replaces no TPU
-# kernel either
-BN_KERNELS = {"bn_epilogue": (BN_SOURCE, None)}
+# the ResNet trunk's BN epilogue (ops/batchnorm.py) and 1x1 convolution
+# with its BN (ops/conv_bn.py), which replace no TPU kernel either
+BN_KERNELS = {"bn_epilogue": (BN_SOURCE, None),
+              "conv1x1_bn": (C1_SOURCE, None)}
 KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS, **BN_KERNELS}
 
 
@@ -4552,31 +4568,10 @@ def bn_epilogue_bytes(shape, dtype, out_dtype, residual: bool) -> int:
             + n * size[out_dtype] + 3 * c * 4)
 
 
-def bn_epilogue_path(gen):
-    """Phase 26 (`bn_epilogue`): csrc/bn_epilogue.cu at the ResNet-101
-    serving cell's shapes. Its instances' registers, spills and blocks an
-    SM; then a ResNet-101 trunk (the cell's draw: He-normal convolutions,
-    BN scale U(0.2, 0.6), variance U(0.5, 2), mean and bias N x 0.1) on
-    8 x 640^2 under inference_mode, each of its 94 BNs recorded with the
-    inputs the trunk gives it and its output held bit for bit to the plain
-    version's; then each instance timed in turns with the plain version
-    (plain, kernel, kernel, plain; each run queued behind a device sleep,
-    queued_ms), with its byte bound. Returns {"bn_epilogue": stats} for the
-    kernels' table: ms, plain_ms and bound_ms summed over the batch's
-    instances."""
-    t_phase = time.perf_counter()
-    attrs = (ctypes.c_int * 5)()
-    for flags, what in (((1, 0, 0, 1), "bf16, ReLU (the stem)"),
-                        ((1, 1, 0, 1), "bf16, ReLU, float32 out (a "
-                                       "convolution's input)"),
-                        ((1, 0, 0, 0), "bf16 (a downsample)"),
-                        ((1, 0, 1, 1), "bf16, residual, ReLU (a block's "
-                                       "output)")):
-        rc = _build.kernels().mpn_bn_epilogue_attrs(*flags, attrs)
-        require(rc == 0, f"mpn_bn_epilogue_attrs{flags}: {rc}")
-        log(f"[bn_epilogue] {what}: {attrs[0]} registers, {attrs[1]} B "
-            f"local (spills), {attrs[2]} B static shared, {attrs[4]} blocks "
-            f"of 256 an SM")
+def resnet101_trunk(gen):
+    """A ResNet-101 trunk on the card with the serving cell's draw:
+    He-normal convolutions, BN scale U(0.2, 0.6), variance U(0.5, 2), mean
+    and bias N x 0.1, float32 parameters."""
     trunk = ResNet101(device="cuda", param_dtype=torch.float32)
     with torch.no_grad():
         for mod in trunk.modules():
@@ -4594,6 +4589,35 @@ def bn_epilogue_path(gen):
             if p.dim() == 4:
                 p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
                         * (2.0 / p[0].numel()) ** 0.5)
+    return trunk
+
+
+def bn_epilogue_path(gen):
+    """Phase 26 (`bn_epilogue`): csrc/bn_epilogue.cu at the ResNet-101
+    serving cell's shapes. Its instances' registers, spills and blocks an
+    SM; then a ResNet-101 trunk (resnet101_trunk) on 8 x 640^2 under
+    inference_mode, each of the 33 BNs that FrozenBatchNorm.forward still
+    runs (the other 61 run with their 1x1 convolution, phase 27) recorded
+    with the inputs the trunk gives it and its output held bit for bit to
+    the plain version's; then each instance timed in turns with the plain
+    version (plain, kernel, kernel, plain; each run queued behind a device
+    sleep, queued_ms), with its byte bound. Returns {"bn_epilogue": stats}
+    for the kernels' table: ms, plain_ms and bound_ms summed over the
+    batch's instances."""
+    t_phase = time.perf_counter()
+    attrs = (ctypes.c_int * 5)()
+    for flags, what in (((1, 0, 0, 1), "bf16, ReLU (the stem)"),
+                        ((1, 1, 0, 1), "bf16, ReLU, float32 out (a "
+                                       "convolution's input)"),
+                        ((1, 0, 0, 0), "bf16 (a downsample)"),
+                        ((1, 0, 1, 1), "bf16, residual, ReLU (a block's "
+                                       "output)")):
+        rc = _build.kernels().mpn_bn_epilogue_attrs(*flags, attrs)
+        require(rc == 0, f"mpn_bn_epilogue_attrs{flags}: {rc}")
+        log(f"[bn_epilogue] {what}: {attrs[0]} registers, {attrs[1]} B "
+            f"local (spills), {attrs[2]} B static shared, {attrs[4]} blocks "
+            f"of 256 an SM")
+    trunk = resnet101_trunk(gen)
     seen = []
     forward = layers.FrozenBatchNorm.forward
 
@@ -4618,12 +4642,15 @@ def bn_epilogue_path(gen):
     finally:
         layers.FrozenBatchNorm.forward = forward
     torch.cuda.synchronize()
-    launched = profiling.kernel_launches(before)["bn_epilogue"]
-    require(len(seen) == 94 and launched == 94,
-            f"{len(seen)} BNs, {launched} launches")
+    launched = profiling.kernel_launches(before)
+    passes = profiling.counters()["bn.passes"] - before.get("bn.passes", 0)
+    require(len(seen) == 33 and launched["bn_epilogue"] == 33
+            and launched["conv1x1_bn"] == 61 and passes == 94,
+            f"{len(seen)} BNs, {launched['bn_epilogue']} + "
+            f"{launched['conv1x1_bn']} launches, {passes} passes")
     require(all(f.isfinite().all() for f in feats.values()),
             "non-finite taps")
-    log(f"[bn_epilogue] 94 instances of a ResNet-101 batch at 8 x 640^2 "
+    log(f"[bn_epilogue] 33 instances of a ResNet-101 batch at 8 x 640^2 "
         f"bit for bit against the plain version")
     total = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
     shares = []
@@ -4652,7 +4679,7 @@ def bn_epilogue_path(gen):
                            ("bound_ms", b_ms)):
                 total[key] += v
     del seen, feats, trunk
-    log(f"[bn_epilogue] one batch's 94 instances: kernel {total['ms']:.3f} "
+    log(f"[bn_epilogue] one batch's 33 instances: kernel {total['ms']:.3f} "
         f"ms, bound {total['bound_ms']:.3f} ms (bytes, "
         f"{100 * total['bound_ms'] / total['ms']:.1f}%; instances "
         f"{100 * min(shares):.1f}-{100 * max(shares):.1f}%), plain "
@@ -4660,6 +4687,183 @@ def bn_epilogue_path(gen):
     log(f"[bn_epilogue] phase 26 took {time.perf_counter() - t_phase:.1f} s")
     return {"bn_epilogue": {**total, "bound_by": "bytes", "max_abs_err": 0,
                             "extra": {"min_bound_share": min(shares)}}}
+
+
+# ------------------------------------------------------------ phase 27 ---
+
+def conv1x1_bn_bound(x, cout, out_dtype, residual: bool):
+    """bound() of one fused 1x1 convolution: x (bf16) and the bf16 weight
+    read once, the output written once, the bf16 residual read where there
+    is one, the three float32 vectors; 2 x rows x C_in x C_out bf16
+    operations."""
+    b, cin, h, w = x.shape
+    rows = b * h * w
+    size = {torch.bfloat16: 2, torch.float32: 4}
+    n_bytes = (rows * cin * 2 + cout * cin * 2 + rows * cout * size[out_dtype]
+               + (rows * cout * 2 if residual else 0) + 3 * cout * 4)
+    return bound(n_bytes, 0, 2 * rows * cin * cout), n_bytes
+
+
+def bf16_steps(got, want) -> float:
+    """The largest |got - want| in bf16 steps at want's largest magnitude
+    (a sum that cancels to near zero, here or in the BN's subtraction of
+    the mean, differs by more of its own steps)."""
+    g, w = got.float(), want.float()
+    e = torch.floor(torch.log2(w.abs().max().clamp_min(2.0 ** -126)))
+    return float((g - w).abs().max() / torch.exp2(e - 7))
+
+
+def conv1x1_bn_path(gen):
+    """Phase 27 (`conv1x1_bn`): csrc/conv1x1_bn.cu at the ResNet-101
+    serving cell's shapes. Its instances' registers and spills; then a
+    ResNet-101 trunk (resnet101_trunk) on 8 x 640^2 under inference_mode,
+    each of its 61 fused convolutions recorded with the inputs the trunk
+    gives it and its output held to the plain version's (float32
+    convolution, TF32 off) within one bf16 step at its largest magnitude
+    (two where the residual's sum moves a rounding on); then each instance
+    timed in turns with the route it replaces (conv_f32's TF32
+    convolution of the float32 copies, the copies made beforehand, then
+    kernel N; queued_ms), with its bound;
+    the wrapper's host us a call against the replaced route's (one
+    stage-4 Conv_2, 200 calls each, host clock, untraced); a ResNet-101
+    Detector batch's features span, host and device ms, under
+    profiling.tracing(). Returns {"conv1x1_bn": stats} for the kernels'
+    table: ms, plain_ms and bound_ms summed over the batch's instances."""
+    t_phase = time.perf_counter()
+    attrs = (ctypes.c_int * 5)()
+    for bn in (64, 128):
+        for flags, what in (((0, 1, 1), "ReLU, float32 out (Conv_0)"),
+                            ((1, 1, 0), "residual, ReLU (Conv_2)"),
+                            ((0, 0, 0), "bf16 (a downsample)")):
+            rc = _build.kernels().mpn_conv1x1_bn_attrs(bn, *flags, attrs)
+            require(rc == 0, f"mpn_conv1x1_bn_attrs{(bn, *flags)}: {rc}")
+            log(f"[conv1x1_bn] {bn}-channel tile, {what}: {attrs[0]} "
+                f"registers, {attrs[1]} B local (spills), {attrs[3]} B "
+                f"dynamic shared, {attrs[4]} threads")
+    trunk = resnet101_trunk(gen)
+    seen = []
+    fused = conv_bn.conv1x1_bn
+
+    def record(x, w, mean, mul, bias, **epi):
+        got = fused(x, w, mean, mul, bias, **epi)
+        want = conv_bn.conv1x1_bn_ref(x, w, mean, mul, bias, **epi)
+        steps = bf16_steps(got, want)
+        share = float((got != want).float().mean())
+        require(steps <= (1 if epi.get("residual") is None else 2),
+                f"the fused 1x1 convolution at instance {len(seen)} "
+                f"{tuple(x.shape)} -> {w.shape[0]} is {steps} bf16 steps "
+                f"from its plain version")
+        seen.append((x, w, (mean, mul, bias), epi, steps, share))
+        return got
+
+    convs = {}
+    conv_bn_call = layers.conv_bn
+
+    def remember(mod, bn, x, dtype, **epi):
+        if layers.takes_conv1x1_bn(mod, x, dtype):
+            convs[len(convs)] = mod
+        return conv_bn_call(mod, bn, x, dtype, **epi)
+
+    before = profiling.counters()
+    conv_bn.conv1x1_bn, layers.conv_bn = record, remember
+    try:
+        with torch.inference_mode():
+            feats = trunk(torch.randn((8, 640, 640, 3), generator=gen,
+                                      device="cuda"))
+    finally:
+        conv_bn.conv1x1_bn, layers.conv_bn = fused, conv_bn_call
+    torch.cuda.synchronize()
+    launched = profiling.kernel_launches(before)
+    require(len(seen) == len(convs) == 61
+            and launched["conv1x1_bn"] == 61
+            and launched["bn_epilogue"] == 33,
+            f"{len(seen)} fused convolutions, launches {launched}")
+    require(all(f.isfinite().all() for f in feats.values()),
+            "non-finite taps")
+    max_steps = max(s[4] for s in seen)
+    max_share = max(s[5] for s in seen)
+    log(f"[conv1x1_bn] 61 instances of a ResNet-101 batch at 8 x 640^2 "
+        f"against the plain version (TF32 off): at most {max_steps:.2f} "
+        f"bf16 steps at an instance's largest magnitude, "
+        f"{100 * max_share:.3f}% of an instance's outputs differ at most")
+    total = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    shares = []
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        for i, (x, w, vec, epi, _, _) in enumerate(seen):
+            mod = convs[i]
+            xw = x.float()
+            out_dtype = epi.get("out_dtype") or bf16
+            res = epi.get("residual")
+            ms, plain_ms = alternate_ms(
+                lambda: batchnorm.bn_epilogue(
+                    layers.conv_f32(mod, xw, bf16), *vec, bf16, **epi),
+                lambda: conv_bn.conv1x1_bn(x, w, *vec, **epi),
+                3, 20, queued_ms)
+            (b_ms, by), n_bytes = conv1x1_bn_bound(x, w.shape[0], out_dtype,
+                                                   res is not None)
+            shares.append(b_ms / ms)
+            log(f"[conv1x1_bn] {i:2d} {tuple(x.shape)} -> {w.shape[0]} "
+                f"{'relu ' if epi.get('relu') else ''}"
+                f"{'residual ' if res is not None else ''}-> {out_dtype}: "
+                f"kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its bound "
+                f"{b_ms:.4f} ms by {by}, {n_bytes / 1e6:.1f} MB), replaced "
+                f"route {plain_ms:.4f} ms")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms)):
+                total[key] += v
+            del xw
+        # the host's cost a call, untraced: the last stage-4 Conv_2
+        x, w, vec, epi, _, _ = seen[-1]
+        mod, xw = convs[len(seen) - 1], x.float()
+        host_us = {}
+        for name, fn in (
+                ("kernel", lambda: conv_bn.conv1x1_bn(x, w, *vec, **epi)),
+                ("replaced", lambda: batchnorm.bn_epilogue(layers.conv_f32(
+                    mod, xw, bf16), *vec, bf16, **epi))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    del seen, convs, feats, trunk, x, xw
+    log(f"[conv1x1_bn] one batch's 61 instances: kernel {total['ms']:.3f} "
+        f"ms, bound {total['bound_ms']:.3f} ms "
+        f"({100 * total['bound_ms'] / total['ms']:.1f}%; instances "
+        f"{100 * min(shares):.1f}-{100 * max(shares):.1f}%), replaced route "
+        f"{total['plain_ms']:.3f} ms")
+    log(f"[conv1x1_bn] host us a call (a stage-4 Conv_2, untraced): kernel "
+        f"wrapper {host_us['kernel']:.1f}, replaced route (weight cast, "
+        f"TF32 convolution, kernel N) {host_us['replaced']:.1f}")
+    torch.cuda.empty_cache()
+    det, _ = bench.build_preset("multipath_resnet101_int8_svd", BENCH_ARGS,
+                                torch.device("cuda"))
+    inputs = make_inputs(8, 1000, 640)
+    det(*inputs)
+    torch.cuda.synchronize()
+    profiling.clear_records()
+    with profiling.tracing():
+        det(*inputs)
+    feat = [r for r in profiling.walk(profiling.records()[0])
+            if r["name"] == "features"]
+    require(len(feat) == 1, f"{len(feat)} features spans")
+    f = feat[0]
+    log(f"[conv1x1_bn] a ResNet-101 Detector batch's features span (traced): "
+        f"host {(f['end_ns'] - f['start_ns']) / 1e6:.2f} ms, device "
+        f"{f['device_ms']:.2f} ms")
+    del det
+    log(f"[conv1x1_bn] phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return {"conv1x1_bn": {**total, "bound_by": "bytes",
+                           "max_abs_err": None,
+                           "extra": {"min_bound_share": min(shares),
+                                     "max_bf16_steps": max_steps,
+                                     "max_differing_share": max_share,
+                                     "host_us": host_us["kernel"],
+                                     "replaced_host_us":
+                                         host_us["replaced"]}}}
 
 
 def split_paths():
@@ -4773,6 +4977,8 @@ def main() -> None:
     stats.update(int8_head_path(gen))
     torch.cuda.empty_cache()
     stats.update(bn_epilogue_path(gen))
+    torch.cuda.empty_cache()
+    stats.update(conv1x1_bn_path(gen))
     log(f"[summary] config 5 end to end {sm_e2e['ips']:.2f} img/s "
         f"({sm_e2e['e2e_ms']:.2f} ms/batch: generation with masks "
         f"{sm_e2e['gen_ms']:.2f}, without {sm_e2e['gen_nomask_ms']:.2f}, "

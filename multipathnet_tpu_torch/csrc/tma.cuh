@@ -1,8 +1,10 @@
 // What the TMA bodies share (roi_window_pool_wgmma.cu: the bf16 pool,
-// window_read_probe.cu: the window-read probe): shared-memory barriers
-// (mbarrier), named barriers, L2 cache policies, the 3-D tensor-map load and
-// the host's lookup of cuTensorMapEncodeTiled through the runtime's
-// driver-entry-point query, so the library links no libcuda.
+// window_read_probe.cu: the window-read probe, conv1x1_bn.cu: the ResNet
+// 1x1 convolution): shared-memory barriers (mbarrier), named barriers, L2
+// cache policies, the 2-D and 3-D tensor-map loads, the 2-D tensor-map
+// store and its bulk-group waits, and the host's lookup of
+// cuTensorMapEncodeTiled through the CUDA runtime's entry-point query, so
+// the library links no libcuda.
 
 #pragma once
 
@@ -90,6 +92,44 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
       "r"(x), "r"(row), "l"(policy)
       : "memory");
+}
+
+// one box of a 2-D tensor map at (c, row) into shared memory, completing on
+// `bar` by its bytes (a box that reaches past the tensor is zero-filled and
+// still counts its whole bytes)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(row)
+      : "memory");
+}
+
+// one box of shared memory out to a 2-D tensor map at (c, row), in the
+// thread's current bulk group (elements past the tensor are not written)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// the thread's bulk groups have finished reading their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// the thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

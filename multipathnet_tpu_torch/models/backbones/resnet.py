@@ -12,7 +12,11 @@ and the ReLU after it too (FrozenBatchNorm.forward; one kernel on the
 card when serving), so a block computes its downsample before its last
 convolution, whose residual it is. A BN output that only a convolution
 reads comes back widened to float32, the copy that convolution would
-otherwise make.
+otherwise make. Serving a bf16 trunk on the card, each stride-1 1x1
+convolution with channels in multiples of 64 runs with its BN as one
+kernel on bf16 operands (layers.conv_bn, csrc/conv1x1_bn.cu: a
+bottleneck's Conv_0 and Conv_2 and a stride-1 downsample), which reads
+the block input and Conv_1's BN output in bf16, unwidened.
 
 Padding is explicit, as in the reference: every 3x3 convolution (the
 stride-2 ones too) pads (1, 1), the 1x1 downsample pads nothing, the stem
@@ -49,18 +53,25 @@ class _Block(nn.Module):
     def _conv_bn(self, k: int, x: torch.Tensor, **epilogue) -> torch.Tensor:
         """Conv_k, then BatchNorm_k on its float32 sum, in self.dtype, with
         what follows it (FrozenBatchNorm.forward's relu, residual and
-        out_dtype)."""
-        conv = getattr(self, f"Conv_{k}")
-        return getattr(self, f"BatchNorm_{k}")(
-            layers.conv_f32(conv, x, self.dtype), self.dtype, **epilogue)
+        out_dtype): one kernel where layers.takes_conv1x1_bn holds."""
+        return layers.conv_bn(getattr(self, f"Conv_{k}"),
+                              getattr(self, f"BatchNorm_{k}"), x,
+                              self.dtype, **epilogue)
 
-    @staticmethod
-    def _conv_input(x: torch.Tensor) -> torch.Tensor:
-        """The block input as its convolutions read it: widened to float32
-        once, for Conv_0 and the downsample both, where no gradient is
-        recorded. With one, each convolution widens its own copy, so that
-        their gradients meet in the compute dtype as they always have."""
-        return x if torch.is_grad_enabled() else x.float()
+    def _fused(self, k: int, x: torch.Tensor) -> bool:
+        return layers.takes_conv1x1_bn(getattr(self, f"Conv_{k}"), x,
+                                       self.dtype)
+
+    def _conv_input(self, x: torch.Tensor, *ks: int) -> torch.Tensor:
+        """The block input as its convolutions Conv_k, k in ks, read it:
+        widened to float32 once, for all of them, where no gradient is
+        recorded and none takes the fused 1x1 kernel (which reads bf16).
+        Otherwise as it is: each convolution through conv_f32 widens its
+        own copy, so that with a gradient the gradients meet in the
+        compute dtype as they always have."""
+        if torch.is_grad_enabled() or any(self._fused(k, x) for k in ks):
+            return x
+        return x.float()
 
 
 class BasicBlock(_Block):
@@ -81,7 +92,7 @@ class BasicBlock(_Block):
             self.BatchNorm_2 = layers.FrozenBatchNorm(filters, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xin = self._conv_input(x)
+        xin = self._conv_input(x, 0, *((2,) if self.down else ()))
         y = self._conv_bn(0, xin, relu=True, out_dtype=torch.float32)
         r = self._conv_bn(2, xin) if self.down else x
         return self._conv_bn(1, y, relu=True, residual=r)
@@ -108,9 +119,11 @@ class BottleneckBlock(_Block):
             self.BatchNorm_3 = layers.FrozenBatchNorm(out, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xin = self._conv_input(x)
+        xin = self._conv_input(x, 0, *((3,) if self.down else ()))
         y = self._conv_bn(0, xin, relu=True, out_dtype=torch.float32)
-        y = self._conv_bn(1, y, relu=True, out_dtype=torch.float32)
+        # Conv_2 reads bf16 where it is fused, float32 otherwise
+        y = self._conv_bn(1, y, relu=True, out_dtype=None if self._fused(
+            2, y) else torch.float32)
         r = self._conv_bn(3, xin) if self.down else x
         return self._conv_bn(2, y, relu=True, residual=r)
 

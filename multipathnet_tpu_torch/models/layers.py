@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multipathnet_tpu_torch.ops import batchnorm
+from multipathnet_tpu_torch.ops import batchnorm, conv_bn as conv_bn_ops
 from multipathnet_tpu_torch.utils import profiling
 
 
@@ -61,6 +61,69 @@ def conv_f32(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def fused_conv1x1(mod: nn.Conv2d, dtype) -> bool:
+    """Whether mod, followed by a FrozenBatchNorm, has the shape and dtype
+    that csrc/conv1x1_bn.cu takes: a bias-free, ungrouped 1x1 convolution
+    of stride 1 without padding, computed in bf16, its input and output
+    channels multiples of the kernel's 64. (A ResNet-101 trunk's 30
+    Conv_0, 30 Conv_2 and stage 2's downsample; not the stride-2
+    downsamples, whose rows a tile could not take as one box.)"""
+    return (mod.kernel_size == (1, 1) and mod.stride == (1, 1)
+            and mod.padding == (0, 0) and mod.dilation == (1, 1)
+            and mod.groups == 1 and mod.bias is None
+            and dtype == torch.bfloat16
+            and mod.in_channels % conv_bn_ops.CHANNELS == 0
+            and mod.out_channels % conv_bn_ops.CHANNELS == 0)
+
+
+def takes_conv1x1_bn(mod: nn.Conv2d, x: torch.Tensor, dtype) -> bool:
+    """Whether conv_bn runs mod and its BN on x as one launch of
+    csrc/conv1x1_bn.cu: x on the card, no gradient recorded, and mod as
+    fused_conv1x1 takes it."""
+    return (not torch.is_grad_enabled() and x.is_cuda
+            and fused_conv1x1(mod, dtype))
+
+
+def tensor_state(*ts) -> tuple | None:
+    """What a cache computed from the tensors ts keys on: each one's id,
+    storage and version; None for inference tensors, which keep no
+    version (a cache then computes again every time). The cache holds the
+    tensors themselves, so their ids stay theirs."""
+    try:
+        return tuple([(id(t), t.data_ptr(), t._version) for t in ts])
+    except RuntimeError:   # an inference tensor
+        return None
+
+
+def packed_weight(mod: nn.Conv2d) -> torch.Tensor:
+    """mod's 1x1 weight as csrc/conv1x1_bn.cu reads it: bf16 (C_out, C_in),
+    contiguous (a view of a bf16 weight, else its cast), computed again
+    whenever the weight's tensor_state changes."""
+    w = mod._parameters["weight"]
+    state = tensor_state(w)
+    cached = mod.__dict__.get("_packed_weight")
+    if state is None or cached is None or cached[1] != state:
+        packed = w.detach().to(torch.bfloat16).reshape(
+            w.shape[0], w.shape[1]).contiguous()
+        cached = mod.__dict__["_packed_weight"] = (w, state, packed)
+    return cached[2]
+
+
+def conv_bn(mod: nn.Conv2d, bn: "FrozenBatchNorm", x: torch.Tensor, dtype,
+            **epilogue) -> torch.Tensor:
+    """mod's bias-free convolution of the NCHW x, then bn on its float32
+    sum in dtype with what follows it (FrozenBatchNorm.forward's relu,
+    residual and out_dtype). Where takes_conv1x1_bn holds (serving a bf16
+    trunk on the card) the two are one launch of csrc/conv1x1_bn.cu on the
+    bf16 x (ops/conv_bn.conv1x1_bn), which counts bn.passes as the BN
+    does; elsewhere conv_f32 and bn."""
+    if takes_conv1x1_bn(mod, x, dtype):
+        profiling.count("bn.passes")
+        return conv_bn_ops.conv1x1_bn(x, packed_weight(mod), *bn.affine(),
+                                      **epilogue)
+    return bn(conv_f32(mod, x, dtype), dtype, **epilogue)
+
+
 def linear(mod: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """mod's linear map of x, computed in dtype, then its bias added in
     dtype."""
@@ -91,8 +154,9 @@ class FrozenBatchNorm(nn.Module):
     and statistics are unchanged; elsewhere (training, where scale and
     bias train, and the CPU) the plain ops.
 
-    Each forward adds one to the counter bn.passes (utils/profiling): 94
-    a ResNet-101 trunk's forward, 0 for VGG-16."""
+    Each forward adds one to the counter bn.passes (utils/profiling), as
+    conv_bn does for a BN it runs with its convolution: 94 a ResNet-101
+    trunk's forward, 0 for VGG-16."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -109,18 +173,12 @@ class FrozenBatchNorm(nn.Module):
         return torch.rsqrt(self.running_var + self.eps) * self.weight
 
     def affine(self) -> tuple:
-        """(mean, mul, bias) as the kernel reads them: rows of one (3, C)
-        float32 tensor, computed again whenever a parameter or statistic
-        is another tensor, or has other storage or another version, than
-        when they were last computed (every time for inference tensors,
-        which keep no version). The cache holds the tensors it was
-        computed from, so their ids stay theirs."""
+        """(mean, mul, bias) as the kernels read them: rows of one (3, C)
+        float32 tensor, computed again whenever the tensor_state of a
+        parameter or statistic changes."""
         b, p = self._buffers, self._parameters
         ts = (b["running_mean"], b["running_var"], p["weight"], p["bias"])
-        try:
-            state = tuple((id(t), t.data_ptr(), t._version) for t in ts)
-        except RuntimeError:   # an inference tensor
-            state = None
+        state = tensor_state(*ts)
         cached = self._affine
         if state is None or cached is None or cached[1] != (state, self.eps):
             rows = torch.stack([ts[0], self.mul(), ts[3]]).unbind(0)

@@ -7,8 +7,9 @@ use, into build/kernels/<hash>/ at the repository root (listed in
 source rebuilds and an unchanged one loads what is there. The library is
 bound with ctypes: every pointer and the stream pass as c_void_p, every
 size as c_int, and each entry point returns the cudaError_t of its launch.
-The bf16 pool body and the probe encode their TMA tensor maps through the runtime's
-cudaGetDriverEntryPoint, so the link line names no driver library.
+The bf16 pool body, the probe and the 1x1 convolution encode their TMA
+tensor maps through the CUDA runtime's entry-point query, so the link
+line names no libcuda.
 
 Nothing is compiled or loaded when this module is imported; CPU-only hosts
 never reach `kernels()`.
@@ -29,14 +30,15 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("roi_window_pool.cu", "roi_window_pool_wgmma.cu",
            "roi_window_grad.cu", "window_read_probe.cu", "int8_head.cu",
-           "bn_epilogue.cu")
+           "bn_epilogue.cu", "conv1x1_bn.cu")
 HEADERS = ("roi_window_pool.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (csrc/roi_window_pool.cu, csrc/roi_window_grad.cu,
-# csrc/window_read_probe.cu, csrc/int8_head.cu, csrc/bn_epilogue.cu)
+# csrc/window_read_probe.cu, csrc/int8_head.cu, csrc/bn_epilogue.cu,
+# csrc/conv1x1_bn.cu)
 _SIGNATURES = {
     "mpn_window_pool_multi": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -58,6 +60,8 @@ _SIGNATURES = {
     "mpn_int8_head_attrs": [_I, _I, _P],
     "mpn_bn_epilogue": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_bn_epilogue_attrs": [_I, _I, _I, _I, _P],
+    "mpn_conv1x1_bn": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mpn_conv1x1_bn_attrs": [_I, _I, _I, _I, _P],
 }
 
 # entry points that return a size rather than a cudaError_t

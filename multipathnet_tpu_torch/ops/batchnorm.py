@@ -14,6 +14,8 @@ launches.bn_epilogue (utils/profiling.kernel_launches).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -101,13 +103,15 @@ def bn_epilogue(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
         return out
     from multipathnet_tpu_torch.ops import _build
 
-    with torch.cuda.device(dev):
+    d = dev.index   # no device context where it is current: host time
+    with contextlib.nullcontext() if d == torch.cuda.current_device() \
+            else torch.cuda.device(d):
         rc = _build.kernels().mpn_bn_epilogue(
             int(dtype == torch.bfloat16), int(out_dtype == torch.float32),
             int(relu), b * h * w, c, x.data_ptr(), mean.data_ptr(),
             mul.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), torch._C._cuda_getCurrentRawStream(d))
     if rc != 0:
         raise RuntimeError(f"bn_epilogue launch failed: cudaError {rc}")
     profiling.count("launches.bn_epilogue")

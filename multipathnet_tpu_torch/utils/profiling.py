@@ -135,7 +135,8 @@ def debug_nans(enable: bool = True):
 # the root). Names:
 #   sync.<site>  blocking waits of the host on the card (CUDA only)
 #   nms.rounds   rounds of ops/nms.nms_sorted's fixpoint
-#   bn.passes    forwards of models/layers.FrozenBatchNorm
+#   bn.passes    frozen-BN passes: forwards of models/layers.FrozenBatchNorm
+#                and the BNs layers.conv_bn runs with their 1x1 convolution
 #   h2d.bytes    bytes put on the program's device from host arrays
 #   d2h.bytes    bytes of results copied back to the host
 #   launches.<kernel>  launches of a hand-written kernel, counted at its

@@ -14,9 +14,12 @@ NaN, infinities, -0 and bf16 rounding ties included. Bits are compared
 as integers (`_same`), since torch.equal is false on any NaN.
 
 The `cuda` tests hold the kernel to the plain version on the card: at
-every one of the 94 instances of a ResNet-101 batch at 8 x 640^2, on the
-special values, the served c3/c4/c5 against the plain route in one
-process, and the launch counter. They skip where
+every instance of a ResNet-101 batch at 8 x 640^2 that it still runs (33:
+the stem, the 3x3 convolutions and the stride-2 downsamples; the other 61
+BNs run with their 1x1 convolution in csrc/conv1x1_bn.cu,
+tests/test_torch_conv1x1_bn.py), on the special values, the served
+c3/c4/c5 against the plain route in one process, and the launch
+counters. They skip where
 torch.cuda.is_available() is false (decided inside the fixture, never at
 import). On a GPU machine:
     python -m pytest tests/test_torch_bn_epilogue.py --noconftest -m cuda -q
@@ -428,9 +431,12 @@ def test_kernel_equals_plain_version_on_special_values(
 @pytest.mark.cuda
 def test_kernel_equals_plain_version_at_every_resnet101_instance(
         cuda, monkeypatch):
-    """Each of the 94 BNs of a ResNet-101 trunk's batch at the serving
-    cell's 8 x 640^2, on the inputs the trunk gives it: the kernel's
-    output against the plain version's, bit for bit."""
+    """Each BN of a ResNet-101 trunk's batch at the serving cell's 8 x
+    640^2 that runs through FrozenBatchNorm.forward (33: the stem, the 30
+    3x3 convolutions and the 2 stride-2 downsamples; the other 61 run
+    with their 1x1 convolution as one kernel), on the inputs the trunk
+    gives it: the kernel's output against the plain version's, bit for
+    bit."""
     model = _draw_(ResNet101(device="cpu", param_dtype=F32), seed=6).to(
         cuda)
     forward = layers.FrozenBatchNorm.forward
@@ -452,11 +458,26 @@ def test_kernel_equals_plain_version_at_every_resnet101_instance(
     with torch.inference_mode():
         feats = model(x)
     torch.cuda.synchronize()
-    assert len(seen) == 94
-    assert profiling.kernel_launches(before)["bn_epilogue"] == 94
+    launched = profiling.kernel_launches(before)
+    assert len(seen) == 33
+    assert launched["bn_epilogue"] == 33 and launched["conv1x1_bn"] == 61
+    passes = profiling.counters()["bn.passes"] - before.get("bn.passes", 0)
+    assert passes == 94
     assert [s for s in seen if not s[2]] == []
     assert all(f.isfinite().all() and f.float().std() > 1e-2
                for f in feats.values())
+
+
+# the bf16 steps at a level's largest magnitude that the served maps may
+# differ by from the plain route, and the share of values that may differ
+# at all: 61 of ResNet-101's convolutions sum in another order on the
+# kernel's route (csrc/conv1x1_bn.cu), and a moved rounding carries on
+# through the 3x3 convolutions and the residual sums, as against the JAX
+# package (tests/test_torch_backbones.py::_BF16_STEPS: 1 step, 4 at
+# ResNet-101's c5). Read on an NVIDIA H100, two draws: 1 / 1 / 1.5-2
+# steps, shares 0.09-0.14% / 7.7-9.5% / 67.4-69.9%.
+SERVED_STEPS = {"c3": 1, "c4": 1, "c5": 4}
+SERVED_SHARE = {"c3": 0.003, "c4": 0.15, "c5": 0.8}
 
 
 @pytest.mark.cuda
@@ -464,8 +485,12 @@ def test_kernel_equals_plain_version_at_every_resnet101_instance(
                                         ("resnet18", F32)])
 def test_served_maps_equal_the_plain_route(cuda, name, dtype):
     """The model's reduced c3/c4/c5 (features) under inference_mode, the
-    kernel route, against the same model with a gradient recorded, the
-    plain route, in one process, bit for bit."""
+    kernels' route, against the same model with a gradient recorded, the
+    plain route, in one process: bit for bit where no 1x1 convolution
+    takes csrc/conv1x1_bn.cu (ResNet-18 in float32); for the bf16
+    ResNet-101, whose 61 fused convolutions sum in another order, within
+    SERVED_STEPS bf16 steps at each level's largest magnitude, the share
+    that differs at most SERVED_SHARE."""
     cfg = preset("multipath_resnet101_int8_svd")
     model = _draw_(build_model(dataclasses.replace(
         cfg.model, backbone=name, dtype="bfloat16" if dtype == BF16
@@ -475,23 +500,37 @@ def test_served_maps_equal_the_plain_route(cuda, name, dtype):
     before = profiling.counters()
     with torch.inference_mode():
         got = model.features(x)
-    assert profiling.kernel_launches(before)["bn_epilogue"] > 0
+    launched = profiling.kernel_launches(before)
+    assert launched["bn_epilogue"] > 0
+    assert (launched["conv1x1_bn"] > 0) == (name == "resnet101")
     before = profiling.counters()
     with torch.enable_grad():
         want = model.features(x)
-    assert profiling.kernel_launches(before)["bn_epilogue"] == 0
+    launched = profiling.kernel_launches(before)
+    assert launched["bn_epilogue"] == launched["conv1x1_bn"] == 0
     assert got.keys() == want.keys() == {"c3", "c4", "c5"}
     for k in want:
-        assert _same(got[k], want[k].detach()), k
+        if name != "resnet101":
+            assert _same(got[k], want[k].detach()), k
+            continue
+        g, w = got[k].float(), want[k].detach().float()
+        scale = float(w.abs().max())
+        step = 2.0 ** (torch.floor(torch.log2(torch.tensor(scale))) - 7)
+        diff = float((g - w).abs().max())
+        share = float((g != w).float().mean())
+        assert diff <= SERVED_STEPS[k] * float(step), (k, diff, scale)
+        assert share <= SERVED_SHARE[k], (k, share)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backbone,passes", [("resnet101", 94),
-                                             ("resnet18", 15),
-                                             ("vgg16", 0)])
-def test_a_detector_batch_launches_one_kernel_a_bn(cuda, backbone, passes):
-    """launches.bn_epilogue and bn.passes over one Detector call on the
-    card: one launch a BN (94 for ResNet-101, 0 for VGG-16)."""
+@pytest.mark.parametrize("backbone,passes,epilogues,fused", [
+    ("resnet101", 94, 33, 61), ("resnet18", 15, 15, 0), ("vgg16", 0, 0, 0)])
+def test_a_detector_batch_launches_one_kernel_a_bn(cuda, backbone, passes,
+                                                   epilogues, fused):
+    """launches.bn_epilogue, launches.conv1x1_bn and bn.passes over one
+    Detector call on the card: one launch a BN, of one kernel or the
+    other (ResNet-101: 61 BNs with their 1x1 convolution, 33 alone; 0 for
+    VGG-16)."""
     cfg = preset("multipath_resnet101_int8_svd")
     cfg = cfg.replace(
         model=dataclasses.replace(cfg.model, backbone=backbone),
@@ -510,5 +549,6 @@ def test_a_detector_batch_launches_one_kernel_a_bn(cuda, backbone, passes):
     before = profiling.counters()
     det(images, hws, props, mask)
     after = profiling.counters()
-    for name in ("launches.bn_epilogue", "bn.passes"):
-        assert after[name] - before.get(name, 0) == passes, name
+    for name, n in (("launches.bn_epilogue", epilogues),
+                    ("launches.conv1x1_bn", fused), ("bn.passes", passes)):
+        assert after[name] - before.get(name, 0) == n, name

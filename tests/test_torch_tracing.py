@@ -413,7 +413,7 @@ def test_pool_backward_checks_its_windows_before_its_span(monkeypatch,
 KERNELS = {"window_pool_multi", "window_pool_multi_quant", "resident_pool",
            "resident_pool_quant", "window_pool", "window_grad",
            "window_rmw_grad", "placements", "int8_epilogue", "quantize_rows",
-           "bn_epilogue", "window_read_probe"}
+           "bn_epilogue", "conv1x1_bn", "window_read_probe"}
 
 
 @pytest.fixture
@@ -428,7 +428,7 @@ def test_a_launch_is_a_counter_and_no_attribute(own_counters):
     """Every kernel's launch counter is listed at 0 from import on, and
     kernel_launches() reads them by kernel, less an earlier snapshot; no
     wrapper or module keeps a count of its own."""
-    from multipathnet_tpu_torch.ops import batchnorm, quant
+    from multipathnet_tpu_torch.ops import batchnorm, conv_bn, quant
     from multipathnet_tpu_torch.tools import probe_int8_window_dma as probe
 
     assert set(profiling.kernel_launches()) == KERNELS
@@ -445,9 +445,10 @@ def test_a_launch_is_a_counter_and_no_attribute(own_counters):
                roi_pool.window_pool, roi_pool.window_grad,
                roi_pool.window_rmw_grad, roi_pool.place_windows_per_image,
                quant.int8_epilogue, quant.quantize_rows_padded,
-               batchnorm.bn_epilogue, probe.window_read_probe):
+               batchnorm.bn_epilogue, conv_bn.conv1x1_bn,
+               probe.window_read_probe):
         assert vars(fn) == {}, fn.__name__
-    for mod in (roi_pool, quant, batchnorm, probe):
+    for mod in (roi_pool, quant, batchnorm, conv_bn, probe):
         assert not [k for k in vars(mod) if "count" in k], mod.__name__
     assert {k for k in vars(profiling) if "count" in k or "source" in k} == {
         "_counts", "count", "count_sync", "counters"}
