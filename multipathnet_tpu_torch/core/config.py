@@ -227,6 +227,13 @@ def preset(name: str) -> Config:
     elif name == "multipath_vgg16_train":
         # config 4: integral-loss fine-tuning, data-parallel over the TPU mesh
         pass
+    elif name == "multipath_resnet101_train":
+        # config 4's fine-tuning on the ResNet-101 trunk (conv1-conv4_x):
+        # the stem and conv2_x frozen (Detectron's FREEZE_AT 2), BN
+        # statistics frozen, BN scale and bias training in conv3_x and
+        # conv4_x. The port's own preset: the JAX package has none of this
+        # name.
+        c = _replace(c, "model", backbone="resnet101")
     elif name == "sharpmask_multipath_e2e":
         # config 5: SharpMask proposal generation -> MultiPath detection, ResNet
         c = _replace(c, "model", backbone="resnet50")
@@ -270,4 +277,5 @@ PRESETS = (
     "multipath_resnet18_integral",
     "sharpmask_multipath_e2e",
     "multipath_resnet101_int8_svd",
+    "multipath_resnet101_train",
 )

@@ -31,10 +31,17 @@ stop_gradient.
 `forward` opens the spans features.stem (the stem convolution, its BN and
 the max-pool) and features.stage2..4 (each stage's blocks), inside the
 model's features span (utils/profiling), so that a trace tells the
-stages' device time apart.
+stages' device time apart. A traced forward that records a gradient also
+puts a span features.stageN.backward around each training stage's
+backward (`_BackwardSpans`), opened and closed by autograd hooks on
+autograd's thread, where train.backward adopts them. Inside a step of
+`StageGraphs` (which train/loop.Trainer opens on the card) a training
+stage runs as CUDA graphs of its forward and backward.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +135,133 @@ class BottleneckBlock(_Block):
         return self._conv_bn(2, y, relu=True, residual=r)
 
 
+class _BackwardSpans:
+    """The spans features.stageN.backward of one traced forward's
+    backward, opened and closed by autograd hooks in the order autograd
+    runs the stages (the last stage first), so at most one is open.
+
+    A stage's span opens when its output's gradient is whole (a hook on
+    the output, which fires before the stage's first backward node), and
+    the span of the stage above closes there too, since its backward ends
+    in that gradient. The lowest training stage's span closes where its
+    input's gradient is whole, or, where its input carries no gradient
+    (the stage above a frozen one, whose output is detached), once
+    autograd has computed the gradient of each of the stage's parameters:
+    the last of them comes from its first convolution, the last node of
+    its backward. That hook sits on the parameters themselves, which keep
+    it from one backward to the next, so it removes itself when it fires,
+    and a forward whose backward never ran has it removed by `remove`."""
+
+    def __init__(self):
+        self.open = None
+        self.handle = None
+
+    def _turn(self, name):
+        def hook(grad):
+            if self.open is not None:
+                self.open.__exit__(None, None, None)
+            self.open = None if name is None else profiling.span(name)
+            if self.open is not None:
+                self.open.__enter__()
+        return hook
+
+    def stage(self, name: str, x_in: torch.Tensor, x_out: torch.Tensor,
+              params: list, lowest: bool) -> None:
+        """Hooks stage `name`'s span between x_out's gradient and, for the
+        lowest training stage, x_in's or its parameters' gradients."""
+        if not x_out.requires_grad:
+            return
+        if lowest and x_in.requires_grad:
+            x_in.register_hook(self._turn(None))
+        elif lowest:
+            close = self._turn(None)
+
+            def closed(grads):
+                self.remove()
+                close(None)
+            self.handle = torch.autograd.graph.register_multi_grad_hook(
+                params, closed)
+        x_out.register_hook(self._turn(name + ".backward"))
+
+    def remove(self) -> None:
+        if self.handle is not None:
+            self.handle.remove()
+            self.handle = None
+
+
+class StageGraphs:
+    """CUDA graphs of a ResNet trunk's training stages. Inside `step()`
+    each stage whose parameters take gradients runs, under grad mode, as
+    one graph of its forward and one of its backward
+    (torch.cuda.make_graphed_callables), captured at its first call for
+    the input's shape, dtype and requires_grad and cuDNN's settings
+    (deterministic, benchmark, allow_tf32): a setting changed between
+    steps captures anew, so a replay runs what an eager call would. Under
+    a gradient every convolution and BatchNorm runs in plain ops
+    (conv_f32, FrozenBatchNorm), most of a ResNet-101 training step's
+    3,600 launches, which leave it at the host's pace; a replay runs the
+    same kernels on the same inputs (bit for bit under
+    cudnn.deterministic) and no Python of the blocks, so it counts no
+    bn.passes.
+
+    What a graph asks of the step, which train/loop.make_train_step
+    keeps (one forward, then its backward):
+    - a stage runs once in a step, and its backward runs before the step
+      ends: a replay's outputs and saved activations are the graph's
+      buffers, which its next replay writes over. A second forward of a
+      stage in one step raises.
+    - the parameters keep their storage (the optimizer and
+      load_state_dict write in place): a stage whose parameters moved to
+      other storage has its captures dropped and captured anew.
+    A stage holds at most LIMIT captures, each with a memory pool of its
+    own; beyond them it runs eagerly."""
+
+    LIMIT = 4
+
+    def __init__(self, trunk: "ResNet"):
+        self.trunk = trunk
+        self.captures = {}    # stage index -> {key: graphed callable}
+        self.storage = {}     # stage index -> its parameters' data_ptrs
+        self.ran = None       # the stages run in the open step
+
+    @contextlib.contextmanager
+    def step(self):
+        """One forward of the trunk and its backward run as graphs."""
+        self.trunk._graphs, self.ran = self, set()
+        try:
+            yield
+        finally:
+            self.trunk._graphs, self.ran = None, None
+
+    def __call__(self, si: int, blocks: list, x: torch.Tensor):
+        """Stage si's output from its graph; None where it runs eagerly
+        (no gradient recorded, a frozen stage, or LIMIT captures)."""
+        params = [p for b in blocks for p in b.parameters()]
+        if not torch.is_grad_enabled() or not any(p.requires_grad
+                                                  for p in params):
+            return None
+        if si in self.ran:
+            raise RuntimeError(
+                f"stage {si + 2} of a graphed trunk ran twice in one step: "
+                f"the second forward would overwrite the first's buffers "
+                f"before its backward")
+        self.ran.add(si)
+        ptrs = tuple(p.data_ptr() for p in params)
+        if self.storage.get(si) != ptrs:
+            self.captures[si], self.storage[si] = {}, ptrs
+        cudnn = torch.backends.cudnn
+        key = (tuple(x.shape), x.dtype, x.requires_grad, cudnn.deterministic,
+               cudnn.benchmark, cudnn.allow_tf32)
+        stage = self.captures[si]
+        if key not in stage:
+            if len(stage) >= self.LIMIT:
+                return None
+            sample = x.detach().clone().requires_grad_(x.requires_grad)
+            stage[key] = torch.cuda.make_graphed_callables(
+                nn.Sequential(*blocks), (sample,))
+        return stage[key](x)
+
+
 class ResNet(nn.Module):
     feature_strides = {"c3": 4, "c4": 8, "c5": 16}
 
@@ -138,6 +272,8 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.freeze_stages = freeze_stages
         self.stage_sizes = tuple(stage_sizes)
+        self._backward_spans = None   # the last traced forward's
+        self._graphs = None           # the StageGraphs of an open step
         self.stem = _conv(3, 64, 7, 2, 3, device, param_dtype or dtype)
         self.stem_bn = layers.FrozenBatchNorm(64, device=device)
         cin, filters = 64, 64
@@ -173,11 +309,30 @@ class ResNet(nn.Module):
             x = F.max_pool2d(x, 3, 2, padding=1)  # -inf padding, /4
         if self.freeze_stages >= 1:
             x = x.detach()
+        back = None
+        if profiling.tracing_on() and torch.is_grad_enabled():
+            if self._backward_spans is not None:
+                self._backward_spans.remove()
+            back = self._backward_spans = _BackwardSpans()
         feats = {}
         for si, n_blocks in enumerate(self.stage_sizes):
-            with profiling.span(f"features.stage{si + 2}"):
-                for bi in range(n_blocks):
-                    x = getattr(self, f"stage{si + 2}_block{bi}")(x)
+            name = f"features.stage{si + 2}"
+            x_in = x
+            blocks = [getattr(self, f"stage{si + 2}_block{bi}")
+                      for bi in range(n_blocks)]
+            with profiling.span(name):
+                y = (None if self._graphs is None
+                     else self._graphs(si, blocks, x))
+                if y is None:
+                    for block in blocks:
+                        x = block(x)
+                else:
+                    x = y
+            if back is not None:
+                back.stage(name, x_in, x, [p for b in blocks
+                                           for p in b.parameters()
+                                           if p.requires_grad],
+                           lowest=si + 2 == max(self.freeze_stages + 1, 2))
             if si + 2 <= self.freeze_stages:
                 x = x.detach()
             feats[f"c{si + 3}"] = x.permute(0, 2, 3, 1)

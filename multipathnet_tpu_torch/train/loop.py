@@ -29,8 +29,16 @@ head is tensor-parallel (models/heads.shard_head_). With no mesh, or a 1 x
 children are train.put (the batch's copy), train.augment (flip, resize,
 box scaling), train.sample, the model's features, pool_rois and
 predict_rois, train.loss, train.backward (with the pool's backward,
-pool_rois.backward, under it, on whatever thread autograd runs it) and
-train.optimizer (`Optimizer.step`, the gradient norm included).
+pool_rois.backward, and a ResNet trunk's training stages' backward,
+features.stageN.backward, under it, on whatever thread autograd runs
+them) and train.optimizer (`Optimizer.step`, the gradient norm included).
+
+On the card, off a mesh, a Trainer runs a ResNet trunk's training stages
+as CUDA graphs of their forward and backward (`stage_graphs`,
+models/backbones/resnet.StageGraphs), opened around each step, whose one
+forward and one backward are what a graph's buffers allow. Nothing else
+that calls the model graphs it (a forward outside a step runs eagerly),
+nor does a mesh's step, on which they were never measured.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from multipathnet_tpu_torch.core.device import (HostToDevice, put,
                                                 resolve_device)
 from multipathnet_tpu_torch.data import sampler as sampler_lib
 from multipathnet_tpu_torch.data import transforms
+from multipathnet_tpu_torch.models.backbones.resnet import (ResNet,
+                                                            StageGraphs)
 from multipathnet_tpu_torch.models.heads import shard_head_, tp_dims
 from multipathnet_tpu_torch.models.multipath import (MultiPathNet,
                                                      build_model,
@@ -122,11 +132,23 @@ def batch_shard(mesh):
     return mesh.data_rank, mesh.n_data
 
 
-def make_train_step(model: MultiPathNet, cfg: Config, mesh=None):
+def stage_graphs(model: MultiPathNet, mesh=None):
+    """The StageGraphs of the model's trunk where the step graphs it: a
+    ResNet trunk on the card, off a mesh; else None."""
+    trunk = model.backbone
+    if (mesh is not None or not isinstance(trunk, ResNet)
+            or trunk.stem.weight.device.type != "cuda"):
+        return None
+    return StageGraphs(trunk)
+
+
+def make_train_step(model: MultiPathNet, cfg: Config, mesh=None,
+                    graphs: StageGraphs | None = None):
     """-> train_step(state, batch) -> (state, metrics). The step updates
     the model's parameters in place and leaves each trainable parameter's
     gradient of this step in its `.grad` (summed over the mesh's data
-    axis). On a mesh the batch is the rank's rows of the global batch."""
+    axis). On a mesh the batch is the rank's rows of the global batch.
+    With `graphs` (stage_graphs) the step is one of theirs."""
     m, d = cfg.model, cfg.data
     shard = batch_shard(mesh)
     index, count = shard or (0, 1)
@@ -175,7 +197,14 @@ def make_train_step(model: MultiPathNet, cfg: Config, mesh=None):
         return TrainState(state.step + 1, state.optimizer, gen), \
             optimizer_step(state.optimizer, loss, metrics, group)
 
-    return train_step
+    if graphs is None:
+        return train_step
+
+    def graphed_step(state: TrainState, batch: Batch):
+        with graphs.step():
+            return train_step(state, batch)
+
+    return graphed_step
 
 
 def optimizer_step(opt, loss, metrics: dict, group, zero_missing=False):
@@ -298,7 +327,9 @@ class Trainer(BatchFeeder):
             shard_head_(self.model.head, self.mesh)
             self.tp_dims = {f"head.{k}": v
                             for k, v in tp_dims(self.model.head).items()}
-        self._step = make_train_step(self.model, cfg, self.mesh)
+        self.graphs = stage_graphs(self.model, self.mesh)
+        self._step = make_train_step(self.model, cfg, self.mesh,
+                                     self.graphs)
         self.lr_schedule = make_lr_schedule(cfg.train)
         self._copy = HostToDevice(self.device)
 

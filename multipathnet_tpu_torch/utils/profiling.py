@@ -113,7 +113,8 @@ def debug_nans(enable: bool = True):
 # train.sample, the same three model spans, train.loss, train.backward with
 # pool_rois.backward under it, train.optimizer). Inside features only a
 # ResNet trunk opens spans, features.stem and features.stage2..4
-# (models/backbones/resnet.py); no span opens inside pool_rois,
+# (models/backbones/resnet.py), and under train.backward its training
+# stages' features.stage2..4.backward; no span opens inside pool_rois,
 # predict_rois or multiclass_nms, so a kernel launched there belongs to
 # that span alone.
 #

@@ -17,7 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # presets the port has and the reference lacks: name -> (the reference's
 # preset it derives from, the model fields it changes)
 PORT_ONLY = {"multipath_resnet101_int8_svd":
-             ("multipath_vgg16_int8_svd", {"backbone": "resnet101"})}
+             ("multipath_vgg16_int8_svd", {"backbone": "resnet101"}),
+             "multipath_resnet101_train":
+             ("multipath_vgg16_train", {"backbone": "resnet101"})}
 
 
 def test_preset_names_match_reference():

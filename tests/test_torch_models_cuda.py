@@ -306,3 +306,92 @@ def test_direct_train_step_repeats_on_gpu(cuda, impl):
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert not any(_launched(before, POOL_KERNELS + (
         "window_grad", "window_rmw_grad")).values())
+
+
+def _bottleneck_train_cfg():
+    """ResNet-50 at `tiny` widths, bf16 compute, the stem and conv2_x
+    frozen."""
+    cfg = preset("tiny")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone="resnet50",
+                                  dtype="bfloat16"),
+        train=dataclasses.replace(cfg.train, freeze_backbone_stages=2))
+
+
+def test_training_stages_run_as_graphs_with_the_eager_bits(cuda, monkeypatch):
+    """A bottleneck trunk trains on the card with conv3_x and conv4_x
+    each captured as a CUDA graph of its forward and backward
+    (Trainer.graphs, resnet.StageGraphs): three steps give the losses and
+    parameters of the eager stages bit for bit, from the same weights and
+    batches; a traced step still holds each training stage's backward
+    span with its device interval."""
+    from multipathnet_tpu_torch.train import loop
+
+    cfg = _bottleneck_train_cfg()
+    graphed = loop.stage_graphs
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fn in (("eager", lambda model, mesh=None: None),
+                         ("graphed", graphed)):
+            monkeypatch.setattr(loop, "stage_graphs", fn)
+            trainer = Trainer(cfg, device=cuda)
+            state = trainer.init_state(0)
+            _random_bn_(trainer.model, 3)
+            losses = []
+            for seed in range(3):
+                state, m = trainer.step(state, _train_batch(seed))
+                losses.append(m["loss"])
+            runs[name] = (trainer, state, losses)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (eager_t, _, want), (trainer, state, got) = runs["eager"], runs["graphed"]
+    assert eager_t.graphs is None
+    assert {si: len(keys) for si, keys in trainer.graphs.captures.items()} \
+        == {1: 1, 2: 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for (n, a), (_, b) in zip(trainer.model.state_dict().items(),
+                              eager_t.model.state_dict().items()):
+        assert torch.equal(a, b), n
+    profiling.clear_records()
+    with profiling.tracing():
+        trainer.step(state, _train_batch(3))
+    (root,) = profiling.records()
+    spans = {r["name"]: r for r in profiling.walk(root)}
+    for stage in ("stage3", "stage4"):
+        span = spans[f"features.{stage}.backward"]
+        assert span["parent"] == "train.backward"
+        assert span["device_ms"] is not None and span["device_ms"] > 0
+
+
+def test_graphed_steps_repeat_once_deterministic_is_set(cuda):
+    """The order of a run that steps under cuDNN's default settings and
+    then asks for cudnn.deterministic: the graphs captured at the first
+    step are left alone, each stage captures anew under the new setting,
+    and two steps from one state repeat bit for bit."""
+    from multipathnet_tpu_torch.train.loop import (restore_train_state,
+                                                   snapshot_train_state)
+
+    trainer = Trainer(_bottleneck_train_cfg(), device=cuda)
+    state = trainer.init_state(0)
+    _random_bn_(trainer.model, 3)
+    state, _ = trainer.step(state, _train_batch(0))
+    saved = snapshot_train_state(trainer, state)
+    params = dict(trainer.model.named_parameters())
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            st = restore_train_state(trainer, saved)
+            _, m = trainer.step(st, _train_batch(1))
+            runs.append((m["loss"].clone(), {n: p.detach().clone()
+                                             for n, p in params.items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert {si: sorted(k[3] for k in keys)
+            for si, keys in trainer.graphs.captures.items()} \
+        == {1: [False, True], 2: [False, True]}
+    assert torch.equal(runs[0][0], runs[1][0])
+    for n in params:
+        assert torch.equal(runs[0][1][n], runs[1][1][n]), n

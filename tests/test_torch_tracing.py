@@ -45,6 +45,10 @@ LAYER_SPANS = ("features", "pool_rois", "predict_rois", "multiclass_nms")
 # a ResNet trunk's stage spans, the only spans inside features
 RESNET_SPANS = {"features.stem", "features.stage2", "features.stage3",
                 "features.stage4"}
+# a ResNet trunk's training stages' backward spans with conv2_x frozen,
+# under train.backward
+RESNET_BACKWARD_SPANS = {"features.stage3.backward",
+                         "features.stage4.backward"}
 
 
 @pytest.fixture(autouse=True)
@@ -117,9 +121,7 @@ def tiny_resnet_detector():
     return det
 
 
-@pytest.fixture(scope="module")
-def tiny_trainer():
-    cfg = preset("tiny")
+def _stepper(cfg):
     trainer = tloop.Trainer(cfg, device="cpu")
     state = trainer.init_state(0)
     box = [trainer, state]
@@ -131,6 +133,21 @@ def tiny_trainer():
 
     step()
     return types.SimpleNamespace(trainer=trainer, step=step, batch=batch)
+
+
+@pytest.fixture(scope="module")
+def tiny_trainer():
+    return _stepper(preset("tiny"))
+
+
+@pytest.fixture(scope="module")
+def tiny_resnet_trainer():
+    """tiny on a ResNet-50 trunk (multipath_resnet101_train's bottleneck
+    blocks) with its stem and conv2_x frozen, as that preset freezes."""
+    cfg = preset("tiny")
+    return _stepper(cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone="resnet50"),
+        train=dataclasses.replace(cfg.train, freeze_backbone_stages=2)))
 
 
 def _names(record) -> list:
@@ -246,16 +263,20 @@ def _trace_spans(tmp_path, fn) -> list:
             and e["name"].startswith("span:")]
 
 
-@pytest.mark.parametrize("kind", ["serve", "train", "serve_resnet"])
+@pytest.mark.parametrize("kind", ["serve", "train", "serve_resnet",
+                                  "train_resnet"])
 def test_profiler_trace_holds_the_layer_spans(kind, tmp_path, tiny_detector,
                                               tiny_trainer,
-                                              tiny_resnet_detector):
+                                              tiny_resnet_detector,
+                                              tiny_resnet_trainer):
     """The spans of the layer boundaries, by name, in the exported trace;
     none inside features, pool_rois, predict_rois or multiclass_nms
     under another name (a child there would take device time from the
     span the benchmark's rooflines read), but for a ResNet trunk's stage
     spans inside features, which the ResNet trunk's roofline reads with
-    it; the records agree."""
+    it; the records agree. A ResNet training step also holds its
+    training stages' backward spans, once each, under train.backward;
+    serving opens no backward span of the trunk."""
     stages = set()
     if kind == "serve":
         det = tiny_detector
@@ -266,6 +287,11 @@ def test_profiler_trace_holds_the_layer_spans(kind, tmp_path, tiny_detector,
         spans = _trace_spans(tmp_path, lambda: det(*_serve_inputs(det.cfg)))
         stages = RESNET_SPANS
         want, root = SERVE_SPANS | stages, "detect"
+    elif kind == "train_resnet":
+        spans = _trace_spans(tmp_path, tiny_resnet_trainer.step)
+        stages = RESNET_SPANS
+        want = TRAIN_SPANS | stages | RESNET_BACKWARD_SPANS
+        root = "train.step"
     else:
         spans = _trace_spans(tmp_path, tiny_trainer.step)
         want, root = TRAIN_SPANS, "train.step"
@@ -280,10 +306,15 @@ def test_profiler_trace_holds_the_layer_spans(kind, tmp_path, tiny_detector,
                 assert not inside, f"{inside} inside {name}"
     (rec,) = profiling.records()
     assert rec["name"] == root and set(_names(rec)) == want
-    if kind == "train":
+    if kind.startswith("train"):
         back = [r for r in profiling.walk(rec)
                 if r["name"] == "pool_rois.backward"]
         assert back and all(r["parent"] == "train.backward" for r in back)
+    trunk_back = [r for r in profiling.walk(rec)
+                  if r["name"] in RESNET_BACKWARD_SPANS]
+    assert sorted(r["name"] for r in trunk_back) == sorted(
+        RESNET_BACKWARD_SPANS if kind == "train_resnet" else ())
+    assert all(r["parent"] == "train.backward" for r in trunk_back)
 
 
 # ---------------------------------------------------------- counters ---
