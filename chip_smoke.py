@@ -321,7 +321,16 @@ Phases, each of which raises on failure (nothing is caught):
      stride-2 downsamples), on the inputs the trunk gives it, bit for bit
      against the plain version (ops/batchnorm.bn_epilogue_ref), then each
      timed in turns with it, with its byte bound (the float32 sum, the
-     residual, the output, the vectors), and summed over the batch.
+     residual, the output, the vectors), and summed over the batch. Then
+     its backward (`bn_epilogue_backward`): the instances' registers and
+     spills, and one training step of the same trunk, the stem and conv2_x
+     frozen as the training cell freezes them: the 83 BNs that train, each
+     held to bn_epilogue_backward_ref on the gradient the step gives it (x's
+     and the residual's gradients bit for bit, the per-channel sums within
+     1e-5 of their terms' magnitudes), then timed in turns with the
+     autograd chain of the plain ops it replaces, behind a device sleep,
+     with its byte bound, and summed over the step; the incoming gradients
+     that arrived in another layout than channels-last.
  27. the ResNet trunk's 1x1 convolution with its BN (`conv1x1_bn`,
      csrc/conv1x1_bn.cu): its instances' registers and spills, then the
      61 fused convolutions of a ResNet-101 trunk (phase 26's draw) on 8 x
@@ -347,7 +356,8 @@ bf16 body's W2 GEMM, 2 x G^2 x 160 per view, level and channel, over the
 distinct cells under its windows and its output over 3.35 TB/s, with the
 int8 numbers and the share of the bound beside the bf16 ones; for the
 head's kernels one batch's instances summed (phase 25), for the BN
-epilogue the ResNet-101 batch's 33 (phase 26), for the 1x1 convolution
+epilogue the ResNet-101 batch's 33 and for its backward a training step's
+83 (phase 26), for the 1x1 convolution
 its 61 (phase 27). The last line
 is {"ok": true, "device": {...}}.
 """
@@ -439,6 +449,7 @@ HEAD_KERNELS = {
 # the ResNet trunk's BN epilogue (ops/batchnorm.py) and 1x1 convolution
 # with its BN (ops/conv_bn.py), which replace no TPU kernel either
 BN_KERNELS = {"bn_epilogue": (BN_SOURCE, None),
+              "bn_epilogue_backward": (BN_SOURCE, None),
               "conv1x1_bn": (C1_SOURCE, None)}
 KERNELS = {**WINDOW_KERNELS, **HEAD_KERNELS, **BN_KERNELS}
 
@@ -4684,9 +4695,155 @@ def bn_epilogue_path(gen):
         f"{100 * total['bound_ms'] / total['ms']:.1f}%; instances "
         f"{100 * min(shares):.1f}-{100 * max(shares):.1f}%), plain "
         f"{total['plain_ms']:.3f} ms")
+    backward = bn_backward_path(gen)
     log(f"[bn_epilogue] phase 26 took {time.perf_counter() - t_phase:.1f} s")
     return {"bn_epilogue": {**total, "bound_by": "bytes", "max_abs_err": 0,
-                            "extra": {"min_bound_share": min(shares)}}}
+                            "extra": {"min_bound_share": min(shares)}},
+            "bn_epilogue_backward": backward}
+
+
+def bn_backward_bytes(shape, dtype, out_dtype, relu: bool,
+                      residual: bool) -> int:
+    """The byte bound's count of one backward: the incoming gradient (the
+    output dtype), the float32 sum and, with the ReLU, the output read;
+    x's float32 gradient and the residual's (compute dtype) written; mean
+    and mul read, the two per-channel sums written."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    size = {torch.bfloat16: 2, torch.float32: 4}
+    return (n * size[out_dtype] * (2 if relu else 1) + n * 4 + n * 4
+            + (n * size[dtype] if residual else 0) + 4 * c * 4)
+
+
+def bn_backward_path(gen):
+    """Phase 26's backward: csrc/bn_epilogue.cu's backward at one ResNet-101
+    training step's 83 instances (8 x 640^2, the stem and conv2_x frozen),
+    each held to its plain version on the gradient the step gives it and
+    timed in turns with the autograd chain of the plain ops (queued_ms);
+    returns its stats for the kernels' table, summed over the step."""
+    attrs = (ctypes.c_int * 5)()
+    for flags, what in (((1, 1, 1), "bf16, ReLU, float32 out (a "
+                                    "convolution's input)"),
+                        ((1, 0, 1), "bf16, ReLU (a block's output)"),
+                        ((1, 0, 0), "bf16 (a downsample)")):
+        rc = _build.kernels().mpn_bn_epilogue_backward_attrs(*flags, attrs)
+        require(rc == 0, f"mpn_bn_epilogue_backward_attrs{flags}: {rc}")
+        log(f"[bn_epilogue_backward] {what}: {attrs[0]} registers, "
+            f"{attrs[1]} B local (spills), {attrs[2]} B static shared, "
+            f"{attrs[4]} blocks of 1024 an SM")
+    trunk = resnet101_trunk(gen)
+    trunk.freeze_stages = 2
+    for name, p in trunk.named_parameters():
+        p.requires_grad_(not name.startswith(trunk.frozen_prefixes(2)))
+    seen = []
+    backward = batchnorm.bn_epilogue_backward
+
+    def record(g, x, mean, mul, out, dtype, **flags):
+        got = backward(g, x, mean, mul, out, dtype, **flags)
+        seen.append((g, x, mean, mul, out, dtype, flags, got))
+        return got
+
+    x_in = torch.randn((8, 640, 640, 3), generator=gen, device="cuda")
+    before = profiling.counters()
+    batchnorm.bn_epilogue_backward = record
+    try:
+        feats = trunk(x_in)
+        loss = sum((f.float() * torch.randn(f.shape, generator=gen,
+                                            device="cuda")).sum()
+                   for f in feats.values())
+        loss.backward()
+    finally:
+        batchnorm.bn_epilogue_backward = backward
+    torch.cuda.synchronize()
+    launched = profiling.kernel_launches(before)
+    require(len(seen) == 83 and launched["bn_epilogue_backward"] == 83
+            and launched["bn_epilogue"] == 94,
+            f"{len(seen)} backwards, {launched['bn_epilogue_backward']} + "
+            f"{launched['bn_epilogue']} launches")
+    relayouts = sum(not g.is_contiguous(memory_format=torch.channels_last)
+                    for g, *_ in seen)
+    del feats, loss
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    total = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    shares, sum_err = [], 0.0
+    abs_err = [0.0] * 4   # dx, dres, dmul, dbias against the plain version
+
+    def max_abs(a, b):
+        d = (a.double() - b.double()).abs()
+        return float(d.masked_fill((a == b) | (a.isnan() & b.isnan()),
+                                   0.0).max())
+
+    for i, (g, x, mean, mul, out, dtype, flags, got) in enumerate(seen):
+        want = batchnorm.bn_epilogue_backward_ref(g, x, mean, mul, out,
+                                                  dtype, **flags)
+        for k in (0, 1):
+            a, b = got[k], want[k]
+            require((a is None) == (b is None) and (a is None or torch.equal(
+                a.view(view[a.dtype]), b.view(view[a.dtype]))),
+                f"BN backward instance {i} {tuple(x.shape)}: gradient {k} "
+                f"differs from its plain version")
+        gf = batchnorm.bn_epilogue_backward_ref(
+            g, x, mean, torch.ones_like(mul), out, dtype, **flags)[0]
+        for k, terms in ((2, gf * (x - mean[:, None, None])), (3, gf)):
+            mag = terms.double().abs().sum((0, 2, 3))
+            err = float(((got[k].double() - want[k].double()).abs()
+                         / mag.clamp_min(1e-300)).max())
+            require(err <= 1e-5, f"BN backward instance {i} sum {k}: "
+                    f"{err:.3g} of its magnitude")
+            sum_err = max(sum_err, err)
+        for k in range(4):
+            if got[k] is not None:
+                abs_err[k] = max(abs_err[k], max_abs(got[k], want[k]))
+        del want, gf
+        out_dtype = flags.get("out_dtype") or dtype
+        relu, res = flags.get("relu", False), flags["residual_grad"]
+        leaves = [x.detach().clone().requires_grad_(True),
+                  mul.detach().clone().requires_grad_(True),
+                  torch.zeros_like(mul, requires_grad=True)]
+        resid = None
+        if res:
+            resid = torch.zeros(x.shape, dtype=dtype, device="cuda")
+            resid = resid.contiguous(memory_format=torch.channels_last)
+            resid.requires_grad_(True)
+            leaves.append(resid)
+        y = batchnorm.bn_epilogue_ref(leaves[0], mean, leaves[1], leaves[2],
+                                      dtype, relu=relu, residual=resid,
+                                      out_dtype=out_dtype)
+        ms, plain_ms = alternate_ms(
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+            lambda: backward(g, x, mean, mul, out, dtype, **flags),
+            3, 20, queued_ms)
+        del y, leaves, resid
+        n_bytes = bn_backward_bytes(tuple(x.shape), dtype, out_dtype, relu,
+                                    res)
+        b_ms = n_bytes / HBM_BYTES_PER_MS
+        shares.append(b_ms / ms)
+        log(f"[bn_epilogue_backward] {i:2d} {tuple(x.shape)} "
+            f"{'relu ' if relu else ''}{'residual ' if res else ''}"
+            f"{out_dtype}: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
+            f"bound {b_ms:.4f} ms, {n_bytes / 1e6:.1f} MB), autograd chain "
+            f"{plain_ms:.4f} ms")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", b_ms)):
+            total[key] += v
+    del seen, trunk
+    torch.cuda.empty_cache()
+    log(f"[bn_epilogue_backward] one step's 83 instances: kernel "
+        f"{total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms (bytes, "
+        f"{100 * total['bound_ms'] / total['ms']:.1f}%; instances "
+        f"{100 * min(shares):.1f}-{100 * max(shares):.1f}%), autograd chain "
+        f"{total['plain_ms']:.3f} ms; largest absolute difference from the "
+        f"plain version: dx {abs_err[0]:.3g}, the residual's {abs_err[1]:.3g}, "
+        f"mul's {abs_err[2]:.3g}, bias's {abs_err[3]:.3g} (sums within "
+        f"{sum_err:.3g} of their magnitudes); {relayouts} of 83 incoming "
+        f"gradients not channels-last")
+    return {**total, "bound_by": "bytes", "max_abs_err": max(abs_err),
+            "extra": {"min_bound_share": min(shares),
+                      "dx_max_abs_err": abs_err[0],
+                      "dres_max_abs_err": abs_err[1],
+                      "dmul_max_abs_err": abs_err[2],
+                      "dbias_max_abs_err": abs_err[3],
+                      "max_sum_rel_err": sum_err, "relayouts": relayouts}}
 
 
 # ------------------------------------------------------------ phase 27 ---

@@ -9,7 +9,8 @@ Each convolution feeds its BatchNorm in float32 (models/layers.conv_f32),
 which rounds once to the compute dtype, as the reference's XLA computes
 it; residual sums run in the compute dtype. The BN takes the residual add
 and the ReLU after it too (FrozenBatchNorm.forward; one kernel on the
-card when serving), so a block computes its downsample before its last
+card, with a backward kernel of its own under a gradient), so a block
+computes its downsample before its last
 convolution, whose residual it is. A BN output that only a convolution
 reads comes back widened to float32, the copy that convolution would
 otherwise make. Serving a bf16 trunk on the card, each stride-1 1x1
@@ -197,9 +198,10 @@ class StageGraphs:
     the input's shape, dtype and requires_grad and cuDNN's settings
     (deterministic, benchmark, allow_tf32): a setting changed between
     steps captures anew, so a replay runs what an eager call would. Under
-    a gradient every convolution and BatchNorm runs in plain ops
-    (conv_f32, FrozenBatchNorm), most of a ResNet-101 training step's
-    3,600 launches, which leave it at the host's pace; a replay runs the
+    a gradient every convolution runs in plain ops (conv_f32) and every
+    BatchNorm as an autograd Function (ops/batchnorm.BNEpilogue: kernel
+    N forward, a kernel backward), thousands of launches a ResNet-101
+    training step, which leave it at the host's pace; a replay runs the
     same kernels on the same inputs (bit for bit under
     cudnn.deterministic) and no Python of the blocks, so it counts no
     bn.passes.

@@ -151,8 +151,13 @@ class FrozenBatchNorm(nn.Module):
     how). Where no gradient is recorded and x is on the card (serving,
     under inference_mode) that is one launch of csrc/bn_epilogue.cu, bit
     for bit the plain ops, with mul computed once while the parameters
-    and statistics are unchanged; elsewhere (training, where scale and
-    bias train, and the CPU) the plain ops.
+    and statistics are unchanged. Under a gradient on the card, for the
+    maps that kernel takes (ops/batchnorm.takes), it is the autograd
+    Function ops/batchnorm.BNEpilogue: the same launch forward, one
+    backward kernel for x's, the residual's, mul's and bias's gradients
+    (mul computed in autograd, so the scale's gradient reaches `weight`
+    through autograd's own ops). Elsewhere (the CPU, other layouts) the
+    plain ops.
 
     Each forward adds one to the counter bn.passes (utils/profiling), as
     conv_bn does for a BN it runs with its convolution: 94 a ResNet-101
@@ -193,7 +198,13 @@ class FrozenBatchNorm(nn.Module):
         then the ReLU if `relu`."""
         profiling.count("bn.passes")
         flags = dict(relu=relu, residual=residual, out_dtype=out_dtype)
-        if x.device.type == "cpu" or torch.is_grad_enabled():
+        if torch.is_grad_enabled():
+            vec = dict(mean=self.running_mean, mul=self.mul(), bias=self.bias)
+            if batchnorm.takes(x, dtype, residual, **vec):
+                return batchnorm.BNEpilogue.apply(
+                    x, *vec.values(), residual, dtype, relu, out_dtype)
+            return batchnorm.bn_epilogue_ref(x, *vec.values(), dtype, **flags)
+        if x.device.type == "cpu":
             return batchnorm.bn_epilogue_ref(
                 x, self.running_mean, self.mul(), self.bias, dtype, **flags)
         return batchnorm.bn_epilogue(x, *self.affine(), dtype, **flags)

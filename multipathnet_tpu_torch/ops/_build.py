@@ -60,6 +60,9 @@ _SIGNATURES = {
     "mpn_int8_head_attrs": [_I, _I, _P],
     "mpn_bn_epilogue": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mpn_bn_epilogue_attrs": [_I, _I, _I, _I, _P],
+    "mpn_bn_epilogue_backward": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _I, _P, _P, _P],
+    "mpn_bn_epilogue_backward_attrs": [_I, _I, _I, _P],
     "mpn_conv1x1_bn": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mpn_conv1x1_bn_attrs": [_I, _I, _I, _I, _P],
 }

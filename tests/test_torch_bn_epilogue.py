@@ -13,13 +13,24 @@ that only a convolution reads widened by the BN) must give the same bits,
 NaN, infinities, -0 and bf16 rounding ties included. Bits are compared
 as integers (`_same`), since torch.equal is false on any NaN.
 
+Under a gradient the card runs the epilogue as ops/batchnorm.BNEpilogue
+(kernel N forward, one backward kernel). Its plain version,
+bn_epilogue_backward_ref, must give autograd's gradients through
+bn_epilogue_ref bit for bit (NaN, infinities, +-0 and ReLU ties at 0 in
+the maps and the incoming gradient); on the CPU, with the kernels stood in
+by their plain versions, the Function must give a block's and a trunk's
+gradients bit for bit as the plain ops do.
+
 The `cuda` tests hold the kernel to the plain version on the card: at
 every instance of a ResNet-101 batch at 8 x 640^2 that it still runs (33:
 the stem, the 3x3 convolutions and the stride-2 downsamples; the other 61
 BNs run with their 1x1 convolution in csrc/conv1x1_bn.cu,
 tests/test_torch_conv1x1_bn.py), on the special values, the served
-c3/c4/c5 against the plain route in one process, and the launch
-counters. They skip where
+c3/c4/c5 against the training route in one process, and the launch
+counters; the backward kernel at every distinct instance of the
+ResNet-101 training cell's step (8 x 640^2) and on the special values,
+and a ResNet-101 Trainer.step under its CUDA graphs against the eager
+step. They skip where
 torch.cuda.is_available() is false (decided inside the fixture, never at
 import). On a GPU machine:
     python -m pytest tests/test_torch_bn_epilogue.py --noconftest -m cuda -q
@@ -41,6 +52,7 @@ from multipathnet_tpu_torch.models.backbones.resnet import (BasicBlock,
                                                             ResNet101)
 from multipathnet_tpu_torch.models.multipath import build_model
 from multipathnet_tpu_torch.ops import batchnorm
+from multipathnet_tpu_torch.train import loop
 from multipathnet_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -289,8 +301,9 @@ def test_kernel_wrapper_refuses(case):
 
 
 def test_other_devices_raise_in_the_module():
-    """FrozenBatchNorm takes the plain version on the CPU and wherever a
-    gradient is recorded, the kernel on the card, and raises elsewhere."""
+    """FrozenBatchNorm takes the plain version on the CPU and, off the
+    card, wherever a gradient is recorded, the kernel on the card, and
+    raises elsewhere."""
     mod = _bn(16, 6).to("meta")
     x = _maps(seed=3)[0].to("meta")
     assert mod(x, BF16).device.type == "meta"   # a gradient: plain ops
@@ -393,6 +406,195 @@ def test_cpu_launches_no_kernel_and_counts_every_bn():
         "launches.bn_epilogue"] == 0
 
 
+# ------------------------------------------------- the backward (CPU) ---
+
+# planted in an incoming gradient
+G_SPECIALS = [float("nan"), float("inf"), -float("inf"), 0.0, -0.0]
+
+
+def _incoming(out, seed=0):
+    """A gradient for `out`: N(0, 1) in out's dtype, channels-last, with
+    G_SPECIALS planted at random places and a NaN where out is first 0
+    (the ReLU's tie, which masks it) and where it is first above 0."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    g = torch.randn(out.shape, generator=gen)
+    flat = g.view(-1)
+    idx = torch.randperm(flat.numel(), generator=gen)[:len(G_SPECIALS)]
+    flat[idx] = torch.tensor(G_SPECIALS)
+    o = out.detach().cpu().float().contiguous().view(-1)
+    for hit in (o == 0, o > 0):
+        if hit.any():
+            flat[hit.nonzero()[0]] = float("nan")
+    return g.to(out.device, out.dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _ref_with_leaves(mod, x, dtype, relu, res, out_dtype):
+    """(bn_epilogue_ref's output, its leaves [x, mul, bias, residual]):
+    copies of x, mod's mul and bias and the residual that take
+    gradients."""
+    leaves = [x.detach().clone().requires_grad_(True),
+              mod.mul().detach().clone().requires_grad_(True),
+              mod.bias.detach().clone().requires_grad_(True)]
+    if res is not None:
+        leaves.append(res.detach().clone().requires_grad_(True))
+    out = batchnorm.bn_epilogue_ref(
+        leaves[0], mod.running_mean, leaves[1], leaves[2], dtype, relu=relu,
+        residual=leaves[3] if res is not None else None, out_dtype=out_dtype)
+    return out, leaves
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dtype,out_dtype", EPILOGUE_DTYPES,
+                         ids=["bf16", "bf16_to_f32", "f32"])
+@pytest.mark.parametrize("residual", [False, True], ids=["", "res"])
+@pytest.mark.parametrize("relu", [False, True], ids=["", "relu"])
+def test_backward_plain_version_is_autograds_chain(relu, residual, dtype,
+                                                   out_dtype, ties):
+    """bn_epilogue_backward_ref gives x's, the residual's, mul's and
+    bias's gradients of autograd through bn_epilogue_ref bit for bit, with
+    NaN, infinities, +-0 and bf16 ties in the maps, NaN, infinities and
+    +-0 in the incoming gradient, and ReLU outputs at exactly 0; the
+    wrapper runs it for CPU tensors and launches nothing."""
+    mod = _bn(16, 3, ties)
+    x, r16, r32 = _maps(ties=ties)
+    res = (r16 if dtype == BF16 else r32) if residual else None
+    out, leaves = _ref_with_leaves(mod, x, dtype, relu, res, out_dtype)
+    g = _incoming(out, seed=4)
+    want = torch.autograd.grad(out, leaves, g)
+    out = out.detach()
+    assert g.isinf().any() and (not relu or ((out == 0) & g.isnan()).any())
+    flags = dict(relu=relu, residual_grad=residual, out_dtype=out_dtype)
+    before = profiling.counters()
+    for fn in (batchnorm.bn_epilogue_backward_ref,
+               batchnorm.bn_epilogue_backward):
+        dx, dres, dmul, dbias = fn(g, x, mod.running_mean, mod.mul(), out,
+                                   dtype, **flags)
+        assert _same(dx, want[0]) and _same(dmul, want[1])
+        assert _same(dbias, want[2])
+        assert (dres is None) == (res is None)
+        if res is not None:
+            assert _same(dres, want[3])
+    assert profiling.kernel_launches(before)["bn_epilogue_backward"] == 0
+
+
+def _function_route(monkeypatch):
+    """The card's route under a gradient, on the CPU: BNEpilogue for
+    every map the kernels would take, kernel N's forward stood in by its
+    plain version (bn_epilogue_backward runs its own for CPU tensors).
+    Returns the list the Function's forwards and backwards append to."""
+    calls = []
+    backward = batchnorm.bn_epilogue_backward
+
+    def forward(*args, **kw):
+        calls.append("forward")
+        return batchnorm.bn_epilogue_ref(*args, **kw)
+
+    def back(*args, **kw):
+        calls.append("backward")
+        return backward(*args, **kw)
+
+    monkeypatch.setattr(batchnorm, "bn_epilogue", forward)
+    monkeypatch.setattr(batchnorm, "bn_epilogue_backward", back)
+    monkeypatch.setattr(batchnorm, "takes", lambda x, dtype, residual=None,
+                        **vectors: x.dtype == F32 and x.shape[1] % 8 == 0)
+    return calls
+
+
+@pytest.mark.parametrize("down", [False, True], ids=["identity", "down"])
+@pytest.mark.parametrize("kind", [BasicBlock, BottleneckBlock],
+                         ids=["basic", "bottleneck"])
+def test_block_backpropagates_as_before_through_the_function(kind, down,
+                                                             monkeypatch):
+    """A block whose BNs run as BNEpilogue (the card's route under a
+    gradient, _function_route): the output and every gradient (BN scale
+    and bias, the convolutions, the input) are those of the block's
+    forward before the epilogue, bit for bit; each BN ran the Function
+    forward and backward once."""
+    block, cin = _block(kind, down)
+    n_bn = sum(isinstance(m, layers.FrozenBatchNorm) for m in block.modules())
+    x = torch.randn((2, cin, 9, 9), generator=torch.Generator().manual_seed(
+        1)).to(BF16).contiguous(memory_format=torch.channels_last)
+    g = torch.randn((2, 16 * kind.expansion, 5 if down else 9,
+                     5 if down else 9),
+                    generator=torch.Generator().manual_seed(2))
+    grads = []
+    for route in ("function", "today"):
+        with monkeypatch.context() as m:
+            calls = _function_route(m) if route == "function" else []
+            fn = block if route == "function" else (
+                lambda t: _today_block(block, t))
+            block.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_(True)
+            y = fn(xi)
+            (y.float() * g).sum().backward()
+            grads.append((y.detach(), xi.grad, {
+                n: p.grad for n, p in block.named_parameters()}))
+            if route == "function":
+                assert calls.count("forward") == n_bn
+                assert calls.count("backward") == n_bn
+    (y, gx, gp), (y0, gx0, gp0) = grads
+    assert _same(y, y0) and _same(gx, gx0)
+    assert gp.keys() == gp0.keys()
+    for n in gp:
+        assert _same(gp[n], gp0[n]), n
+
+
+@pytest.mark.parametrize("name,frozen,n_bn,n_train", [
+    ("resnet18", 0, 15, 15), ("resnet50", 2, 43, 32),
+    ("resnet101", 2, 94, 83)])
+def test_trunk_backpropagates_as_before_through_the_function(
+        name, frozen, n_bn, n_train, monkeypatch):
+    """A trunk with its first `frozen` stages frozen (parameters without
+    gradients, activations detached, as Trainer freezes them), its BNs as
+    BNEpilogue on the CPU (_function_route): c3/c4/c5 and every trainable
+    parameter's gradient equal the plain route's bit for bit; every BN
+    ran the Function's forward, and only the training ones its backward
+    (the frozen BNs record nothing: no input needs a gradient)."""
+    model = _draw_(TRUNKS[name](device="cpu", param_dtype=F32,
+                                freeze_stages=frozen), seed=4)
+    for n, p in model.named_parameters():
+        p.requires_grad_(not n.startswith(model.frozen_prefixes(frozen)))
+    x = torch.randn((1, 32, 32, 3), generator=torch.Generator().manual_seed(
+        5))
+    runs = []
+    for route in ("function", "plain"):
+        with monkeypatch.context() as m:
+            calls = _function_route(m) if route == "function" else []
+            model.zero_grad(set_to_none=True)
+            feats = model(x)
+            sum((f.float() * f.float().detach().sign()).sum()
+                for f in feats.values()).backward()
+            runs.append(({k: f.detach() for k, f in feats.items()}, {
+                n: p.grad for n, p in model.named_parameters()
+                if p.requires_grad}))
+            if route == "function":
+                assert calls.count("forward") == n_bn
+                assert calls.count("backward") == n_train
+    (feats, grads), (feats0, grads0) = runs
+    for k in feats0:
+        assert _same(feats[k], feats0[k]), k
+    assert grads.keys() == grads0.keys()
+    for n in grads0:
+        assert grads0[n] is not None and _same(grads[n], grads0[n]), n
+
+
+def test_cpu_under_a_gradient_takes_the_plain_ops(monkeypatch):
+    """On the CPU FrozenBatchNorm under a gradient runs the plain ops, not
+    the Function, and a trunk's forward and backward launch nothing."""
+    def refuse(*args):
+        raise AssertionError("BNEpilogue on the CPU")
+
+    monkeypatch.setattr(batchnorm.BNEpilogue, "apply", refuse)
+    model = _draw_(ResNet18(device="cpu", param_dtype=F32))
+    before = profiling.counters()
+    feats = model(torch.randn(1, 32, 32, 3))
+    sum(f.float().sum() for f in feats.values()).backward()
+    launched = profiling.kernel_launches(before)
+    assert launched["bn_epilogue"] == launched["bn_epilogue_backward"] == 0
+    assert model.stage3_block0.BatchNorm_0.weight.grad.abs().sum() > 0
+
+
 # --------------------------------------------------------------- card ---
 
 @pytest.fixture
@@ -483,14 +685,18 @@ SERVED_SHARE = {"c3": 0.003, "c4": 0.15, "c5": 0.8}
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,dtype", [("resnet101", BF16),
                                         ("resnet18", F32)])
-def test_served_maps_equal_the_plain_route(cuda, name, dtype):
+def test_served_maps_equal_the_plain_route(cuda, name, dtype,
+                                          monkeypatch):
     """The model's reduced c3/c4/c5 (features) under inference_mode, the
-    kernels' route, against the same model with a gradient recorded, the
-    plain route, in one process: bit for bit where no 1x1 convolution
-    takes csrc/conv1x1_bn.cu (ResNet-18 in float32); for the bf16
-    ResNet-101, whose 61 fused convolutions sum in another order, within
-    SERVED_STEPS bf16 steps at each level's largest magnitude, the share
-    that differs at most SERVED_SHARE."""
+    kernels' route, against the same model with a gradient recorded and
+    batchnorm.takes refusing every map, the plain route, in one process:
+    bit for bit where no 1x1 convolution takes csrc/conv1x1_bn.cu
+    (ResNet-18 in float32); for the bf16 ResNet-101, whose 61 fused
+    convolutions sum in another order, within SERVED_STEPS bf16 steps at
+    each level's largest magnitude, the share that differs at most
+    SERVED_SHARE. Then the training route (a gradient recorded, every BN
+    through BNEpilogue, kernel N once a BN) gives the plain route's maps
+    bit for bit."""
     cfg = preset("multipath_resnet101_int8_svd")
     model = _draw_(build_model(dataclasses.replace(
         cfg.model, backbone=name, dtype="bfloat16" if dtype == BF16
@@ -504,16 +710,26 @@ def test_served_maps_equal_the_plain_route(cuda, name, dtype):
     assert launched["bn_epilogue"] > 0
     assert (launched["conv1x1_bn"] > 0) == (name == "resnet101")
     before = profiling.counters()
-    with torch.enable_grad():
-        want = model.features(x)
+    with monkeypatch.context() as m, torch.enable_grad():
+        m.setattr(batchnorm, "takes", lambda *args, **kw: False)
+        want = {k: v.detach() for k, v in model.features(x).items()}
     launched = profiling.kernel_launches(before)
     assert launched["bn_epilogue"] == launched["conv1x1_bn"] == 0
     assert got.keys() == want.keys() == {"c3", "c4", "c5"}
+    before = profiling.counters()
+    with torch.enable_grad():
+        train = {k: v.detach() for k, v in model.features(x).items()}
+    launched = profiling.kernel_launches(before)
+    passes = profiling.counters()["bn.passes"] - before.get("bn.passes", 0)
+    assert launched["conv1x1_bn"] == 0 and launched["bn_epilogue"] == passes
+    assert train.keys() == want.keys()
+    for k in want:
+        assert _same(train[k], want[k]), k
     for k in want:
         if name != "resnet101":
-            assert _same(got[k], want[k].detach()), k
+            assert _same(got[k], want[k]), k
             continue
-        g, w = got[k].float(), want[k].detach().float()
+        g, w = got[k].float(), want[k].float()
         scale = float(w.abs().max())
         step = 2.0 ** (torch.floor(torch.log2(torch.tensor(scale))) - 7)
         diff = float((g - w).abs().max())
@@ -552,3 +768,254 @@ def test_a_detector_batch_launches_one_kernel_a_bn(cuda, backbone, passes,
     for name, n in (("launches.bn_epilogue", epilogues),
                     ("launches.conv1x1_bn", fused), ("bn.passes", passes)):
         assert after[name] - before.get(name, 0) == n, name
+
+
+# ------------------------------------------------- the backward (card) ---
+
+def _sums_close(got, want, terms):
+    """mul's or bias's gradient from the kernel against the plain
+    version's, channel by channel, where the sum order cannot change its
+    kind: NaN where a term is NaN; where every term is finite and the sum
+    of their magnitudes is a float32 number, within 1e-5 of that sum.
+    (The terms are the same float32 numbers on both sides, summed in
+    another order: the kernel a thread's rows, its block's threads, the
+    blocks in 32 strides, those 32; PyTorch its own tree. Each float32
+    sum lies within (the adds on its longest path) x 2^-24 of that
+    magnitude, and no path here takes 80 adds. Where the magnitudes
+    overflow, the order decides whether a partial sum does.)"""
+    assert got.shape == want.shape and got.dtype == want.dtype == F32
+    c = got.numel()
+    nan = terms.isnan().sum_to_size((1, c, 1, 1)).view(-1) > 0
+    assert bool(got[nan].isnan().all() and want[nan].isnan().all())
+    finite = terms.isfinite().all(0).all(1).all(1)
+    mag = terms.double().abs().nan_to_num(0.0, 0.0, 0.0).sum_to_size(
+        (1, c, 1, 1)).view(-1)
+    safe = finite & (mag < torch.finfo(F32).max)
+    err = (got.double() - want.double()).abs()
+    assert bool((err[safe] <= 1e-5 * mag[safe]).all()), float(
+        (err[safe] / mag[safe].clamp_min(1e-300)).max())
+    return int(safe.sum())
+
+
+def _check_backward(g, x, mean, mul, out, dtype, flags):
+    """The kernel's gradients against the plain version's on the card: x's
+    and the residual's bit for bit, the sums by _sums_close; a second call
+    gives the same bits. Returns the kernel's."""
+    before = profiling.counters()
+    got = batchnorm.bn_epilogue_backward(g, x, mean, mul, out, dtype,
+                                         **flags)
+    again = batchnorm.bn_epilogue_backward(g, x, mean, mul, out, dtype,
+                                           **flags)
+    assert profiling.kernel_launches(before)["bn_epilogue_backward"] == 2
+    want = batchnorm.bn_epilogue_backward_ref(g, x, mean, mul, out, dtype,
+                                              **flags)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or _same(a, b)
+    assert _same(got[0], want[0])
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    if flags["residual_grad"]:
+        assert _same(got[1], want[1])
+    else:
+        assert got[1] is None
+    gf = batchnorm.bn_epilogue_backward_ref(   # the masked, widened g
+        g, x, mean, torch.ones_like(mul), out, dtype, **flags)[0]
+    _sums_close(got[2], want[2], gf * (x - mean[:, None, None]))
+    _sums_close(got[3], want[3], gf)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dtype,out_dtype", EPILOGUE_DTYPES,
+                         ids=["bf16", "bf16_to_f32", "f32"])
+@pytest.mark.parametrize("residual", [False, True], ids=["", "res"])
+@pytest.mark.parametrize("relu", [False, True], ids=["", "relu"])
+def test_backward_kernel_equals_plain_version_on_special_values(
+        cuda, relu, residual, dtype, out_dtype, ties):
+    """The backward kernel on the special maps and gradients of
+    test_backward_plain_version_is_autograds_chain, on the card: x's and
+    the residual's gradients bit for bit, the sums as _sums_close says;
+    through FrozenBatchNorm under a gradient (BNEpilogue), one launch of
+    each kernel, the output and x's and the residual's gradients those of
+    autograd through the plain ops."""
+    mod = _bn(16, 3, ties, device=cuda)
+    x, r16, r32 = _maps(ties=ties, device=cuda)
+    res = (r16 if dtype == BF16 else r32) if residual else None
+    with torch.no_grad():
+        out = mod(x, dtype, relu=relu, residual=res, out_dtype=out_dtype)
+    g = _incoming(out, seed=4)
+    flags = dict(relu=relu, residual_grad=residual, out_dtype=out_dtype)
+    mul = mod.mul().detach()
+    _check_backward(g, x, mod.running_mean, mul, out, dtype, flags)
+
+    leaves = [x.clone().requires_grad_(True), mod.weight, mod.bias]
+    if res is not None:
+        leaves.append(res.clone().requires_grad_(True))
+    before = profiling.counters()
+    y = mod(leaves[0], dtype, relu=relu, residual=leaves[3] if residual
+            else None, out_dtype=out_dtype)
+    got = torch.autograd.grad(y, leaves, g)
+    launched = profiling.kernel_launches(before)
+    assert launched["bn_epilogue"] == launched["bn_epilogue_backward"] == 1
+    assert _same(y.detach(), out)
+    y0 = _today_epilogue(mod, leaves[0], dtype, relu, leaves[3] if residual
+                         else None, out_dtype)
+    want = torch.autograd.grad(y0, leaves, g)
+    assert _same(got[0], want[0])
+    if residual:
+        assert _same(got[3], want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["layout", "channels", "alignment",
+                                  "residual_dtype", "vector_alignment"])
+def test_maps_the_kernel_does_not_take_train_on_the_plain_ops(cuda, case):
+    """Under a gradient on the card FrozenBatchNorm takes BNEpilogue only
+    for the maps batchnorm.takes accepts; an NCHW map, C % 8 != 0, a map
+    or a running mean off a 16-byte boundary or a residual in another
+    dtype runs the plain ops as before: no launch, the plain route's
+    output and gradients."""
+    c = 12 if case == "channels" else 16
+    mod = _bn(c, 9, device=cuda)
+    x, r16, r32 = _maps(c=c, seed=5, device=cuda)
+    res = r32 if case == "residual_dtype" else r16
+    if case == "layout":
+        x = x.contiguous()
+    elif case == "alignment":   # 4 bytes past a 16-byte boundary
+        x = torch.empty(x.numel() + 1, device=cuda)[1:].view(
+            2, 5, 7, c).permute(0, 3, 1, 2).copy_(x)
+    elif case == "vector_alignment":
+        mod.running_mean = torch.empty(c + 1, device=cuda)[1:].copy_(
+            mod.running_mean)
+    assert not batchnorm.takes(x, BF16, res, mean=mod.running_mean,
+                               mul=mod.mul(), bias=mod.bias)
+    xg = x.detach().requires_grad_(True)
+    before = profiling.counters()
+    y = mod(xg, BF16, relu=True, residual=res)
+    (gx,) = torch.autograd.grad(y.float().sum(), [xg])
+    launched = profiling.kernel_launches(before)
+    assert launched["bn_epilogue"] == launched["bn_epilogue_backward"] == 0
+    x0 = x.detach().clone().requires_grad_(True)
+    y0 = _today_epilogue(mod, x0, BF16, True, res, None)
+    (gx0,) = torch.autograd.grad(y0.float().sum(), [x0])
+    assert _same(y.detach(), y0.detach()) and _same(gx, gx0)
+
+
+# the distinct BN instances of a ResNet-101 training step at 8 x 640^2 that
+# train (conv3_x at 160^2 in, 80^2 out; conv4_x at 40^2): (shape, relu,
+# residual, out_dtype)
+TRAIN_INSTANCES = [
+    ((8, 128, 160, 160), True, False, F32),    # conv3_x block 0, BN_0
+    ((8, 128, 80, 80), True, False, F32),      # conv3_x BN_1, BN_0
+    ((8, 512, 80, 80), True, True, None),      # conv3_x BN_2
+    ((8, 512, 80, 80), False, False, None),    # conv3_x downsample
+    ((8, 256, 80, 80), True, False, F32),      # conv4_x block 0, BN_0
+    ((8, 256, 40, 40), True, False, F32),      # conv4_x BN_1, BN_0
+    ((8, 1024, 40, 40), True, True, None),     # conv4_x BN_2
+    ((8, 1024, 40, 40), False, False, None),   # conv4_x downsample
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,relu,residual,out_dtype", TRAIN_INSTANCES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else None)
+def test_backward_kernel_at_every_training_instance(cuda, shape, relu,
+                                                    residual, out_dtype):
+    """The backward kernel at each distinct instance of the ResNet-101
+    training cell's step, on maps of the trunk's order of magnitude: x's
+    and the residual's gradients bit for bit against the plain version,
+    the sums as _sums_close says, two calls equal; a float32 (widened
+    output) or bf16 incoming gradient as the instance has it, and the
+    same gradient in NCHW (not channels-last) giving the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + relu)
+    mod = _bn(shape[1], 11, device=cuda)
+    cl = dict(memory_format=torch.channels_last)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2).contiguous(**cl)
+    res = (torch.randn(shape, generator=gen, device=cuda).to(BF16)
+           .contiguous(**cl) if residual else None)
+    with torch.no_grad():
+        out = mod(x, BF16, relu=relu, residual=res, out_dtype=out_dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(out.dtype)
+    g = g.contiguous(**cl)
+    flags = dict(relu=relu, residual_grad=residual, out_dtype=out_dtype)
+    mul = mod.mul().detach()
+    got = _check_backward(g, x, mod.running_mean, mul, out, BF16, flags)
+    nchw = batchnorm.bn_epilogue_backward(g.contiguous(), x,
+                                          mod.running_mean, mul, out, BF16,
+                                          **flags)
+    for a, b in zip(got, nchw):
+        assert (a is None and b is None) or _same(a, b)
+
+
+def _resnet101_train_cfg():
+    """The `tiny` preset's data (2 images of 64^2) on a bf16 ResNet-101
+    trunk, the stem and conv2_x frozen, as the training cell freezes it."""
+    cfg = preset("tiny")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone="resnet101",
+                                  dtype="bfloat16"),
+        train=dataclasses.replace(cfg.train, freeze_backbone_stages=2))
+
+
+def _train_batch(seed, b=2, p=32, g=8):
+    """A `tiny` train batch: images of 64^2, ground-truth boxes, and
+    proposals half around them, half anywhere."""
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (b, 64, 64, 3), generator=gen,
+                           dtype=torch.uint8)
+    xy = torch.rand((b, g, 2), generator=gen) * 36
+    gt = torch.cat([xy, xy + torch.rand((b, g, 2), generator=gen) * 14 + 10],
+                   -1)
+    near = gt[:, torch.randint(0, g, (p // 2,), generator=gen)]
+    near = near + torch.randn(near.shape, generator=gen) * 2
+    fxy = torch.rand((b, p // 2, 2), generator=gen) * 40
+    far = torch.cat([fxy, fxy + torch.rand((b, p // 2, 2), generator=gen)
+                     * 18 + 6], -1)
+    return loop.Batch(
+        images.numpy(), torch.full((b, 2), 64.0).numpy(),
+        torch.cat([near, far], 1).numpy(),
+        torch.ones((b, p), dtype=torch.bool).numpy(), gt.numpy(),
+        torch.randint(1, 5, (b, g), generator=gen,
+                      dtype=torch.int32).numpy(),
+        (torch.arange(g)[None] < torch.tensor([[5], [3]])).numpy())
+
+
+@pytest.mark.cuda
+def test_resnet101_train_step_graphed_equals_eager_and_runs_the_kernels(
+        cuda, monkeypatch):
+    """A ResNet-101 Trainer.step (bf16, stem and conv2_x frozen) with its
+    training stages as CUDA graphs against the same steps eagerly, under
+    cudnn.deterministic: losses and parameters bit for bit over three
+    steps. On an eager step every BN runs kernel N's forward (94
+    launches.bn_epilogue) and each of the 83 that train its backward
+    kernel (83 launches.bn_epilogue_backward); the frozen 11 record
+    nothing."""
+    graphed = loop.stage_graphs
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fn in (("eager", lambda model, mesh=None: None),
+                         ("graphed", graphed)):
+            monkeypatch.setattr(loop, "stage_graphs", fn)
+            trainer = loop.Trainer(_resnet101_train_cfg(), device=cuda)
+            state = trainer.init_state(0)
+            _draw_(trainer.model, seed=12)
+            losses, counts = [], []
+            for seed in range(3):
+                before = profiling.counters()
+                state, m = trainer.step(state, _train_batch(seed))
+                counts.append(profiling.kernel_launches(before))
+                losses.append(m["loss"])
+            runs[name] = (trainer, losses, counts)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (eager, want, counts), (trainer, got, _) = runs["eager"], runs["graphed"]
+    assert trainer.graphs is not None and eager.graphs is None
+    for c in counts:
+        assert c["bn_epilogue"] == 94 and c["bn_epilogue_backward"] == 83
+    for a, b in zip(got, want):
+        assert torch.isfinite(a) and torch.equal(a, b)
+    for (n, a), (_, b) in zip(trainer.model.state_dict().items(),
+                              eager.model.state_dict().items()):
+        assert torch.equal(a, b), n

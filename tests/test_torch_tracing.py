@@ -444,7 +444,8 @@ def test_pool_backward_checks_its_windows_before_its_span(monkeypatch,
 KERNELS = {"window_pool_multi", "window_pool_multi_quant", "resident_pool",
            "resident_pool_quant", "window_pool", "window_grad",
            "window_rmw_grad", "placements", "int8_epilogue", "quantize_rows",
-           "bn_epilogue", "conv1x1_bn", "window_read_probe"}
+           "bn_epilogue", "bn_epilogue_backward", "conv1x1_bn",
+           "window_read_probe"}
 
 
 @pytest.fixture
@@ -476,7 +477,8 @@ def test_a_launch_is_a_counter_and_no_attribute(own_counters):
                roi_pool.window_pool, roi_pool.window_grad,
                roi_pool.window_rmw_grad, roi_pool.place_windows_per_image,
                quant.int8_epilogue, quant.quantize_rows_padded,
-               batchnorm.bn_epilogue, conv_bn.conv1x1_bn,
+               batchnorm.bn_epilogue, batchnorm.bn_epilogue_backward,
+               conv_bn.conv1x1_bn,
                probe.window_read_probe):
         assert vars(fn) == {}, fn.__name__
     for mod in (roi_pool, quant, batchnorm, conv_bn, probe):
